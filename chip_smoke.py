@@ -8,10 +8,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 1. Environment: a CUDA card, TF32 off, the card's name and power limit
    (nvidia-smi), and the kernels built from ``quadraticprogramsolver_tpu_torch/
    csrc`` with the build time.
-2. Each of the four kernels against its plain PyTorch version on the card,
-   at the main path's shapes (n=512, m=256, 512 lanes; the chunk with K=11
-   and every fourth lane inactive), with the stated limit and both times
-   (CUDA events, median of 5).
+2. Each of the five kernels against its plain PyTorch version on the card,
+   at the main paths' shapes (n=512, m=256, 512 lanes; the ADMM chunk with
+   K=11 and every fourth lane inactive; the slab build again with two row
+   blocks me = mi = 128, and the prox chunk at n=512, me = mi = 128, K=25,
+   every fourth lane inactive), with the stated limit, both times (CUDA
+   events, median of 5), the time of one PyTorch call that computes the same
+   function where there is one, and the kernel's bound: the larger of its
+   bytes (each input read once, each output written once) over 3.35 TB/s and
+   its FLOPs over 67 TFLOP/s (FP32), the H100 SXM's published peaks.
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
@@ -22,6 +27,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    no jax); max |x - x_ref|_inf must be <= 1e-4.
 5. The literal n=500, m=250, B=4096 shape through the solver's auto-pad,
    audited on the unpadded problem.
+6. The prox-ALM family: a seeded B=4096, n=512, n_eq = n_ineq = 128
+   split-form fleet (problems/prox_fleet.py) solved by ``solve_proxqp`` with
+   the sigma-free fused knobs at static rho = 0.0125 and again at adaptive
+   rho (rho0 = 0.1, which must refactor in the loop). Every lane must end
+   with status 3, the slab, pivot, level and prox chunk kernels must all
+   launch, and 8 lanes (4 spread, the 4 other converged lanes with the most
+   iterations) re-solved by the f64 oracle on the lowered box form must agree
+   within 1e-4. Each run starts at eps 5e-5 and is repeated at 2e-5, then
+   1e-5, while the audit fails; the eps used is printed.
+
+``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve
+(kernel time by name and the device's idle share).
 
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -44,7 +61,10 @@ SEED = 1234
 DEVICE = "cuda"
 N, M, B_MAIN = 512, 256, 4096
 B_KERNEL, K_CHUNK = 512, 11
+ME, MI, K_PROX = 128, 128, 25
 AUDIT_TARGET = 1e-4
+#: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
+PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 #: Kernel-vs-plain limit on max|kernel - plain| / max(max|plain|, 1). Both
 #: sides are FP32 with the same operation order per element except for sum
 #: order and FMA contraction; the pivot blocks of this family are
@@ -52,6 +72,9 @@ AUDIT_TARGET = 1e-4
 #: times the reduction depth (<= 512): 1e-5 as in tests/test_fused_admm.py.
 LIMIT = 1e-5
 
+#: The kernels each main path must launch.
+ADMM_PATH = ("slab_build", "pivot_sweep_v3", "slab_level", "admm_chunk")
+PROX_PATH = ("slab_build", "pivot_sweep_v3", "slab_level", "prox_chunk")
 KERNELS = {
     "slab_build": ("csrc/slab_build.cu",
                    "quadraticprogramsolver_tpu/ops/fused_factor.py:80"),
@@ -61,6 +84,8 @@ KERNELS = {
                    "quadraticprogramsolver_tpu/ops/fused_factor.py:131"),
     "admm_chunk": ("csrc/admm_chunk.cu",
                    "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
+    "prox_chunk": ("csrc/prox_chunk.cu",
+                   "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
 }
 
 
@@ -120,16 +145,34 @@ def compare(name, kern, plain, failures):
     return err
 
 
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def slab_build_bound(B, n, ms):
+    m = sum(ms)
+    kp = -(-(m + 1) // 64) * 64
+    nbytes = 4 * (B * n * n + B * m * n + B * n + B * m + B * n * (kp + n))
+    # P + sum A_i' W_i A_i is symmetric: n(n+1)/2 entries of 2m FLOPs each.
+    return bound(nbytes, B * n * (n + 1) * m)
+
+
 def phase_kernels(torch):
-    from quadraticprogramsolver_tpu_torch.ops import fused_admm, fused_factor, spd_kernels
+    from quadraticprogramsolver_tpu_torch.ops import (
+        fused_admm, fused_factor, fused_proxqp, spd_kernels)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
         device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     qp = device_random_qp_fleet(B_KERNEL, N, M, generator=g)
     rho_row = torch.full((B_KERNEL, M), 0.4, device=DEVICE)
     sigma = 1e-6
     kp = fused_factor.slab_k(M)
+    # name -> (max abs err, kernel ms, plain ms, library ms, (bound ms, by))
     out, failures = {}, []
 
     args = (qp.P, qp.A, qp.q, rho_row, sigma)
@@ -137,7 +180,8 @@ def phase_kernels(torch):
     Sp = fused_factor.build_slab_plain(*args)
     out["slab_build"] = (compare("slab_build", Sk, Sp, failures),
                          cuda_ms(lambda: fused_factor.build_slab(*args)),
-                         cuda_ms(lambda: fused_factor.build_slab_plain(*args)))
+                         cuda_ms(lambda: fused_factor.build_slab_plain(*args)),
+                         None, slab_build_bound(B_KERNEL, N, (M,)))
     del Sk
 
     j = N // 128 - 1
@@ -148,7 +192,10 @@ def phase_kernels(torch):
     out["pivot_sweep_v3"] = (
         compare("pivot_sweep_v3", Dk, Dp, failures),
         cuda_ms(lambda: spd_kernels.spd_inverse_unrolled(D)),
-        cuda_ms(lambda: spd_kernels.pivot_sweep_v3_plain(D)))
+        cuda_ms(lambda: spd_kernels.pivot_sweep_v3_plain(D)),
+        cuda_ms(lambda: torch.linalg.inv(D)),
+        # An SPD inverse (Cholesky, then the inverse from it) is n^3 FLOPs.
+        bound(4 * 2 * B_KERNEL * 128 * 128, B_KERNEL * 128 ** 3))
 
     S1, S2 = Sp.clone(), Sp.clone()
     fused_factor.slab_level(S1, Dp, j, w_out)
@@ -161,12 +208,17 @@ def phase_kernels(torch):
     del S1, S2
     scratch = torch.empty((B_KERNEL, 128, w_out), device=DEVICE)
     clone = lambda: (Sp.clone(),)  # noqa: E731 — a fresh slab per timed call
+    level_bytes = 4 * B_KERNEL * (N * (w_out + 128) + 128 * 128 + N * w_out)
+    # Dinv . (pivot rows) for the 128 pivot rows, S - C . DinvT for the
+    # other N - 128: 2 * 128 * w_out FLOPs per row, N rows.
+    level_flops = 2 * B_KERNEL * 128 * w_out * N
     out["slab_level"] = (
         err,
         cuda_ms(lambda S: fused_factor.slab_level(S, Dp, j, w_out, scratch),
                 setup=clone),
         cuda_ms(lambda S: fused_factor.slab_level_plain(S, Dp, j, w_out),
-                setup=clone))
+                setup=clone),
+        None, bound(level_bytes, level_flops))
     del Sp, D, Dk, Dp, scratch
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho_row, sigma=sigma)
@@ -176,6 +228,7 @@ def phase_kernels(torch):
     z = torch.randn((B_KERNEL, M), generator=g, device=DEVICE)
     y = torch.randn((B_KERNEL, M), generator=g, device=DEVICE)
     active = torch.arange(B_KERNEL, device=DEVICE) % 4 != 3
+    n_act = int(active.sum())
     cargs = (G, qp.A, gv, qp.l, qp.u, x, z, y, rho_row, active)
     kw = dict(K=K_CHUNK, alpha=1.6)
     ck = fused_admm.fused_admm_chunk(*cargs, **kw)
@@ -186,23 +239,75 @@ def phase_kernels(torch):
             and torch.equal(ck[3][frozen], x[frozen])
             and torch.equal(ck[4][frozen], z[frozen])):
         failures.append("admm_chunk: a frozen lane did not pass through")
+    # G for the active lanes, A for every lane (the check products), the
+    # vectors in (g, x, l, u, rho, z, y) and out (x, xp, A'y, z, y, zp, Ax).
+    admm_bytes = 4 * (n_act * N * M + B_KERNEL * M * N
+                      + B_KERNEL * (2 * N + 5 * M) + B_KERNEL * (3 * N + 4 * M))
+    admm_flops = 4 * N * M * (n_act * K_CHUNK + B_KERNEL)
     out["admm_chunk"] = (err,
                          cuda_ms(lambda: fused_admm.fused_admm_chunk(*cargs, **kw)),
-                         cuda_ms(lambda: fused_admm.fused_admm_chunk_plain(*cargs, **kw)))
-    for name, (e, ms, pms) in out.items():
-        log(f"[phase 2] {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms "
-            f"(B={B_KERNEL}, n={N}, m={M}, median of 5)")
+                         cuda_ms(lambda: fused_admm.fused_admm_chunk_plain(*cargs, **kw)),
+                         None, bound(admm_bytes, admm_flops))
+    del qp, G, gv, cargs, ck, cp, rho_row
+
+    # The prox family's shapes: the two-block build, then the prox chunk.
+    prob = device_prox_fleet(B_KERNEL, N, ME, MI, generator=g)
+    rho = 0.0125 * (1.0 + torch.rand(B_KERNEL, generator=g, device=DEVICE))
+    rho_row = rho[:, None].expand(B_KERNEL, ME + MI).contiguous()
+    blocks = (prob.A, prob.C)
+    bargs = (prob.P, blocks, prob.q, rho_row, 0.0)
+    Sk = fused_factor.build_slab(*bargs)
+    Sp = fused_factor.build_slab_plain(*bargs)
+    out["slab_build_two_block"] = (
+        compare("slab_build (two blocks)", Sk, Sp, failures),
+        cuda_ms(lambda: fused_factor.build_slab(*bargs)),
+        cuda_ms(lambda: fused_factor.build_slab_plain(*bargs)),
+        None, slab_build_bound(B_KERNEL, N, (ME, MI)))
+    del Sk, Sp
+    S = fused_factor.fused_factor_solve(prob.P, blocks, prob.q, rho_row,
+                                        sigma=0.0)
+    mt = ME + MI
+    G, gv = S[..., :mt].contiguous(), S[..., mt].contiguous()
+    del S
+    x = torch.randn((B_KERNEL, N), generator=g, device=DEVICE)
+    s = torch.rand((B_KERNEL, MI), generator=g, device=DEVICE)
+    y = torch.randn((B_KERNEL, ME), generator=g, device=DEVICE)
+    z = torch.rand((B_KERNEL, MI), generator=g, device=DEVICE)
+    pargs = (G, prob.A, prob.C, gv, prob.b, prob.d, x, s, y, z, rho, active)
+    pk = fused_proxqp.fused_proxqp_chunk(*pargs, K=K_PROX)
+    pp = fused_proxqp.fused_proxqp_chunk_plain(*pargs, K=K_PROX)
+    err = compare("prox_chunk", pk, pp, failures)
+    if not all(torch.equal(o[frozen], v[frozen])
+               for o, v in zip(pk, (x, s, y, z))):
+        failures.append("prox_chunk: a frozen lane did not pass through")
+    # G, A and C for the active lanes; the vectors in (g, x, b, y, d, s, z,
+    # rho, active) and out (x, y, s, z).
+    prox_bytes = 4 * (n_act * (N * mt + mt * N)
+                      + B_KERNEL * (2 * N + 2 * ME + 3 * MI + 2)
+                      + B_KERNEL * (N + ME + 2 * MI))
+    prox_flops = n_act * K_PROX * 4 * N * mt
+    out["prox_chunk"] = (
+        err, cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk(*pargs, K=K_PROX)),
+        cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_plain(*pargs, K=K_PROX)),
+        None, bound(prox_bytes, prox_flops))
+    for name, (e, ms, pms, lms, (bms, by)) in out.items():
+        lib = "none" if lms is None else f"{lms:.4f} ms"
+        log(f"[phase 2] {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"library {lib}, bound {bms:.4f} ms ({by}) (B={B_KERNEL}, "
+            f"median of 5)")
     require(not failures, "; ".join(failures))
     return out
 
 
 def counters():
-    from quadraticprogramsolver_tpu_torch.ops import fused_admm, fused_factor, spd_kernels
+    from quadraticprogramsolver_tpu_torch.ops import (
+        fused_admm, fused_factor, fused_proxqp, spd_kernels)
 
     return {"slab_build": fused_factor.build_slab,
             "pivot_sweep_v3": spd_kernels.spd_inverse_unrolled,
             "slab_level": fused_factor.slab_level,
-            "admm_chunk": fused_admm.fused_admm_chunk}
+            "admm_chunk": fused_admm.fused_admm_chunk,
+            "prox_chunk": fused_proxqp.fused_proxqp_chunk}
 
 
 def load_oracle():
@@ -238,14 +343,14 @@ def audit(qp, x, status, iters, label):
     return worst_dev
 
 
-def run_main(torch, pkg, qp, settings):
+def run_main(torch, solve):
     """Warm solve, then best of 3; returns (solution, best seconds)."""
-    sol = pkg.solve(qp, settings)
+    sol = solve()
     torch.cuda.synchronize()
     best = None
     for _ in range(3):
         t0 = time.perf_counter()
-        sol = pkg.solve(qp, settings)
+        sol = solve()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         best = dt if best is None else min(best, dt)
@@ -253,13 +358,18 @@ def run_main(torch, pkg, qp, settings):
 
 
 def factor_seconds(torch, qp, settings):
-    from quadraticprogramsolver_tpu_torch.models import kkt
+    """Best of 4: the factor of the solve's first pass, timed alone."""
+    from quadraticprogramsolver_tpu_torch.models import kkt, proxqp
 
     rho = torch.full(qp.batch_shape, settings.rho, device=qp.device)
     best = None
     for _ in range(4):
         t0 = time.perf_counter()
-        cache = kkt.cholesky_init(qp, rho, settings.sigma_for(qp.dtype), settings)
+        if isinstance(settings, proxqp.ProxQPSettings):
+            cache = proxqp._build_sigma_free_cache(qp, rho, settings)
+        else:
+            cache = kkt.cholesky_init(qp, rho, settings.sigma_for(qp.dtype),
+                                      settings)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         del cache
@@ -285,6 +395,154 @@ def report_solve(qp, sol, dt, fdt, label):
     require(solved == B, f"{label}: {B - solved} lanes did not end with "
             "status 2 or 3")
     return x, status, iters
+
+
+def reset(cnt):
+    for fn in cnt.values():
+        fn.launches = 0
+
+
+def read(cnt, path, label):
+    """Launch counts of one path's run; every kernel of the path must move."""
+    launches = {k: cnt[k].launches for k in path}
+    log(f"[{label}] kernel launches: {launches}")
+    require(all(v > 0 for v in launches.values()),
+            f"{label}: a kernel of the path never launched: {launches}")
+    return launches
+
+
+def prox_audit(pkg, prob, sol, label):
+    """Max |x - x_ref|_inf over 4 spread + the 4 other converged lanes with
+    the most iterations (ties broken by the larger final residual), each
+    re-solved in f64 on its lowered box form."""
+    import numpy as np
+
+    oracle = load_oracle()
+    status = sol.info.status.cpu().numpy()
+    iters = sol.info.iterations.cpu().numpy()
+    res = np.maximum(sol.info.res_prim.cpu().numpy(),
+                     sol.info.res_dual.cpu().numpy())
+    x = sol.x.double().cpu().numpy()
+    spread = np.linspace(0, status.size - 1, 4).astype(int)
+    conv = np.setdiff1d(np.where(status == 3)[0], spread)
+    worst = conv[np.lexsort((res[conv], iters[conv]))[-4:]]
+    idx = sorted(spread.tolist() + worst.tolist())
+    devs = []
+    for i in idx:
+        lane = pkg.ProxQPProblem(*(t[i:i + 1] for t in prob.tensors()))
+        P, q, A, l, u = (t[0].double().cpu().numpy()
+                         for t in lane.to_box_qp().tensors())
+        ref = oracle.solve_qp_reference(P, q, A, l, u, eps_abs=1e-7,
+                                        eps_rel=1e-7, rho=0.1,
+                                        max_iterations=50000, linsys="splu")
+        require(ref.status == 3, f"{label}: oracle did not converge on lane {i}")
+        devs.append(float(np.abs(x[i] - ref.x).max()))
+    worst_dev = max(devs)
+    log(f"[{label}] audit max|x - x_ref|_inf over {len(devs)} lanes "
+        f"{idx} = {worst_dev:.3e} (target {AUDIT_TARGET:.0e})")
+    return worst_dev
+
+
+def report_prox(prob, sol, dt, fdt, label):
+    import numpy as np
+
+    status = sol.info.status.cpu().numpy()
+    iters = sol.info.iterations.cpu().numpy()
+    x = sol.x.cpu().numpy()
+    B = status.size
+    solved = int((status == 3).sum())
+    log(f"[{label}] B={B}: solve {dt * 1e3:.2f} ms (best of 3), solved "
+        f"{solved}/{B}, {solved / dt:.1f} solves/s, factor "
+        f"{fdt * 1e3:.2f} ms, iterate {(dt - fdt) * 1e3:.2f} ms, iterations "
+        f"p50 {np.median(iters):.0f} max {iters.max()}, statuses "
+        f"{ {int(k): int(v) for k, v in zip(*np.unique(status, return_counts=True))} }")
+    require(bool(np.isfinite(x).all()) and x.shape == (B, prob.n),
+            f"{label}: non-finite or misshapen x")
+    require(solved == B, f"{label}: {B - solved} lanes did not end with "
+            "status 3")
+
+
+def profile_solve(torch, solve, label):
+    """One profiled solve: device kernel time by name and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solve()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_ms(e):
+        v = getattr(e, "self_device_time_total", None)
+        return (v if v is not None else e.self_cuda_time_total) / 1e3
+
+    # Device-side events only (kernels, copies): the host ops that launched
+    # them carry the same time again.
+    rows = sorted(((dev_ms(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_ms(e) > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[{label}] profiled solve: wall {wall:.2f} ms, device kernels "
+        f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}")
+    for ms, count, key in rows[:15]:
+        log(f"[{label}]   {ms:9.3f} ms  {count:5d} x  {key[:90]}")
+
+
+def phase_prox(torch, pkg, cnt, profile):
+    """Phase 6: the prox-ALM fleet at static and at adaptive rho."""
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    prob = device_prox_fleet(B_MAIN, N, ME, MI, generator=g)
+    torch.cuda.synchronize()
+    base = dict(max_iterations=2000, check_interval=25, kkt_warm_start=False,
+                kkt_refinement_steps=0, sigma_free_rhs=True, fused_chunk=True,
+                require_fused=True)
+    levels = N // 128  # pivot launches per factor
+    launches = None
+    for adaptive, rho in ((False, 0.0125), (True, 0.1)):
+        kind = "adaptive" if adaptive else "static"
+        # The audit picks the lanes that exit nearest eps, and adaptive rho
+        # exits right at it (ROADMAP "Audit margin"): tighten eps until the
+        # audit passes.
+        for eps in (5e-5, 2e-5, 1e-5):
+            settings = pkg.ProxQPSettings(eps_abs=eps, eps_rel=eps, rho=rho,
+                                          adaptive_rho=adaptive, **base)
+            label = f"phase 6 {kind} rho, eps {eps:.0e}"
+            torch.cuda.reset_peak_memory_stats()
+            reset(cnt)
+            sol = pkg.solve_proxqp(prob, settings)
+            torch.cuda.synchronize()
+            counts = read(cnt, PROX_PATH, label)
+            log(f"[{label}] peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            if adaptive:
+                require(counts["pivot_sweep_v3"] > levels,
+                        f"{label}: no refactor ({counts['pivot_sweep_v3']} "
+                        f"pivot launches, {levels} per factor)")
+                log(f"[{label}] refactors: "
+                    f"{counts['pivot_sweep_v3'] // levels - 1}")
+            else:
+                launches = counts
+            del sol
+            sol, dt = run_main(torch, lambda: pkg.solve_proxqp(prob, settings))
+            fdt = factor_seconds(torch, prob, settings)
+            report_prox(prob, sol, dt, fdt, label)
+            dev = prox_audit(pkg, prob, sol, label)
+            del sol
+            if dev <= AUDIT_TARGET:
+                break
+        require(dev <= AUDIT_TARGET, f"phase 6 {kind} rho: audit {dev:.3e} > "
+                f"{AUDIT_TARGET:.0e} at eps 1e-5")
+        if profile and not adaptive:
+            profile_solve(torch, lambda: pkg.solve_proxqp(prob, settings),
+                          "phase 6 profile")
+    return launches
 
 
 def main() -> int:
@@ -331,18 +589,14 @@ def main() -> int:
     qp = device_random_qp_fleet(B_MAIN, N, M, generator=g)
     torch.cuda.synchronize()
     cnt = counters()
-    for fn in cnt.values():
-        fn.launches = 0
+    reset(cnt)
     sol = pkg.solve(qp, static)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in cnt.items()}
-    log(f"[phase 3] kernel launches in one main-path solve: {launches}")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+    launches = read(cnt, ADMM_PATH, "phase 3 main-path solve")
     del sol
     for settings, label in ((static, "phase 3 static rho"),
                             (adaptive, "phase 3 adaptive rho")):
-        sol, dt = run_main(torch, pkg, qp, settings)
+        sol, dt = run_main(torch, lambda: pkg.solve(qp, settings))
         fdt = factor_seconds(torch, qp, settings)
         x, status, iters = report_solve(qp, sol, dt, fdt, label)
         del sol
@@ -355,7 +609,7 @@ def main() -> int:
     qp = device_random_qp_fleet(B_MAIN, 500, 250, generator=g)
     p = pkg.plan(qp, static)
     require(p.padded == (512, 256), f"500/250 plan did not pad: {p}")
-    sol, dt = run_main(torch, pkg, qp, static)
+    sol, dt = run_main(torch, lambda: pkg.solve(qp, static))
     fdt = factor_seconds(torch, pkg.pad_qp(qp, 512, 256), static)
     x, status, iters = report_solve(qp, sol, dt, fdt,
                                     "phase 5 500/250 static rho")
@@ -363,11 +617,28 @@ def main() -> int:
     audit(qp, x, status, iters, "phase 5 500/250 static rho")
     del qp
 
-    kernels = [{"name": name, "route": "cuda",
-                "source": f"{PKG}/{src}", "replaces": rep,
-                "launches": launches[name], "max_abs_err": kstats[name][0],
-                "ms": kstats[name][1], "plain_ms": kstats[name][2]}
-               for name, (src, rep) in KERNELS.items()]
+    # Phase 6: the prox-ALM family.
+    prox_launches = phase_prox(torch, pkg, cnt, "--profile" in sys.argv[1:])
+
+    def entry(name, src, rep):
+        err, ms, pms, lms, (bms, by) = kstats[name]
+        by_path = {"admm": launches.get(name), "prox": prox_launches.get(name)}
+        e = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+             "replaces": rep,
+             # Its own path's count: the ADMM path's for the kernels both
+             # paths share, the prox path's for the prox chunk.
+             "launches": launches.get(name, prox_launches.get(name)),
+             "launches_by_path": {k: v for k, v in by_path.items()
+                                  if v is not None},
+             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+             "bound_by": by, "library_ms": lms}
+        if name == "slab_build":
+            err2, ms2, pms2, _, (bms2, by2) = kstats["slab_build_two_block"]
+            e["two_block"] = {"max_abs_err": err2, "ms": ms2, "plain_ms": pms2,
+                              "bound_ms": bms2, "bound_by": by2}
+        return e
+
+    kernels = [entry(name, src, rep) for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (nvcc into a shared library, ctypes).
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call for ``sm_90a`` into
+Each ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into
 ``_build/libqps_kernels_<hash>.so`` inside this package (git-ignored), at the
 first call that needs a kernel. The hash covers every source and header, so
 an edited source rebuilds. The library has a plain C interface: every pointer
@@ -26,14 +27,15 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "qps_slab_build": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "qps_slab_build": (_P,) * 6 + (_I, _I, _I, _I, _I, _F, _P),
     "qps_pivot_sweep_v3": (_P, _L, _L, _P, _I, _P),
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "qps_admm_chunk": (_P,) * 17 + (_I, _I, _I, _I, _F, _P),
+    "qps_prox_chunk": (_P,) * 16 + (_I, _I, _I, _I, _I, _P),
 }
 
 
@@ -69,6 +71,39 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(cu) -> tuple[Path, str]:
+    """Compile every source (one nvcc process each, in parallel) and link
+    them into one shared library in a fresh temporary directory under
+    BUILD_DIR; returns the library's path there and nvcc's output."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    procs = [(p, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", str(p), "-o",
+         str(tmp / f"{p.stem}.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for p in cu]
+    logs, failed = [], []
+    for p, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"--- {p.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(p.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp / "lib.so"),
+             *(str(tmp / f"{p.stem}.o") for p in cu)],
+            capture_output=True, text=True)
+        logs.append(f"--- link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    log = "\n".join(logs)
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
+    return tmp / "lib.so", log
+
+
 @functools.cache
 def load() -> KernelLibrary:
     """Build (if the sources changed) and load the kernel library."""
@@ -76,19 +111,11 @@ def load() -> KernelLibrary:
     path = BUILD_DIR / f"libqps_kernels_{source_hash()}.so"
     build_seconds, log = 0.0, ""
     if not path.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp,
-               *(str(p) for p in cu)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        built, log = _compile(cu)
         build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+        os.replace(built, path)  # atomic: a concurrent loader sees all or nothing
+        shutil.rmtree(built.parent, ignore_errors=True)
     lib = ctypes.CDLL(str(path))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)

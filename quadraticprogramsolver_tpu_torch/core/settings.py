@@ -2,7 +2,7 @@
 
 Same field names and defaults as ``quadraticprogramsolver_tpu.core.settings``
 (that module cannot be imported here: its package imports jax). The port
-implements a slice of the knobs; the validator RAISES on every knob the slice
+implements a slice of the knobs; each validator RAISES on every knob the slice
 does not implement instead of ignoring it, so a configuration never runs a
 path other than the one it names.
 """
@@ -135,6 +135,94 @@ class Settings:
         if self.sigma_free_rhs:
             return self.sigma
         return sigma_for(self.sigma, dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProxQPSettings:
+    """Prox-ALM (ProxQP-style) solver settings (frozen, hashable); the same
+    fields, defaults and checks as the JAX package's ProxQPSettings."""
+
+    max_iterations: int = 2000
+    eps_abs: float = 1e-7
+    eps_rel: float = 1e-6
+    check_interval: int = 50
+    rho: float = 1e2
+    sigma: float = 1e-2
+    adaptive_rho: bool = True
+    #: Residual-ratio trigger of the double-square-root rho update.
+    tau: float = 10.0
+    rho_min: float = 1e-5
+    rho_max: float = 1e5
+    kkt_refinement_steps: int = 1
+    #: Inner-CG controls of the matrix-free path (not ported: dense only).
+    cg_eps: float = 1e-9
+    cg_max_iterations: int = 200
+    cg_rel_eps: float = 0.0
+    #: Stop once every lane has finished; False runs the full budget like
+    #: the reference, latching converged lanes and freezing infeasible ones.
+    early_exit: bool = True
+    #: Run each check interval as one launch of the prox chunk kernel
+    #: (csrc/prox_chunk.cu). Requires sigma_free_rhs in this port.
+    fused_chunk: bool = False
+    chunk_lanes: int = 1
+    chunk_dot_precision: str = "highest"
+    first_chunk_dot_precision: str | None = None
+    #: Start from the equality-KKT solve (False: from zeros).
+    kkt_warm_start: bool = True
+    anderson_memory: int = 0
+    anderson_reg: float = 1e-8
+    #: Exact ALM (sigma dropped) with the cached columns Ga = M^{-1}A',
+    #: Gc = M^{-1}C', g = M^{-1}q, M = P + rho(A'A + C'C); built by the slab
+    #: kernels with A and C as two row blocks. Excludes refinement.
+    sigma_free_rhs: bool = False
+    check_infeasibility: bool = True
+    eps_prim_inf: float = 1e-4
+    eps_dual_inf: float = 1e-4
+    record_history: bool = False
+    #: Raise at setup when a requested kernel will not run (models/plan.py).
+    require_fused: bool = False
+
+    def __post_init__(self):
+        if self.max_iterations < 1:
+            raise ValueError("max_iterations must be positive")
+        if self.check_interval < 1:
+            raise ValueError("check_interval must be positive")
+        if self.chunk_lanes < 1:
+            raise ValueError("chunk_lanes must be >= 1 (0 would divide by "
+                             "zero in the lane fallback; negatives disable it)")
+        if self.first_chunk_dot_precision is not None:
+            if self.first_chunk_dot_precision not in ("default", "high",
+                                                      "highest"):
+                raise ValueError("first_chunk_dot_precision must be one of "
+                                 "'default'/'high'/'highest'")
+            if not (self.fused_chunk and self.sigma_free_rhs):
+                raise ValueError("first_chunk_dot_precision needs the fused "
+                                 "sigma-free prox chunk (fused_chunk + "
+                                 "sigma_free_rhs)")
+        for name, reason in _prox_unimplemented(self):
+            raise NotImplementedError(
+                f"ProxQPSettings.{name}: {reason} is not implemented by the "
+                "PyTorch port yet (see ROADMAP.md)")
+
+    @property
+    def num_checks(self) -> int:
+        return -(-self.max_iterations // self.check_interval)
+
+
+def _prox_unimplemented(s: ProxQPSettings):
+    """(field, reason) for every prox knob this slice of the port rejects."""
+    if s.chunk_lanes != 1:
+        yield "chunk_lanes", "lane interleave (a TPU layout knob)"
+    if s.chunk_dot_precision != "highest":
+        yield "chunk_dot_precision", "a reduced-precision chunk"
+    if s.first_chunk_dot_precision is not None:
+        yield "first_chunk_dot_precision", "the first-chunk precision schedule"
+    if s.anderson_memory > 0:
+        yield "anderson_memory", "Anderson acceleration"
+    if s.record_history:
+        yield "record_history", "residual history"
+    if s.fused_chunk and not s.sigma_free_rhs:
+        yield "fused_chunk", "the M^{-1}-form prox chunk (needs sigma_free_rhs)"
 
 
 def _unimplemented(s: Settings):

@@ -34,32 +34,6 @@ using qps::i64;
 namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-
-// out(row) = sum_c M[row, c] * v[c] for row < rows; cols % 128 == 0.
-template <typename Store>
-__device__ __forceinline__ void warp_rows_dot(const float* __restrict__ M,
-                                              int cols, const float* v,
-                                              int rows, Store store) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float4* v4 = reinterpret_cast<const float4*>(v);
-  const int c4n = cols / 4;
-#pragma unroll 2
-  for (int row = warp; row < rows; row += WARPS) {
-    const float4* r4 = reinterpret_cast<const float4*>(M + (i64)row * cols);
-    float s = 0.0f;
-    for (int c4 = lane; c4 < c4n; c4 += 32) {
-      const float4 a = __ldg(r4 + c4);
-      const float4 b = v4[c4];
-      s = fmaf(a.x, b.x, s);
-      s = fmaf(a.y, b.y, s);
-      s = fmaf(a.z, b.z, s);
-      s = fmaf(a.w, b.w, s);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) store(row, s);
-  }
-}
 }  // namespace
 
 __global__ void __launch_bounds__(THREADS)
@@ -110,9 +84,10 @@ admm_chunk_kernel(const float* __restrict__ G, const float* __restrict__ A,
     for (int it = 0; it < K; ++it) {
       for (int r = tid; r < m; r += THREADS) tt[r] = rh[r] * z[r] - y[r];
       __syncthreads();
-      warp_rows_dot(Gb, m, tt, n, [&](int i, float s) { xx[i] = s - gv[i]; });
+      qps::warp_rows_dot<WARPS>(Gb, m, tt, n,
+                                [&](int i, float s) { xx[i] = s - gv[i]; });
       __syncthreads();
-      warp_rows_dot(Ab, n, xx, m, [&](int r, float s) { zz[r] = s; });
+      qps::warp_rows_dot<WARPS>(Ab, n, xx, m, [&](int r, float s) { zz[r] = s; });
       __syncthreads();
       for (int i = tid; i < n; i += THREADS) {
         const float xprev = x[i];
@@ -140,7 +115,7 @@ admm_chunk_kernel(const float* __restrict__ G, const float* __restrict__ A,
     zpo[bm + r] = zp[r];
     yo[bm + r] = y[r];
   }
-  warp_rows_dot(Ab, n, x, m, [&](int r, float s) { Axo[bm + r] = s; });
+  qps::warp_rows_dot<WARPS>(Ab, n, x, m, [&](int r, float s) { Axo[bm + r] = s; });
   for (int i = tid; i < n; i += THREADS) {
     float s = 0.0f;
     for (int r = 0; r < m; ++r) s = fmaf(__ldg(Ab + (i64)r * n + i), y[r], s);

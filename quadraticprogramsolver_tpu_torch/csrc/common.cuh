@@ -6,6 +6,9 @@
 // shared memory 16 deep. It is the classic SIMT SGEMM shape: each k step costs
 // two 16-byte shared loads for 16 FMAs per thread. Simple and correct first;
 // wgmma/TMA pipelines are later work.
+//
+// warp_rows_dot: the row-by-row matrix-vector product of the two chunk
+// kernels (admm_chunk.cu, prox_chunk.cu).
 
 #pragma once
 
@@ -75,6 +78,37 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ a, i64 lda,
         for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
     }
     __syncthreads();
+  }
+}
+
+// out(row) = sum_c M[row, c] * v[c] for row < rows, one warp per row: each
+// lane reads 16 bytes at a time (neighbouring lanes on neighbouring
+// addresses) and a shuffle tree sums the 32 partial dots; lane 0 calls
+// store(row, sum). M is row-major with `cols` floats a row, cols % 4 == 0,
+// M and v 16-byte aligned. v may live in shared memory. Warps of the block
+// take rows round robin, so the block needs kWarps warps.
+template <int kWarps, typename Store>
+__device__ __forceinline__ void warp_rows_dot(const float* __restrict__ M,
+                                              int cols, const float* v,
+                                              int rows, Store store) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  const int c4n = cols / 4;
+#pragma unroll 2
+  for (int row = warp; row < rows; row += kWarps) {
+    const float4* r4 = reinterpret_cast<const float4*>(M + (i64)row * cols);
+    float s = 0.0f;
+    for (int c4 = lane; c4 < c4n; c4 += 32) {
+      const float4 a = __ldg(r4 + c4);
+      const float4 b = v4[c4];
+      s = fmaf(a.x, b.x, s);
+      s = fmaf(a.y, b.y, s);
+      s = fmaf(a.z, b.z, s);
+      s = fmaf(a.w, b.w, s);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) store(row, s);
   }
 }
 

@@ -1,6 +1,7 @@
 """Static execution plan: which kernel path will a solve take?
 
-Counterpart of the JAX package's models/plan.py (box-form family only).
+Counterpart of the JAX package's models/plan.py: :func:`plan` for the
+box-form ADMM family, :func:`plan_proxqp` for the prox-ALM family.
 Every gate is static (shapes, dtype, device, settings), so the path is known
 before the solve starts, and ``Settings.require_fused`` turns any requested
 kernel that would not run into an error instead of a silent slowdown.
@@ -24,19 +25,25 @@ from . import kkt as kkt_mod
 class SolvePlan:
     """Static description of the kernel paths one solve will execute."""
 
-    #: Resolved KKT backend ("cholesky").
+    #: Resolved KKT backend ("cholesky"; "prox_alm" for the prox family).
     backend: str
     #: Chunk implementation: "fused_kernel" or "torch".
     chunk: str
-    #: Factor implementation: "fused_slab", "torch_cholesky_solve" or
-    #: "torch_inverse".
+    #: Factor implementation: "fused_slab", "torch_cholesky_solve",
+    #: "torch_inverse" or "prepared" (a prox solve with a prepared factor).
     factor: str
-    #: KKT cache layout: "G_g" or "M_inv".
+    #: KKT cache layout: "G_g" or "M_inv" (ADMM); "Ga_Gc_g" or "M_inv" (prox).
     cache: str
-    #: (n_pad, m_pad) when the solve pads to 128-multiples; else None.
+    #: (n_pad, m_pad) when the solve pads to 128-multiples ((n_pad, me_pad,
+    #: mi_pad) for the prox family); else None.
     padded: tuple | None
     #: Why requested kernels will NOT run (empty = all on).
     fallback_reasons: tuple = ()
+    #: Lanes interleaved per chunk launch (always 1: lane interleave is a
+    #: TPU layout knob the port rejects).
+    lanes: int = 1
+    #: Precision of the chunk's products (always "highest": true FP32).
+    dot_precision: str = "highest"
 
 
 def _dtype_reason(dtype, device):
@@ -122,6 +129,65 @@ def plan(qp, settings: Settings) -> SolvePlan:
                      fallback_reasons=tuple(reasons))
 
 
+def plan_proxqp(prob, settings, prepared: bool = False) -> SolvePlan:
+    """Execution plan for :func:`models.proxqp.solve` (prox-ALM family).
+
+    ``prepared``: the solve is given a prepared factor. It then runs at the
+    problem's own shape (no auto-pad) with that factor, which this plan
+    models (the JAX plan does not).
+    """
+    reasons = []
+    n, me, mi = prob.n, prob.n_eq, prob.n_ineq
+    batch = prob.batch_shape
+    device = prob.device
+    dtype_reason = _dtype_reason(prob.dtype, device)
+    if device.type not in ("cpu", "cuda"):
+        dtype_reason = f"no kernels for device {device}"
+
+    padded = None
+    if (settings.fused_chunk and not prepared and dtype_reason is None
+            and len(batch) == 1):
+        r128 = lambda v: max(-(-v // 128) * 128, 128)  # noqa: E731
+        tgt = (r128(n), r128(me), r128(mi))
+        if tgt != (n, me, mi):
+            padded = tgt
+            n, me, mi = tgt
+
+    # Why the kernels (the slab factor and the prox chunk) cannot run on
+    # this problem; empty when they can.
+    why = [dtype_reason] if dtype_reason else []
+    if len(batch) != 1:
+        why.append(f"exactly one batch axis is required (got {batch})")
+    if n % 128 or me % 128 or mi % 128 or not (n and me and mi):
+        why.append(f"nonzero 128-multiple dims are required (n={n}, "
+                   f"n_eq={me}, n_ineq={mi})"
+                   + (" — a prepared solve is not padded" if prepared else ""))
+
+    chunk = "torch"
+    if settings.fused_chunk:
+        reasons.extend(f"fused prox chunk: {w}" for w in why)
+        if not why:
+            chunk = "fused_kernel"
+
+    if prepared:
+        factor = "prepared"
+    elif settings.sigma_free_rhs:
+        factor = "torch_cholesky_solve" if why else "fused_slab"
+    else:
+        factor = "torch_inverse"
+    if factor == "fused_slab" and settings.fused_chunk:
+        B = math.prod(batch)
+        if B < 4:
+            reasons.append(
+                f"fused slab factor at B={B} < 4 inverts the pivot blocks by "
+                "Cholesky (the JAX package's size rule): the pivot kernel "
+                "does not run")
+    cache = "Ga_Gc_g" if settings.sigma_free_rhs else "M_inv"
+    return SolvePlan(backend="prox_alm", chunk=chunk, factor=factor,
+                     cache=cache, padded=padded,
+                     fallback_reasons=tuple(reasons))
+
+
 def check_require_fused(p: SolvePlan, family: str = "ADMM") -> None:
     """Raise when a require_fused solve would fall off a requested path."""
     if p.fallback_reasons:
@@ -129,4 +195,4 @@ def check_require_fused(p: SolvePlan, family: str = "ADMM") -> None:
             f"require_fused: the {family} solve would silently fall back:\n- "
             + "\n- ".join(p.fallback_reasons)
             + f"\n(plan: chunk={p.chunk}, factor={p.factor}, cache={p.cache},"
-            f" padded={p.padded})")
+            f" lanes={p.lanes}, padded={p.padded})")

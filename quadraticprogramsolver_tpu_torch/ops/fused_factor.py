@@ -4,14 +4,18 @@ Counterpart of ``quadraticprogramsolver_tpu/ops/fused_factor.py``. The slab
 of lane b is S[b] = [A' | q | 0 | M] with M = P + sigma*I + A' diag(rho) A,
 shape (n, kp + n) where kp = m + 64 (this port's layout: the q column and
 zero pad round A' up to a multiple of 64 columns, not to the TPU's 128).
+A may be a tuple of row blocks (A_0, A_1, ...), the prox-ALM family's (A, C)
+pair: the slab is then [A_0' | A_1' | ... | q | 0 | P + sigma*I +
+sum_i A_i' diag(rho_i) A_i], with rho in block order, and the blocks'
+concatenation is never materialized.
 Block Gauss-Jordan levels run over M's 128-column blocks from the last to
 the first, in place; afterwards S[b, :, :kp] = M^{-1} [A' | q | 0], so
 G = S[:, :, :m] and g = S[:, :, m].
 
-Kernels (CUDA, float32): :func:`build_slab` (csrc/slab_build.cu) and
-:func:`slab_level` (csrc/slab_level.cu); the pivot blocks go through
-:func:`~.spd_kernels.spd_inverse_unrolled` (csrc/pivot_sweep.cu). On CPU
-tensors each wrapper runs its plain PyTorch version.
+Kernels (CUDA, float32): :func:`build_slab` (csrc/slab_build.cu, one or two
+blocks) and :func:`slab_level` (csrc/slab_level.cu); the pivot blocks go
+through :func:`~.spd_kernels.spd_inverse_unrolled` (csrc/pivot_sweep.cu). On
+CPU tensors each wrapper runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -31,42 +35,64 @@ def slab_k(m: int) -> int:
     return -(-(m + 1) // K_ALIGN) * K_ALIGN
 
 
+def _blocks(A) -> tuple:
+    return tuple(A) if isinstance(A, (tuple, list)) else (A,)
+
+
 def build_slab_plain(P, A, q, rho_row, sigma: float) -> torch.Tensor:
-    B, m, n = A.shape
+    blocks = _blocks(A)
+    B, n = q.shape
+    m = sum(a.shape[-2] for a in blocks)
     kp = slab_k(m)
     S = torch.zeros((B, n, kp + n), dtype=P.dtype, device=P.device)
-    At = A.transpose(-1, -2)
-    S[:, :, :m] = At
-    S[:, :, m] = q
     eye = torch.eye(n, dtype=P.dtype, device=P.device)
-    S[:, :, kp:] = P + (sigma * eye + torch.matmul(At * rho_row[:, None, :], A))
+    gram = sigma * eye
+    off = 0
+    for a in blocks:
+        mb = a.shape[-2]
+        At = a.transpose(-1, -2)
+        S[:, :, off:off + mb] = At
+        gram = gram + torch.matmul(At * rho_row[:, None, off:off + mb], a)
+        off += mb
+    S[:, :, m] = q
+    S[:, :, kp:] = P + gram
     return S
 
 
 def build_slab(P, A, q, rho_row, sigma: float) -> torch.Tensor:
-    """S = [A' | q | 0 | P + sigma*I + A' diag(rho) A] per lane.
+    """S = [A_0' | A_1' | q | 0 | P + sigma*I + sum_i A_i' diag(rho_i) A_i]
+    per lane.
 
-    P (B, n, n), A (B, m, n), q (B, n), rho_row (B, m) -> (B, n, kp + n).
+    P (B, n, n), A (B, m, n) or a tuple of row blocks (B, m_i, n) (at most
+    two on the card), q (B, n), rho_row (B, sum m_i) -> (B, n, kp + n).
     """
-    B, m, n = A.shape
+    blocks = _blocks(A)
     if P.device.type == "cpu":
-        return build_slab_plain(P, A, q, rho_row, sigma)
+        return build_slab_plain(P, blocks, q, rho_row, sigma)
     if P.device.type != "cuda":
         raise ValueError(f"no slab kernel for device {P.device}")
-    if tuple(P.shape) != (B, n, n) or tuple(q.shape) != (B, n) \
-            or tuple(rho_row.shape) != (B, m):
+    if not 1 <= len(blocks) <= 2:
+        raise ValueError(f"slab kernel takes one or two row blocks; got "
+                         f"{len(blocks)}")
+    B, n = q.shape
+    ms = [a.shape[-2] for a in blocks]
+    m = sum(ms)
+    if tuple(P.shape) != (B, n, n) or tuple(rho_row.shape) != (B, m) \
+            or any(tuple(a.shape) != (B, mb, n) for a, mb in zip(blocks, ms)):
         raise ValueError("build_slab: shapes disagree "
-                         f"{tuple(P.shape)}, {tuple(A.shape)}, {tuple(q.shape)}, "
-                         f"{tuple(rho_row.shape)}")
-    if n % 64 or m % 16 or not 0 < B <= 65535:
-        raise ValueError(f"slab kernel needs n % 64 == 0, m % 16 == 0 and "
-                         f"0 < B <= 65535; got n={n}, m={m}, B={B}")
+                         f"{tuple(P.shape)}, {[tuple(a.shape) for a in blocks]}, "
+                         f"{tuple(q.shape)}, {tuple(rho_row.shape)}")
+    if n % 64 or any(mb % 16 or mb == 0 for mb in ms) or not 0 < B <= 65535:
+        raise ValueError(f"slab kernel needs n % 64 == 0, every block's rows "
+                         f"a nonzero multiple of 16 and 0 < B <= 65535; got "
+                         f"n={n}, rows={ms}, B={B}")
     kp = slab_k(m)
     S = torch.empty((B, n, kp + n), dtype=torch.float32, device=P.device)
-    _build.require_cuda_f32("build_slab", P, A, q, rho_row, S)
+    _build.require_cuda_f32("build_slab", P, *blocks, q, rho_row, S)
+    A1, m1 = (blocks[1].data_ptr(), ms[1]) if len(blocks) == 2 else (None, 0)
     code = _build.load().lib.qps_slab_build(
-        P.data_ptr(), A.data_ptr(), q.data_ptr(), rho_row.data_ptr(),
-        S.data_ptr(), B, n, m, kp, float(sigma), _build.stream_ptr(P))
+        P.data_ptr(), blocks[0].data_ptr(), A1, q.data_ptr(), rho_row.data_ptr(),
+        S.data_ptr(), B, n, ms[0], m1, kp, float(sigma), _build.stream_ptr(P))
     build_slab.launches += 1
     _build.check(code, "qps_slab_build")
     return S
@@ -123,13 +149,18 @@ slab_level.launches = 0
 def fused_factor_solve(P, A, q, rho_row, *, sigma: float) -> torch.Tensor:
     """Slab S with S[:, :, :kp] = (P + sigma*I + A' diag(rho) A)^{-1} [A' q 0].
 
-    P (B, n, n), A (B, m, n), q (B, n), rho_row (B, m); n % 128 == 0.
-    Returns the full (B, n, kp + n) slab; callers slice G = S[:, :, :m] and
-    g = S[:, :, m]. Columns past kp are dead pivot state.
+    P (B, n, n), A (B, m, n) or a tuple of row blocks, q (B, n), rho_row
+    (B, m) with m the blocks' total rows; n % 128 == 0. Returns the full
+    (B, n, kp + n) slab; callers slice G = S[:, :, :m] and g = S[:, :, m].
+    Columns past kp are dead pivot state.
     """
-    B, m, n = A.shape
+    B, n = q.shape
+    m = rho_row.shape[-1]
     if n % NB:
         raise ValueError(f"n must be a multiple of {NB}; got {n}")
+    if m != sum(a.shape[-2] for a in _blocks(A)):
+        raise ValueError(f"rho_row has {m} rows; the blocks have "
+                         f"{[a.shape[-2] for a in _blocks(A)]}")
     kp = slab_k(m)
     S = build_slab(P, A, q, rho_row, sigma)
     scratch = None

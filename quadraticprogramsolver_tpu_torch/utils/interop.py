@@ -9,15 +9,23 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.problem import QP, make_qp
-from ..core.settings import KKTBackendKind, Settings
+from ..core.problem import (QP, ProxQPProblem, default_device, make_proxqp,
+                            make_qp)
+from ..core.settings import KKTBackendKind, ProxQPSettings, Settings
 from ..core.state import Solution
 
 
-def qp_from_numpy(P, q, A, l, u, *, device="cpu", dtype=torch.float64) -> QP:
+def qp_from_numpy(P, q, A, l, u, *, device="cuda", dtype=torch.float64) -> QP:
     """The port's QP from numpy arrays (e.g. ``np.asarray`` of a JAX QP)."""
     return make_qp(*(np.asarray(v) for v in (P, q, A, l, u)),
                    dtype=dtype, device=device)
+
+
+def _check_keys(cls, d: dict) -> None:
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - fields)
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} keys: {unknown}")
 
 
 def settings_from_dict(d: dict) -> Settings:
@@ -26,10 +34,7 @@ def settings_from_dict(d: dict) -> Settings:
     Raises ValueError on a key the port's Settings does not have, and
     NotImplementedError (from the validator) on a knob the port rejects.
     """
-    fields = {f.name for f in dataclasses.fields(Settings)}
-    unknown = sorted(set(d) - fields)
-    if unknown:
-        raise ValueError(f"unknown Settings keys: {unknown}")
+    _check_keys(Settings, d)
     kw = dict(d)
     if "kkt_backend" in kw:
         kind = kw["kkt_backend"]
@@ -37,14 +42,30 @@ def settings_from_dict(d: dict) -> Settings:
     return Settings(**kw)
 
 
+def proxqp_from_numpy(P, q, A, b, C, d, *, device="cuda",
+                      dtype=torch.float64) -> ProxQPProblem:
+    """The port's ProxQPProblem from numpy arrays (e.g. ``np.asarray`` of
+    each field of a JAX ProxQPProblem)."""
+    return make_proxqp(*(np.asarray(v) for v in (P, q, A, b, C, d)),
+                       dtype=dtype, device=device)
+
+
+def prox_settings_from_dict(d: dict) -> ProxQPSettings:
+    """The port's ProxQPSettings from ``dataclasses.asdict(jax_settings)``
+    (ValueError on an unknown key, NotImplementedError on a rejected knob)."""
+    _check_keys(ProxQPSettings, d)
+    return ProxQPSettings(**d)
+
+
 def warm_start_from_numpy(x0=None, z0=None, y0=None, rho0=None, *,
-                          device="cpu", dtype=torch.float64):
+                          device="cuda", dtype=torch.float64):
     """(x0, z0, y0, rho0) as tensors; None passes through."""
     def conv(v):
         if v is None:
             return None
-        return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
 
+    dev = default_device(device)
     return tuple(conv(v) for v in (x0, z0, y0, rho0))
 
 
@@ -54,4 +75,15 @@ def solution_to_numpy(sol: Solution) -> dict:
     out = {k: getattr(sol, k) for k in ("x", "z", "y")}
     for f in dataclasses.fields(sol.info):
         out[f.name] = getattr(sol.info, f.name)
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def prox_solution_to_numpy(sol) -> dict:
+    """A port ProxQPSolution as a dict of numpy arrays (x, s, y, z and every
+    ProxQPInfo field that is set)."""
+    out = {k: getattr(sol, k) for k in ("x", "s", "y", "z")}
+    for f in dataclasses.fields(sol.info):
+        v = getattr(sol.info, f.name)
+        if v is not None:
+            out[f.name] = v
     return {k: v.detach().cpu().numpy() for k, v in out.items()}

@@ -44,7 +44,7 @@ def test_f64_fused_solve_matches_jax(cls, seed, adaptive):
     ref = qps.solve_jit(qp_j, st_j)
     st_p = settings_from_dict({**dataclasses.asdict(st_j), "fused_factor": True,
                                "fused_chunk": True, "require_fused": True})
-    qp = qp_from_numpy(*_np(qp_j))
+    qp = qp_from_numpy(*_np(qp_j), device="cpu")
     p = pt.plan(qp, st_p)
     assert (p.chunk, p.factor, p.padded) == ("fused_kernel", "fused_slab", (128, 128))
     sol = pt.solve(qp, st_p)
@@ -73,7 +73,7 @@ def test_f64_unfused_m_inverse_form_matches_jax(rho_eq_scale):
     st_j = qps.Settings(rho=0.1, eps_abs=1e-7, eps_rel=1e-7,
                         rho_eq_scale=rho_eq_scale)
     ref = qps.solve_jit(qps.make_qp(*data.dense()), st_j)
-    sol = pt.solve(pt.make_qp(*data.dense()),
+    sol = pt.solve(pt.make_qp(*data.dense(), device="cpu"),
                    settings_from_dict(dataclasses.asdict(st_j)))
     assert int(sol.info.status) == int(ref.info.status) >= 2
     assert int(sol.info.iterations) == int(ref.info.iterations)
@@ -84,7 +84,7 @@ def test_infeasible_instance_is_certified():
     data = qps.generate_random_qp(ProblemClass.EQUALITY_QP, 20, seed=13)
     st_j = qps.Settings(rho=0.1, eps_abs=1e-6, eps_rel=1e-6)
     ref = qps.solve_jit(qps.make_qp(*data.dense()), st_j)
-    sol = pt.solve(pt.make_qp(*data.dense()),
+    sol = pt.solve(pt.make_qp(*data.dense(), device="cpu"),
                    settings_from_dict(dataclasses.asdict(st_j)))
     assert int(ref.info.status) == pt.Status.PRIMAL_INFEASIBLE
     assert int(sol.info.status) == pt.Status.PRIMAL_INFEASIBLE
@@ -100,7 +100,7 @@ def test_f32_fused_solve_matches_jax_interpret():
                         sigma_free_rhs=True, sigma=1e-7, fused_factor=True,
                         fused_chunk=True)
     ref = qps.solve_jit(qp_j, st_j)
-    qp = qp_from_numpy(*_np(qp_j), dtype=torch.float32)
+    qp = qp_from_numpy(*_np(qp_j), dtype=torch.float32, device="cpu")
     sol = pt.solve(qp, settings_from_dict(dataclasses.asdict(st_j)))
     np.testing.assert_array_equal(sol.info.status.numpy(), np.asarray(ref.info.status))
     assert (sol.info.status.numpy() >= 2).all()

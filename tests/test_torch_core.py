@@ -100,7 +100,7 @@ def _random_np_qp(seed, n=12, m=7):
 def test_make_qp_and_products_match_jax():
     P, q, A, l, u = _random_np_qp(1)
     j = qps.make_qp(P, q, A, l, u)
-    p = pt.make_qp(P, q, A, l, u)
+    p = pt.make_qp(P, q, A, l, u, device="cpu")
     assert (p.n, p.m, p.batch_shape, p.dtype) == (j.n, j.m, (), torch.float64)
     rng = np.random.default_rng(0)
     x, y = rng.standard_normal(p.n), rng.standard_normal(p.m)
@@ -117,7 +117,7 @@ def test_pad_qp_matches_jax(batch):
     arrs = [np.stack([i[k] for i in insts]) if batch else insts[0][k]
             for k in range(5)]
     j = qps.pad_qp(qps.make_qp(*arrs), 16, 10)
-    p = pt.pad_qp(pt.make_qp(*arrs), 16, 10)
+    p = pt.pad_qp(pt.make_qp(*arrs, device="cpu"), 16, 10)
     for a, b in zip((j.P, j.q, j.A, j.l, j.u), p.tensors()):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
     assert pt.pad_qp(p, 16, 10) is p
@@ -138,12 +138,12 @@ BAD_QPS = {
 def test_validate_qp_matches_jax(name):
     good = _random_np_qp(3)
     qps.validate_qp(qps.make_qp(*good))
-    pt.validate_qp(pt.make_qp(*good))
+    pt.validate_qp(pt.make_qp(*good, device="cpu"))
     bad = BAD_QPS[name](*good)
     with pytest.raises(ValueError):
         qps.validate_qp(qps.make_qp(*bad))
     with pytest.raises(ValueError):
-        pt.validate_qp(pt.make_qp(*bad))
+        pt.validate_qp(pt.make_qp(*bad, device="cpu"))
 
 
 def _fleet_stats(P, q, A, l, u, n, m):
@@ -198,12 +198,13 @@ def test_device_fleet_padding_contract():
 
 def test_interop_roundtrip():
     P, q, A, l, u = _random_np_qp(4)
-    qp = interop.qp_from_numpy(P, q, A, l, u, dtype=torch.float32)
+    qp = interop.qp_from_numpy(P, q, A, l, u, dtype=torch.float32,
+                               device="cpu")
     assert qp.dtype == torch.float32 and qp.device.type == "cpu"
     x0, z0, y0, rho0 = interop.warm_start_from_numpy(
-        np.ones(qp.n), None, np.zeros(qp.m), 0.3)
+        np.ones(qp.n), None, np.zeros(qp.m), 0.3, device="cpu")
     assert z0 is None and x0.dtype == torch.float64 and float(rho0) == 0.3
-    sol = pt.solve(interop.qp_from_numpy(P, q, A, l, u),
+    sol = pt.solve(interop.qp_from_numpy(P, q, A, l, u, device="cpu"),
                    pt.Settings(rho=0.1, eps_abs=1e-6, eps_rel=1e-6),
                    x0=x0, y0=y0, rho0=rho0)
     out = interop.solution_to_numpy(sol)

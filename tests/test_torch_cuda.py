@@ -11,9 +11,12 @@ import pytest
 import torch
 
 import quadraticprogramsolver_tpu_torch as pt
-from quadraticprogramsolver_tpu_torch.ops import fused_admm, fused_factor, spd_kernels
+from quadraticprogramsolver_tpu_torch.ops import (
+    fused_admm, fused_factor, fused_proxqp, spd_kernels)
 from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
     device_random_qp_fleet)
+from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+    device_prox_fleet)
 
 pytestmark = pytest.mark.cuda
 B, N, M = 8, 256, 128
@@ -106,3 +109,63 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                      fused_factor=True, fused_chunk=True, require_fused=True)
     with pytest.raises(ValueError, match="float32"):
         pt.solve(qp.to(torch.float64), st)
+
+
+def _prox_fleet(dev, seed, b=B, n=N, me=128, mi=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return device_prox_fleet(b, n, me, mi, generator=g), g
+
+
+def test_two_block_build_matches_plain(dev):
+    prob, _ = _prox_fleet(dev, 4)
+    rho = torch.full((B, 256), 0.3, device=dev)
+    blocks = (prob.A, prob.C)
+    S = fused_factor.build_slab(prob.P, blocks, prob.q, rho, 0.0)
+    assert _close(S, fused_factor.build_slab_plain(prob.P, blocks, prob.q,
+                                                   rho, 0.0))
+    X = fused_factor.fused_factor_solve(prob.P, blocks, prob.q, rho, sigma=0.0)
+    Mn = prob.P + 0.3 * (prob.A.transpose(1, 2) @ prob.A
+                         + prob.C.transpose(1, 2) @ prob.C)
+    R = torch.cat([prob.A.transpose(1, 2), prob.C.transpose(1, 2),
+                   prob.q[..., None]], dim=-1)
+    assert _close(Mn @ X[..., :257], R)
+
+
+def test_prox_chunk_kernel_matches_plain(dev):
+    prob, g = _prox_fleet(dev, 5)
+    rho = torch.rand(B, generator=g, device=dev) * 0.5 + 0.05
+    S = fused_factor.fused_factor_solve(
+        prob.P, (prob.A, prob.C), prob.q, rho[:, None].expand(B, 256).contiguous(),
+        sigma=0.0)
+    G, gv = S[..., :256].contiguous(), S[..., 256].contiguous()
+    x = torch.randn((B, N), generator=g, device=dev)
+    s = torch.rand((B, 128), generator=g, device=dev)
+    y = torch.randn((B, 128), generator=g, device=dev)
+    z = torch.rand((B, 128), generator=g, device=dev)
+    active = torch.arange(B, device=dev) % 4 != 3
+    args = (G, prob.A, prob.C, gv, prob.b, prob.d, x, s, y, z, rho, active)
+    out = fused_proxqp.fused_proxqp_chunk(*args, K=9)
+    ref = fused_proxqp.fused_proxqp_chunk_plain(*args, K=9)
+    for o, r, v in zip(out, ref, (x, s, y, z)):
+        assert _close(o, r)
+        assert torch.equal(o[~active], v[~active])
+
+
+def test_prox_solve_on_card(dev):
+    prob, _ = _prox_fleet(dev, 6, n=200, me=100, mi=60)
+    st = pt.ProxQPSettings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                           rho=0.05, adaptive_rho=False, check_interval=25,
+                           kkt_warm_start=False, kkt_refinement_steps=0,
+                           sigma_free_rhs=True, fused_chunk=True,
+                           require_fused=True)
+    fns = (fused_factor.build_slab, spd_kernels.spd_inverse_unrolled,
+           fused_factor.slab_level, fused_proxqp.fused_proxqp_chunk)
+    for f in fns:
+        f.launches = 0
+    sol = pt.solve_proxqp(prob, st)
+    assert all(f.launches > 0 for f in fns)
+    assert sol.x.shape == (B, 200)
+    ref = pt.solve_proxqp(prob.to("cpu"), st)
+    assert torch.equal(sol.info.status.cpu(), ref.info.status)
+    assert (ref.info.status == 3).all()
+    assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3

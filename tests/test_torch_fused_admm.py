@@ -60,7 +60,7 @@ def test_fused_and_torch_chunks_agree_in_the_solver():
     """The port's _run_chunk: the fused branch (plain kernel on CPU) and the
     masked torch loop give the same iterates (f64, so to rounding)."""
     qp_j, cache, x, z, y, _, active = _case(2)
-    qp = qp_from_numpy(qp_j.P, qp_j.q, qp_j.A, qp_j.l, qp_j.u)
+    qp = qp_from_numpy(qp_j.P, qp_j.q, qp_j.A, qp_j.l, qp_j.u, device="cpu")
     kw = dict(max_iterations=100, kkt_backend=pt.KKTBackendKind.CHOLESKY, **ST)
     fused = pt.Settings(fused_chunk=True, **kw)
     plain = pt.Settings(**kw)
