@@ -8,23 +8,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 1. Environment: a CUDA card, TF32 off, the card's name and power limit
    (nvidia-smi), and the kernels built from ``quadraticprogramsolver_tpu_torch/
    csrc`` with the build time.
-2. Each of the five kernels against its plain PyTorch version on the card,
+2. Each of the seven kernels against its plain PyTorch version on the card,
    at the main paths' shapes (n=512, m=256, 512 lanes; the ADMM chunk with
    K=11 and every fourth lane inactive; the slab build again with two row
    blocks me = mi = 128, and the prox chunk at n=512, me = mi = 128, K=25,
-   every fourth lane inactive), with the stated limit, both times (CUDA
-   events, median of 5), the time of one PyTorch call that computes the same
-   function where there is one, and the kernel's bound: the larger of its
-   bytes (each input read once, each output written once) over 3.35 TB/s and
-   its FLOPs over 67 TFLOP/s (FP32), the H100 SXM's published peaks.
+   every fourth lane inactive; the two M^{-1}-form chunks at K=25 with one
+   refinement pass, every fourth lane inactive), with the stated limit,
+   both times (CUDA events, median of 5), the time of one PyTorch call that
+   computes the same function where there is one, and the kernel's bound:
+   the larger of its bytes (each input read once, each output written once)
+   over 3.35 TB/s and its FLOPs over 67 TFLOP/s (FP32), the H100 SXM's
+   published peaks. The two M^{-1} chunks are also held, output by output,
+   against their plain version run in f64 (the witness: the kernel's error
+   within 3x the FP32 plain version's), the prox one at phase 6's penalties
+   and at phase 7c's rho0 = 0.1.
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
    end with status 2 or 3, and every kernel's launch count must move.
 4. Audit: 16 lanes (8 spread, 8 with the most iterations) re-solved in f64
-   on the host by the JAX package's numpy/scipy oracle
-   (quadraticprogramsolver_tpu/utils/oracle.py, loaded by path, which needs
-   no jax); max |x - x_ref|_inf must be <= 1e-4.
+   on the host by ``f64_oracle.py`` beside this script (numpy and scipy
+   only); max |x - x_ref|_inf must be <= 1e-4.
 5. The literal n=500, m=250, B=4096 shape through the solver's auto-pad,
    audited on the unpadded problem.
 6. The prox-ALM family: a seeded B=4096, n=512, n_eq = n_ineq = 128
@@ -36,9 +40,26 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    iterations) re-solved by the f64 oracle on the lowered box form must agree
    within 1e-4. Each run starts at eps 5e-5 and is repeated at 2e-5, then
    1e-5, while the audit fails; the eps used is printed.
+7. The M^{-1} form (the default settings of both families), B=2048:
+   7a. bench.py's ``defaults`` row: the random_qp 512/256 fleet (seed 1234)
+       with ``Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4)``:
+       the factor runs the blocked Gauss-Jordan sweep, 4 pivot launches per
+       factor and no Cholesky, the torch chunk; 7b. the same with
+       ``fused_chunk=True, require_fused=True``: one M^{-1} chunk launch per
+       check; 7c. the phase-6 prox fleet at B=2048 with the JAX package's
+       M^{-1} fleet settings (benchmarks/proxqp_fleet.py: rho0 = 0.1
+       adaptive, refinement 1, check_interval 50, zero start) and the fused
+       M^{-1} prox chunk, which is then held against its f64 witness at the
+       penalties that run ended with. Each starts at eps 1e-4 and tightens
+       to 2e-5, then 1e-5, while its f64 audit (16 ADMM / 8 prox lanes)
+       fails; each
+       prints its solve, its factor timed alone beside
+       ``torch.cholesky_inverse(torch.linalg.cholesky(M))`` on the same M,
+       iterations, refactors and peak memory.
 
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve
-(kernel time by name and the device's idle share).
+and one profiled solve each of phases 7a and 7b (kernel time by name and the
+device's idle share).
 
 The last lines are the kernels JSON, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -46,7 +67,6 @@ The last lines are the kernels JSON, the nvidia-smi line, and
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
 import statistics
@@ -56,12 +76,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "quadraticprogramsolver_tpu_torch"
-ORACLE = os.path.join(HERE, "quadraticprogramsolver_tpu", "utils", "oracle.py")
 SEED = 1234
 DEVICE = "cuda"
 N, M, B_MAIN = 512, 256, 4096
 B_KERNEL, K_CHUNK = 512, 11
 ME, MI, K_PROX = 128, 128, 25
+B_DEFAULTS, K_MINV, REFINE = 2048, 25, 1
+LEVELS = N // 128  # pivot launches per factor at n = 512
 AUDIT_TARGET = 1e-4
 #: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
 PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
@@ -71,10 +92,21 @@ PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
 #: well-conditioned (cond ~ 10-100), so differences stay at a few f32 ulps
 #: times the reduction depth (<= 512): 1e-5 as in tests/test_fused_admm.py.
 LIMIT = 1e-5
+#: The f64 witness of the M^{-1} chunks: from random iterates at rho >= 0.1
+#: the K FP32 iterations of the prox chunk lose ~1e-5 of each output to
+#: rounding on either side, so there the kernel and its plain version are
+#: each held against the plain version run in f64 on the same inputs (the
+#: f32 M^{-1} cast up). Per output, the kernel's error must stay within
+#: WITNESS_RATIO times the plain version's, plus WITNESS_FLOOR of the
+#: output's size: rounding gives ratios near 1, a fault a far larger error.
+WITNESS_RATIO, WITNESS_FLOOR = 3.0, 1e-7
 
 #: The kernels each main path must launch.
 ADMM_PATH = ("slab_build", "pivot_sweep_v3", "slab_level", "admm_chunk")
 PROX_PATH = ("slab_build", "pivot_sweep_v3", "slab_level", "prox_chunk")
+ADMM_DEFAULTS_PATH = ("pivot_sweep_v3",)
+ADMM_MINV_PATH = ("pivot_sweep_v3", "admm_chunk_minv")
+PROX_MINV_PATH = ("pivot_sweep_v3", "prox_chunk_minv")
 KERNELS = {
     "slab_build": ("csrc/slab_build.cu",
                    "quadraticprogramsolver_tpu/ops/fused_factor.py:80"),
@@ -86,6 +118,10 @@ KERNELS = {
                    "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
     "prox_chunk": ("csrc/prox_chunk.cu",
                    "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
+    "admm_chunk_minv": ("csrc/admm_chunk.cu",
+                        "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
+    "prox_chunk_minv": ("csrc/prox_chunk.cu",
+                        "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
 }
 
 
@@ -145,6 +181,55 @@ def compare(name, kern, plain, failures):
     return err
 
 
+def witness(label, name, kern_fn, plain_fn, args, kw, outs, failures):
+    """Per output: |kernel - f64|, |plain - f64| and |kernel - plain|, each
+    also relative to max|f64 output|; a breach of the witness rule is
+    appended to ``failures``. Returns the largest relative kernel error."""
+    import torch
+
+    k = kern_fn(*args, **kw)
+    p = plain_fn(*args, **kw)
+    w = plain_fn(*(a.double() if a is not None and a.is_floating_point()
+                   else a for a in args), **kw)
+    worst = 0.0
+    for nm, ko, po, wo in zip(outs, k, p, w):
+        scale = max(float(wo.abs().max()), 1e-30)
+        ek = float((ko.double() - wo).abs().max())
+        ep = float((po.double() - wo).abs().max())
+        ekp = float((ko - po).abs().max())
+        finite = bool(torch.isfinite(ko).all())
+        log(f"[{label}] {name} {nm}: |kernel - f64| {ek:.3e} ({ek / scale:.2e} "
+            f"of max|{nm}| {scale:.3e}), |plain - f64| {ep:.3e} "
+            f"({ep / scale:.2e}), |kernel - plain| {ekp:.3e} "
+            f"({ekp / scale:.2e}), finite={finite}")
+        if not (finite and ek <= WITNESS_RATIO * ep + WITNESS_FLOOR * scale):
+            failures.append(f"{label} {name} {nm}: kernel error {ek:.3e} "
+                            f"against the f64 witness > {WITNESS_RATIO} x the "
+                            f"plain version's {ep:.3e} + {WITNESS_FLOOR:.0e} x "
+                            f"{scale:.3e} (finite={finite})")
+        worst = max(worst, ek / scale)
+    return worst
+
+
+def prox_minv_witness(torch, prob, rho, iterates, active, label, failures):
+    """The M^{-1} prox chunk (K_MINV iterations, REFINE passes, sigma 1e-2)
+    against its f64 witness at the per-lane penalties ``rho``, from the
+    iterates (x, s, y, z)."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_proxqp, linalg
+
+    sigma = 1e-2
+    Mn = prob.P + sigma * torch.eye(prob.n, device=DEVICE) + rho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    del Mn
+    args = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, *iterates,
+            rho, active)
+    return witness(label, "prox_chunk_minv",
+                   fused_proxqp.fused_proxqp_chunk_minv,
+                   fused_proxqp.fused_proxqp_chunk_minv_plain, args,
+                   dict(K=K_MINV, sigma=sigma, refine=REFINE), "xsyz", failures)
+
+
 def bound(nbytes, flops):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
@@ -159,9 +244,16 @@ def slab_build_bound(B, n, ms):
     return bound(nbytes, B * n * (n + 1) * m)
 
 
+def minv_flops(n, m):
+    """FLOPs of one M^{-1}-form iteration with REFINE passes: the rhs's
+    A't (2mn), then per solve Minv r (2n^2) and per refinement pass A x,
+    A'(.) (4mn) and P x (2n^2), then A xx (2mn); m = me + mi for prox."""
+    return 2 * n * n * (1 + 2 * REFINE) + 4 * m * n * (1 + REFINE)
+
+
 def phase_kernels(torch):
     from quadraticprogramsolver_tpu_torch.ops import (
-        fused_admm, fused_factor, fused_proxqp, spd_kernels)
+        fused_admm, fused_factor, fused_proxqp, linalg, spd_kernels)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
         device_random_qp_fleet)
     from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
@@ -290,6 +382,74 @@ def phase_kernels(torch):
         err, cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk(*pargs, K=K_PROX)),
         cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_plain(*pargs, K=K_PROX)),
         None, bound(prox_bytes, prox_flops))
+    del G, gv, pargs, pk, pp
+
+    # The M^{-1}-form prox chunk: M = P + sigma*I + rho(A'A + C'C).
+    sigma_p = 1e-2
+    Mn = prob.P + sigma_p * torch.eye(N, device=DEVICE) + rho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    del Mn
+    qargs = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y, z,
+             rho, active)
+    qkw = dict(K=K_MINV, sigma=sigma_p, refine=REFINE)
+    qk = fused_proxqp.fused_proxqp_chunk_minv(*qargs, **qkw)
+    qpl = fused_proxqp.fused_proxqp_chunk_minv_plain(*qargs, **qkw)
+    err = compare("prox_chunk_minv", qk, qpl, failures)
+    if not all(torch.equal(o[frozen], v[frozen])
+               for o, v in zip(qk, (x, s, y, z))):
+        failures.append("prox_chunk_minv: a frozen lane did not pass through")
+    # Minv, P, A and C of the active lanes read once; the vectors in (q, x,
+    # b, y, d, s, z, rho, active) and out (x, y, s, z).
+    out["prox_chunk_minv"] = (
+        err, cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_minv(*qargs, **qkw)),
+        cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_minv_plain(*qargs, **qkw)),
+        None, bound(4 * (n_act * (2 * N * N + mt * N)
+                         + B_KERNEL * (2 * N + 2 * ME + 3 * MI + 2)
+                         + B_KERNEL * (N + ME + 2 * MI)),
+                    n_act * K_MINV * minv_flops(N, mt)))
+    del Minv, qargs, qk, qpl
+    # The f64 witness at these penalties and at 7c's starting rho0 = 0.1.
+    for rho_w, tag in ((rho, "rho 0.0125-0.025"),
+                       (torch.full_like(rho, 0.1), "rho 0.1")):
+        prox_minv_witness(torch, prob, rho_w, (x, s, y, z), active,
+                          f"phase 2 witness, {tag}", failures)
+    del prob
+
+    # The M^{-1}-form ADMM chunk: M = P + sigma*I + A' diag(rho) A, the f32
+    # floor of sigma.
+    qp = device_random_qp_fleet(B_KERNEL, N, M, generator=g)
+    rho_row = torch.full((B_KERNEL, M), 0.4, device=DEVICE)
+    sigma_a = 1e-4
+    Mn = qp.P + sigma_a * torch.eye(N, device=DEVICE) + (
+        qp.A.transpose(1, 2) * rho_row[:, None, :]) @ qp.A
+    Minv = linalg.spd_inverse(Mn)
+    del Mn
+    x = torch.randn((B_KERNEL, N), generator=g, device=DEVICE)
+    z = torch.randn((B_KERNEL, M), generator=g, device=DEVICE)
+    y = torch.randn((B_KERNEL, M), generator=g, device=DEVICE)
+    margs = (Minv, qp.A, qp.P, qp.q, qp.l, qp.u, x, z, y, rho_row, active)
+    mkw = dict(K=K_MINV, alpha=1.6, sigma=sigma_a, refine=REFINE)
+    mk = fused_admm.fused_admm_chunk_minv(*margs, **mkw)
+    mp = fused_admm.fused_admm_chunk_minv_plain(*margs, **mkw)
+    err = compare("admm_chunk_minv", mk, mp, failures)
+    if not (torch.equal(mk[0][frozen], x[frozen])
+            and torch.equal(mk[3][frozen], x[frozen])
+            and torch.equal(mk[4][frozen], z[frozen])):
+        failures.append("admm_chunk_minv: a frozen lane did not pass through")
+    # Minv and P of the active lanes, A of every lane (the check products),
+    # the vectors in (q, x, l, u, rho, z, y) and out (x, xp, A'y, z, y, zp,
+    # Ax).
+    out["admm_chunk_minv"] = (
+        err, cuda_ms(lambda: fused_admm.fused_admm_chunk_minv(*margs, **mkw)),
+        cuda_ms(lambda: fused_admm.fused_admm_chunk_minv_plain(*margs, **mkw)),
+        None, bound(4 * (n_act * 2 * N * N + B_KERNEL * M * N
+                         + B_KERNEL * (2 * N + 5 * M) + B_KERNEL * (3 * N + 4 * M)),
+                    n_act * K_MINV * minv_flops(N, M) + B_KERNEL * 4 * N * M))
+    witness("phase 2 witness, rho 0.4", "admm_chunk_minv",
+            fused_admm.fused_admm_chunk_minv,
+            fused_admm.fused_admm_chunk_minv_plain, margs, mkw,
+            ("x", "z", "y", "x_prev", "z_prev", "Ax", "ATy"), failures)
     for name, (e, ms, pms, lms, (bms, by)) in out.items():
         lib = "none" if lms is None else f"{lms:.4f} ms"
         log(f"[phase 2] {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
@@ -307,22 +467,18 @@ def counters():
             "pivot_sweep_v3": spd_kernels.spd_inverse_unrolled,
             "slab_level": fused_factor.slab_level,
             "admm_chunk": fused_admm.fused_admm_chunk,
-            "prox_chunk": fused_proxqp.fused_proxqp_chunk}
+            "prox_chunk": fused_proxqp.fused_proxqp_chunk,
+            "admm_chunk_minv": fused_admm.fused_admm_chunk_minv,
+            "prox_chunk_minv": fused_proxqp.fused_proxqp_chunk_minv}
 
 
-def load_oracle():
-    spec = importlib.util.spec_from_file_location("qps_f64_oracle", ORACLE)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod  # its dataclasses look their module up
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def audit(qp, x, status, iters, label):
-    """Max |x - x_ref|_inf over 8 spread + 8 most-iteration converged lanes."""
+def audit(qp, x, status, iters, label, required=True, prefix="phase 4"):
+    """Max |x - x_ref|_inf over 8 spread + 8 most-iteration converged lanes;
+    with ``required`` a breach of the target fails the run."""
     import numpy as np
 
-    oracle = load_oracle()
+    import f64_oracle
+
     conv = np.where((status == 2) | (status == 3))[0]
     spread = conv[:: max(1, len(conv) // 8)][:8]
     worst = conv[np.argsort(iters[conv], kind="stable")[-8:]]
@@ -330,16 +486,16 @@ def audit(qp, x, status, iters, label):
     devs = []
     for i in idx:
         P, q, A, l, u = (t[i].double().cpu().numpy() for t in qp.tensors())
-        ref = oracle.solve_qp_reference(P, q, A, l, u, eps_abs=1e-6,
-                                        eps_rel=1e-6, rho=0.1,
-                                        max_iterations=20000, linsys="splu")
+        ref = f64_oracle.solve_qp_reference(P, q, A, l, u, eps_abs=1e-6,
+                                            eps_rel=1e-6, rho=0.1,
+                                            max_iterations=20000)
         require(ref.status == 3, f"{label}: oracle did not converge on lane {i}")
         devs.append(float(np.abs(x[i] - ref.x).max()))
     worst_dev = max(devs)
-    log(f"[phase 4] {label}: audit max|x - x_ref|_inf over {len(devs)} lanes "
+    log(f"[{prefix}] {label}: audit max|x - x_ref|_inf over {len(devs)} lanes "
         f"= {worst_dev:.3e} (target {AUDIT_TARGET:.0e})")
-    require(worst_dev <= AUDIT_TARGET, f"{label}: audit {worst_dev:.3e} > "
-            f"{AUDIT_TARGET:.0e}")
+    require(not required or worst_dev <= AUDIT_TARGET,
+            f"{label}: audit {worst_dev:.3e} > {AUDIT_TARGET:.0e}")
     return worst_dev
 
 
@@ -362,19 +518,24 @@ def factor_seconds(torch, qp, settings):
     from quadraticprogramsolver_tpu_torch.models import kkt, proxqp
 
     rho = torch.full(qp.batch_shape, settings.rho, device=qp.device)
-    best = None
-    for _ in range(4):
-        t0 = time.perf_counter()
-        if isinstance(settings, proxqp.ProxQPSettings):
-            cache = proxqp._build_sigma_free_cache(qp, rho, settings)
+
+    def factor():
+        if not isinstance(settings, proxqp.ProxQPSettings):
+            kkt.cholesky_init(qp, rho, settings.sigma_for(qp.dtype), settings)
+        elif settings.sigma_free_rhs:
+            proxqp._build_sigma_free_cache(qp, rho, settings)
         else:
-            cache = kkt.cholesky_init(qp, rho, settings.sigma_for(qp.dtype),
-                                      settings)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        del cache
-        best = dt if best is None else min(best, dt)
-    return best
+            proxqp._build_M_inv(qp, rho, settings.sigma)
+
+    return best_seconds(torch, factor)
+
+
+def times(dt, fdt, solved):
+    """The timing part of a solve's line; empty for an untimed run."""
+    if dt is None:
+        return ""
+    return (f"solve {dt * 1e3:.2f} ms (best of 3), {solved / dt:.1f} solves/s, "
+            f"factor {fdt * 1e3:.2f} ms, iterate {(dt - fdt) * 1e3:.2f} ms, ")
 
 
 def report_solve(qp, sol, dt, fdt, label):
@@ -385,10 +546,8 @@ def report_solve(qp, sol, dt, fdt, label):
     x = sol.x.double().cpu().numpy()
     B = status.size
     solved = int(((status == 2) | (status == 3)).sum())
-    log(f"[{label}] B={B}: solve {dt * 1e3:.2f} ms (best of 3), solved "
-        f"{solved}/{B}, {solved / dt:.1f} solves/s, factor "
-        f"{fdt * 1e3:.2f} ms, iterate {(dt - fdt) * 1e3:.2f} ms, iterations "
-        f"p50 {np.median(iters):.0f} max {iters.max()}, statuses "
+    log(f"[{label}] B={B}: {times(dt, fdt, solved)}solved {solved}/{B}, "
+        f"iterations p50 {np.median(iters):.0f} max {iters.max()}, statuses "
         f"{ {int(k): int(v) for k, v in zip(*np.unique(status, return_counts=True))} }")
     require(bool(np.isfinite(x).all()) and x.shape == (B, qp.n),
             f"{label}: non-finite or misshapen x")
@@ -417,7 +576,8 @@ def prox_audit(pkg, prob, sol, label):
     re-solved in f64 on its lowered box form."""
     import numpy as np
 
-    oracle = load_oracle()
+    import f64_oracle
+
     status = sol.info.status.cpu().numpy()
     iters = sol.info.iterations.cpu().numpy()
     res = np.maximum(sol.info.res_prim.cpu().numpy(),
@@ -432,9 +592,9 @@ def prox_audit(pkg, prob, sol, label):
         lane = pkg.ProxQPProblem(*(t[i:i + 1] for t in prob.tensors()))
         P, q, A, l, u = (t[0].double().cpu().numpy()
                          for t in lane.to_box_qp().tensors())
-        ref = oracle.solve_qp_reference(P, q, A, l, u, eps_abs=1e-7,
-                                        eps_rel=1e-7, rho=0.1,
-                                        max_iterations=50000, linsys="splu")
+        ref = f64_oracle.solve_qp_reference(P, q, A, l, u, eps_abs=1e-7,
+                                            eps_rel=1e-7, rho=0.1,
+                                            max_iterations=50000)
         require(ref.status == 3, f"{label}: oracle did not converge on lane {i}")
         devs.append(float(np.abs(x[i] - ref.x).max()))
     worst_dev = max(devs)
@@ -451,10 +611,8 @@ def report_prox(prob, sol, dt, fdt, label):
     x = sol.x.cpu().numpy()
     B = status.size
     solved = int((status == 3).sum())
-    log(f"[{label}] B={B}: solve {dt * 1e3:.2f} ms (best of 3), solved "
-        f"{solved}/{B}, {solved / dt:.1f} solves/s, factor "
-        f"{fdt * 1e3:.2f} ms, iterate {(dt - fdt) * 1e3:.2f} ms, iterations "
-        f"p50 {np.median(iters):.0f} max {iters.max()}, statuses "
+    log(f"[{label}] B={B}: {times(dt, fdt, solved)}solved {solved}/{B}, "
+        f"iterations p50 {np.median(iters):.0f} max {iters.max()}, statuses "
         f"{ {int(k): int(v) for k, v in zip(*np.unique(status, return_counts=True))} }")
     require(bool(np.isfinite(x).all()) and x.shape == (B, prob.n),
             f"{label}: non-finite or misshapen x")
@@ -545,6 +703,184 @@ def phase_prox(torch, pkg, cnt, profile):
     return launches
 
 
+class CallCount:
+    """Counts the calls of ``owner.name`` between construction and close()."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.orig = getattr(owner, name)
+        self.calls = 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+
+        setattr(owner, name, counted)
+
+    def close(self):
+        setattr(self.owner, self.name, self.orig)
+
+
+def best_seconds(torch, fn, reps=4):
+    """Best of ``reps`` host-clock times of fn(), each ending in a sync."""
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def counted_solve(torch, cnt, solve, factor_owner, factor_name, path, label):
+    """One solve with every launch counter at 0 before it: the path's
+    kernels must launch, every factor build must run the sweep (LEVELS pivot
+    launches) and no Cholesky may run. Returns (solution, launches, builds)."""
+    builds = CallCount(factor_owner, factor_name)
+    chol = CallCount(torch.linalg, "cholesky")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset(cnt)
+        sol = solve()
+        torch.cuda.synchronize()
+    finally:
+        builds.close()
+        chol.close()
+    counts = read(cnt, path, label)
+    log(f"[{label}] factor builds {builds.calls} (refactors "
+        f"{builds.calls - 1}), torch.linalg.cholesky calls {chol.calls}, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    require(chol.calls == 0, f"{label}: Cholesky ran on the sweep's shapes")
+    require(counts["pivot_sweep_v3"] == LEVELS * builds.calls,
+            f"{label}: {counts['pivot_sweep_v3']} pivot launches for "
+            f"{builds.calls} factor builds ({LEVELS} per build)")
+    return sol, counts, builds.calls
+
+
+def cholesky_yardstick(torch, M, label, fdt):
+    """The factor's yardstick: one library Cholesky inverse of the same M."""
+    cdt = best_seconds(torch, lambda: torch.cholesky_inverse(torch.linalg.cholesky(M)))
+    log(f"[{label}] factor {fdt * 1e3:.2f} ms (sweep, timed alone) vs "
+        f"{cdt * 1e3:.2f} ms torch.cholesky_inverse(torch.linalg.cholesky(M)) "
+        f"on the same M (best of 4)")
+    return cdt
+
+
+def phase_minv(torch, pkg, cnt, profile):
+    """Phase 7: the M^{-1} form of both families at B=2048."""
+    from quadraticprogramsolver_tpu_torch.models import kkt, proxqp
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    launches = {}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qp = device_random_qp_fleet(B_DEFAULTS, N, M, generator=g)
+    torch.cuda.synchronize()
+    for fused, tag in ((False, "7a"), (True, "7b")):
+        knobs = dict(fused_chunk=True, require_fused=True) if fused else {}
+        chunk = "fused_kernel" if fused else "torch"
+        path = ADMM_MINV_PATH if fused else ADMM_DEFAULTS_PATH
+        for eps in (1e-4, 2e-5, 1e-5):
+            settings = pkg.Settings(max_iterations=2000, eps_abs=eps,
+                                    eps_rel=eps, **knobs)
+            label = f"phase {tag} eps {eps:.0e}"
+            p = pkg.plan(qp, settings)
+            log(f"[{label}] plan: factor {p.factor}, chunk {p.chunk}, cache "
+                f"{p.cache}")
+            require((p.factor, p.chunk, p.cache) == ("sweep_inverse", chunk, "M_inv"),
+                     f"{label}: unexpected plan {p}")
+            sol, counts, builds = counted_solve(
+                torch, cnt, lambda: pkg.solve(qp, settings), kkt,
+                "cholesky_init", path, label)
+            iters = sol.info.iterations.cpu().numpy()
+            if fused:
+                chunks = int(iters.max()) // settings.check_interval
+                require(counts["admm_chunk_minv"] == chunks,
+                        f"{label}: {counts['admm_chunk_minv']} M^-1 chunk "
+                        f"launches for {chunks} checks")
+            x, status, iters = report_solve(qp, sol, None, None, f"{label} counted")
+            del sol
+            dev = audit(qp, x, status, iters, label, required=False,
+                        prefix=f"phase {tag}")
+            if dev <= AUDIT_TARGET:
+                break
+        require(dev <= AUDIT_TARGET, f"phase {tag}: audit {dev:.3e} > "
+                f"{AUDIT_TARGET:.0e} at eps 1e-5")
+        launches["admm_minv" if fused else "admm_defaults"] = counts
+        sol, dt = run_main(torch, lambda: pkg.solve(qp, settings))
+        fdt = factor_seconds(torch, qp, settings)
+        report_solve(qp, sol, dt, fdt, f"{label} refactors {builds - 1}")
+        del sol
+        rho_row = torch.full((B_DEFAULTS, M), settings.rho, device=DEVICE)
+        Mn = kkt._build_normal_matrix(qp, rho_row, settings.sigma_for(qp.dtype))
+        cholesky_yardstick(torch, Mn, label, fdt)
+        del Mn
+        if profile:
+            profile_solve(torch, lambda: pkg.solve(qp, settings),
+                          f"phase {tag} profile")
+    del qp
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    prob = device_prox_fleet(B_DEFAULTS, N, ME, MI, generator=g)
+    torch.cuda.synchronize()
+    for eps in (1e-4, 2e-5, 1e-5):
+        settings = pkg.ProxQPSettings(
+            max_iterations=2000, eps_abs=eps, eps_rel=eps, rho=0.1,
+            adaptive_rho=True, kkt_refinement_steps=REFINE, check_interval=50,
+            kkt_warm_start=False, fused_chunk=True, require_fused=True)
+        label = f"phase 7c eps {eps:.0e}"
+        p = pkg.plan_proxqp(prob, settings)
+        log(f"[{label}] plan: factor {p.factor}, chunk {p.chunk}, cache {p.cache}")
+        require((p.factor, p.chunk, p.cache)
+                == ("sweep_inverse", "fused_kernel", "M_inv"),
+                f"{label}: unexpected plan {p}")
+        sol, counts, builds = counted_solve(
+            torch, cnt, lambda: pkg.solve_proxqp(prob, settings), proxqp,
+            "_build_M_inv", PROX_MINV_PATH, label)
+        iters = sol.info.iterations.cpu().numpy()
+        chunks = int(iters.max()) // settings.check_interval
+        require(counts["prox_chunk_minv"] == chunks,
+                f"{label}: {counts['prox_chunk_minv']} M^-1 prox chunk "
+                f"launches for {chunks} checks")
+        report_prox(prob, sol, None, None, f"{label} counted")
+        dev = prox_audit(pkg, prob, sol, label)
+        rho_end = sol.info.rho[:B_KERNEL].to(torch.float32).contiguous()
+        del sol
+        if dev <= AUDIT_TARGET:
+            break
+    require(dev <= AUDIT_TARGET, f"phase 7c: audit {dev:.3e} > "
+            f"{AUDIT_TARGET:.0e} at eps 1e-5")
+    launches["prox_minv"] = counts
+    # The M^{-1} prox kernel against its f64 witness at the penalties the
+    # counted run ended with, after its refactors, on its first lanes.
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    lanes = pkg.ProxQPProblem(*(t[:B_KERNEL] for t in prob.tensors()))
+    iterates = (torch.randn((B_KERNEL, N), generator=g, device=DEVICE),
+                torch.rand((B_KERNEL, MI), generator=g, device=DEVICE),
+                torch.randn((B_KERNEL, ME), generator=g, device=DEVICE),
+                torch.rand((B_KERNEL, MI), generator=g, device=DEVICE))
+    active = torch.arange(B_KERNEL, device=DEVICE) % 4 != 3
+    failures = []
+    log(f"[phase 7c witness] end rho over lanes 0-{B_KERNEL - 1}: "
+        f"{float(rho_end.min()):.4g}-{float(rho_end.max()):.4g}")
+    prox_minv_witness(torch, lanes, rho_end, iterates, active,
+                      "phase 7c witness, end rho", failures)
+    require(not failures, "; ".join(failures))
+    del lanes, iterates
+    sol, dt = run_main(torch, lambda: pkg.solve_proxqp(prob, settings))
+    fdt = factor_seconds(torch, prob, settings)
+    report_prox(prob, sol, dt, fdt, f"{label} refactors {builds - 1}")
+    del sol
+    rho = torch.full((B_DEFAULTS,), settings.rho, device=DEVICE)
+    Mn = prob.P + settings.sigma * torch.eye(N, device=DEVICE) + rho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    cholesky_yardstick(torch, Mn, label, fdt)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -552,9 +888,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, PKG, "csrc")):
-        print(f"chip_smoke: {PKG}/csrc not found beside this script",
-              file=sys.stderr)
+    if not (os.path.isdir(os.path.join(HERE, PKG, "csrc"))
+            and os.path.isfile(os.path.join(HERE, "f64_oracle.py"))):
+        print(f"chip_smoke: {PKG}/csrc or f64_oracle.py not found beside "
+              "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     import quadraticprogramsolver_tpu_torch as pkg
@@ -620,14 +957,20 @@ def main() -> int:
     # Phase 6: the prox-ALM family.
     prox_launches = phase_prox(torch, pkg, cnt, "--profile" in sys.argv[1:])
 
+    # Phase 7: the M^{-1} form (default settings) of both families.
+    minv_launches = phase_minv(torch, pkg, cnt, "--profile" in sys.argv[1:])
+    paths = {"admm": launches, "prox": prox_launches, **minv_launches}
+
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
-        by_path = {"admm": launches.get(name), "prox": prox_launches.get(name)}
+        by_path = {k: v.get(name) for k, v in paths.items()}
+        own = {"prox_chunk": "prox", "admm_chunk_minv": "admm_minv",
+               "prox_chunk_minv": "prox_minv"}.get(name, "admm")
         e = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
              "replaces": rep,
-             # Its own path's count: the ADMM path's for the kernels both
-             # paths share, the prox path's for the prox chunk.
-             "launches": launches.get(name, prox_launches.get(name)),
+             # Its own path's count: the ADMM path's for the factor kernels,
+             # each chunk's own family and form otherwise.
+             "launches": paths[own][name],
              "launches_by_path": {k: v for k, v in by_path.items()
                                   if v is not None},
              "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     "qps_admm_chunk": (_P,) * 17 + (_I, _I, _I, _I, _F, _P),
     "qps_prox_chunk": (_P,) * 16 + (_I, _I, _I, _I, _I, _P),
+    "qps_admm_chunk_minv": (_P,) * 18 + (_I,) * 5 + (_F, _F, _P),
+    "qps_prox_chunk_minv": (_P,) * 17 + (_I,) * 6 + (_F, _P),
 }
 
 
@@ -131,6 +133,51 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = load().lib.qps_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def launches_kernel(name: str, t) -> bool:
+    """Where a wrapper's work runs: True on a CUDA tensor (it launches its
+    kernel), False on a CPU tensor (it runs its plain version); any other
+    device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
+def launch(wrapper, entry: str, *args) -> None:
+    """Call the C entry point ``entry``, count one launch on ``wrapper`` and
+    raise if the launch reported a CUDA error."""
+    code = getattr(load().lib, entry)(*args)
+    wrapper.launches += 1
+    check(code, entry)
+
+
+def check_chunk(name: str, operands: dict, widths: dict, outs, active):
+    """Check a chunk kernel's operands; returns the lane mask as int32.
+
+    ``operands`` maps each float32 operand's name to (tensor, expected
+    shape), ``widths`` each width the kernel tiles by 128 to its value (a
+    nonzero multiple of 128). The operands and ``outs`` must pass
+    :func:`require_cuda_f32`; ``active`` must be (B,) on their device.
+    """
+    import torch
+
+    for key, (t, shape) in operands.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
+                             f"{shape}")
+    bad = {k: w for k, w in widths.items() if w % 128 or w == 0}
+    if bad:
+        raise ValueError(f"{name}: the widths must be nonzero multiples of "
+                         f"128; got {bad}")
+    require_cuda_f32(name, *(t for t, _ in operands.values()), *outs)
+    B = outs[0].shape[0]
+    if tuple(active.shape) != (B,) or active.device != outs[0].device:
+        raise ValueError(f"{name}: active must be ({B},) on the operands' "
+                         f"device; got {tuple(active.shape)} on {active.device}")
+    return active.to(torch.int32).contiguous()
 
 
 def stream_ptr(t) -> int:

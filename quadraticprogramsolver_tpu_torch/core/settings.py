@@ -69,8 +69,8 @@ class Settings:
     cg_rel_eps: float = 0.0
     kkt_backend: KKTBackendKind = KKTBackendKind.AUTO
     kkt_refinement_steps: int = 1
-    #: Run each check interval as one launch of the chunk kernel
-    #: (csrc/admm_chunk.cu). Requires sigma_free_rhs in this port.
+    #: Run each check interval as one launch of a chunk kernel
+    #: (csrc/admm_chunk.cu: the sigma-free or the M^{-1} form).
     fused_chunk: bool = False
     chunk_lanes: int = 1
     chunk_dot_precision: str = "highest"
@@ -161,8 +161,8 @@ class ProxQPSettings:
     #: Stop once every lane has finished; False runs the full budget like
     #: the reference, latching converged lanes and freezing infeasible ones.
     early_exit: bool = True
-    #: Run each check interval as one launch of the prox chunk kernel
-    #: (csrc/prox_chunk.cu). Requires sigma_free_rhs in this port.
+    #: Run each check interval as one launch of a prox chunk kernel
+    #: (csrc/prox_chunk.cu: the sigma-free or the M^{-1} form).
     fused_chunk: bool = False
     chunk_lanes: int = 1
     chunk_dot_precision: str = "highest"
@@ -221,8 +221,6 @@ def _prox_unimplemented(s: ProxQPSettings):
         yield "anderson_memory", "Anderson acceleration"
     if s.record_history:
         yield "record_history", "residual history"
-    if s.fused_chunk and not s.sigma_free_rhs:
-        yield "fused_chunk", "the M^{-1}-form prox chunk (needs sigma_free_rhs)"
 
 
 def _unimplemented(s: Settings):
@@ -253,5 +251,3 @@ def _unimplemented(s: Settings):
         yield "record_history", "residual history"
     if s.kkt_backend not in (KKTBackendKind.AUTO, KKTBackendKind.CHOLESKY):
         yield "kkt_backend", f"the {s.kkt_backend.value} backend"
-    if s.fused_chunk and not s.sigma_free_rhs:
-        yield "fused_chunk", "the M^{-1}-form fused chunk (needs sigma_free_rhs)"

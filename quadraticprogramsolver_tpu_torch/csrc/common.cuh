@@ -7,8 +7,9 @@
 // two 16-byte shared loads for 16 FMAs per thread. Simple and correct first;
 // wgmma/TMA pipelines are later work.
 //
-// warp_rows_dot: the row-by-row matrix-vector product of the two chunk
-// kernels (admm_chunk.cu, prox_chunk.cu).
+// warp_rows_dot: the row-by-row matrix-vector product of the chunk kernels
+// (admm_chunk.cu, prox_chunk.cu). cols_dot: the column reduction (M'v) of
+// their M^{-1}-form kernels.
 
 #pragma once
 
@@ -109,6 +110,67 @@ __device__ __forceinline__ void warp_rows_dot(const float* __restrict__ M,
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) store(row, s);
+  }
+}
+
+// Shared-memory floats cols_dot needs for its partial sums.
+constexpr int cols_dot_part(int threads) { return 4 * threads; }
+
+// out(col) = sum_{r < rows} M[r, col] * v[r] for col < cols, i.e. M'v. M is
+// row-major with `cols` floats a row, cols % 128 == 0, M 16-byte aligned; v
+// may live in shared memory. Each thread owns four neighbouring columns (one
+// 16-byte load a row, a warp's loads contiguous) and every groups-th row,
+// groups = kThreads / (cols / 4) (at least 1); the groups' partial sums meet
+// in `part` (shared memory, cols_dot_part(kThreads) floats, 16-byte aligned)
+// and store(col, sum) is called once per column. Must be called by all
+// kThreads threads; the caller puts a __syncthreads() between this call and
+// anything that reads what store wrote or reuses `part`.
+template <int kThreads, typename Store>
+__device__ __forceinline__ void cols_dot(const float* __restrict__ M, int cols,
+                                         const float* v, int rows, float* part,
+                                         Store store) {
+  const int tid = threadIdx.x;
+  const int q4n = cols / 4;
+  const float4* M4 = reinterpret_cast<const float4*>(M);
+  if (q4n >= kThreads) {
+    for (int q = tid; q < q4n; q += kThreads) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r) {
+        const float4 a = __ldg(M4 + (i64)r * q4n + q);
+        const float w = v[r];
+        acc.x = fmaf(a.x, w, acc.x);
+        acc.y = fmaf(a.y, w, acc.y);
+        acc.z = fmaf(a.z, w, acc.z);
+        acc.w = fmaf(a.w, w, acc.w);
+      }
+      store(4 * q, acc.x);
+      store(4 * q + 1, acc.y);
+      store(4 * q + 2, acc.z);
+      store(4 * q + 3, acc.w);
+    }
+    return;
+  }
+  const int groups = kThreads / q4n;
+  const int q = tid % q4n, grp = tid / q4n;
+  if (grp < groups) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int r = grp; r < rows; r += groups) {
+      const float4 a = __ldg(M4 + (i64)r * q4n + q);
+      const float w = v[r];
+      acc.x = fmaf(a.x, w, acc.x);
+      acc.y = fmaf(a.y, w, acc.y);
+      acc.z = fmaf(a.z, w, acc.z);
+      acc.w = fmaf(a.w, w, acc.w);
+    }
+    reinterpret_cast<float4*>(part + grp * cols)[q] = acc;
+  }
+  __syncthreads();
+  for (int c = tid; c < cols; c += kThreads) {
+    float s = 0.0f;
+    for (int g = 0; g < groups; ++g) s += part[g * cols + c];
+    store(c, s);
   }
 }
 

@@ -29,7 +29,7 @@ import torch
 from ..core.problem import QP, pad_qp
 from ..core.settings import RHO_MAX, RHO_MIN, Settings
 from ..core.state import SolveInfo, Solution, SolverState, Status
-from ..ops.linalg import inf_norm
+from ..ops.linalg import inf_norm, kernel_dtype_ok
 from . import kkt as kkt_mod
 from .plan import check_require_fused, plan as plan_fn
 
@@ -66,8 +66,7 @@ def _init_state(qp: QP, settings: Settings, x0=None, z0=None, y0=None,
 def _fused_chunk_ok(qp: QP, settings: Settings) -> bool:
     return (
         settings.fused_chunk
-        and settings.sigma_free_rhs
-        and kkt_mod.kernel_dtype_ok(qp.dtype, qp.device)
+        and kernel_dtype_ok(qp.dtype, qp.device)
         and len(qp.batch_shape) == 1
         and qp.n % 128 == 0 and qp.n > 0
         and qp.m % 128 == 0 and qp.m > 0
@@ -84,13 +83,22 @@ def _run_chunk(qp: QP, settings: Settings, state: SolverState):
     rho_row = kkt_mod.rho_rows(qp, state.rho, settings).expand(
         qp.batch_shape + (qp.m,)).contiguous()
     if _fused_chunk_ok(qp, settings):
-        from ..ops.fused_admm import fused_admm_chunk
+        from ..ops.fused_admm import fused_admm_chunk, fused_admm_chunk_minv
 
         c = state.kkt_cache
-        x, z, y, xp, zp, Ax, ATy = fused_admm_chunk(
-            c["G"], qp.A, c["g"], qp.l, qp.u, state.x, state.z, state.y,
-            rho_row, state.status == Status.RUNNING,
-            K=settings.check_interval, alpha=settings.alpha)
+        active = state.status == Status.RUNNING
+        if settings.sigma_free_rhs:
+            x, z, y, xp, zp, Ax, ATy = fused_admm_chunk(
+                c["G"], qp.A, c["g"], qp.l, qp.u, state.x, state.z, state.y,
+                rho_row, active, K=settings.check_interval,
+                alpha=settings.alpha)
+        else:
+            # The factor's sigma (the f32 floor applies to both).
+            x, z, y, xp, zp, Ax, ATy = fused_admm_chunk_minv(
+                c["M_inv"], qp.A, qp.P, qp.q, qp.l, qp.u, state.x, state.z,
+                state.y, rho_row, active, K=settings.check_interval,
+                alpha=settings.alpha, sigma=settings.sigma_for(qp.dtype),
+                refine=settings.kkt_refinement_steps)
         return x, z, y, xp, zp, (Ax, ATy)
 
     alpha, alpha1 = settings.alpha, 1.0 - settings.alpha

@@ -6,8 +6,11 @@ A' diag(rho) A (SPD):
     xx = M^{-1} (sigma*x - q + A'(rho*z - y)),      zz = A xx,
 
 or, in sigma-free form (Settings.sigma_free_rhs), xx = G(rho*z - y) - g with
-the cached G = M^{-1}A' and g = M^{-1}q. Only the CHOLESKY backend is ported;
-AUTO resolves to it or raises.
+the cached G = M^{-1}A' and g = M^{-1}q. Off the fused slab factor, M^{-1}
+and {G, g} come from ``spd_inverse``/``spd_solve`` (ops/linalg.py: the
+blocked Gauss-Jordan sweep around the pivot kernel on its shapes, Cholesky
+elsewhere). Only the CHOLESKY backend is ported; AUTO resolves to it or
+raises.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 
 from ..core.problem import QP
 from ..core.settings import MAX_DIRECT_KKT_DIM, KKTBackendKind, Settings
-from ..ops.linalg import add_scaled_identity, matvec, spd_inverse, spd_solve
+from ..ops.linalg import (add_scaled_identity, kernel_dtype_ok, matvec,
+                          spd_inverse, spd_solve)
 
 
 def resolve_backend(kind: KKTBackendKind, qp) -> KKTBackendKind:
@@ -57,14 +61,6 @@ def _build_normal_matrix(qp: QP, rho_row, sigma):
     """P + sigma*I + A' diag(rho_row) A."""
     AtWA = torch.matmul(qp.A.transpose(-1, -2) * rho_row[..., None, :], qp.A)
     return add_scaled_identity(qp.P + AtWA, sigma)
-
-
-def kernel_dtype_ok(dtype, device) -> bool:
-    """The CUDA kernels take float32; the plain versions that stand in for
-    them on the CPU also take float64 (so f64 parity runs the same path)."""
-    if dtype == torch.float32:
-        return True
-    return dtype == torch.float64 and torch.device(device).type == "cpu"
 
 
 def _fused_factor_ok(qp: QP, settings: Settings) -> bool:

@@ -18,6 +18,7 @@ import dataclasses
 import math
 
 from ..core.settings import Settings
+from ..ops.linalg import kernel_dtype_ok, sweep_ok
 from . import kkt as kkt_mod
 
 
@@ -29,8 +30,11 @@ class SolvePlan:
     backend: str
     #: Chunk implementation: "fused_kernel" or "torch".
     chunk: str
-    #: Factor implementation: "fused_slab", "torch_cholesky_solve",
-    #: "torch_inverse" or "prepared" (a prox solve with a prepared factor).
+    #: Factor implementation: "fused_slab" (the slab kernels); "gj_sweep" or
+    #: "sweep_inverse" (ops/linalg.py's Gauss-Jordan sweep around the pivot
+    #: kernel, sigma-free or M^{-1} form); "torch_cholesky_solve" or
+    #: "torch_inverse" (Cholesky, off the sweep's shapes); or "prepared" (a
+    #: prox solve with a prepared factor).
     factor: str
     #: KKT cache layout: "G_g" or "M_inv" (ADMM); "Ga_Gc_g" or "M_inv" (prox).
     cache: str
@@ -46,8 +50,27 @@ class SolvePlan:
     dot_precision: str = "highest"
 
 
+def _small_batch_reason(what: str, B: int) -> str:
+    return (f"{what} at B={B} < 4 inverts the pivot blocks by Cholesky (the "
+            "JAX package's size rule): the pivot kernel does not run")
+
+
+def _unfused_factor(sigma_free: bool, n: int, B: int, dtype, device,
+                    kernels_asked: bool, reasons: list) -> str:
+    """The factor off the slab kernels (ops/linalg.py: spd_solve for the
+    sigma-free cache, spd_inverse for M^{-1}): the sweep around the pivot
+    kernel where ``sweep_ok`` holds, else Cholesky. When the solve asks for
+    kernels, a fleet below 4 lanes says why the pivot kernel will not run."""
+    if sweep_ok(n, B, dtype, device):
+        return "gj_sweep" if sigma_free else "sweep_inverse"
+    if kernels_asked and sweep_ok(n, 4, dtype, device):
+        reasons.append(_small_batch_reason(
+            "the sigma-free factor" if sigma_free else "the M^{-1} factor", B))
+    return "torch_cholesky_solve" if sigma_free else "torch_inverse"
+
+
 def _dtype_reason(dtype, device):
-    if kkt_mod.kernel_dtype_ok(dtype, device):
+    if kernel_dtype_ok(dtype, device):
         return None
     return (f"the kernels take float32 (float64 only through their plain "
             f"versions on the CPU); got {dtype} on {device}")
@@ -79,6 +102,7 @@ def plan(qp, settings: Settings) -> SolvePlan:
                            "torch chunk at the original shape")
 
     kind = kkt_mod.resolve_backend(settings.kkt_backend, qp)
+    B = math.prod(qp.batch_shape)
 
     def shape_reasons(what):
         out = []
@@ -109,20 +133,18 @@ def plan(qp, settings: Settings) -> SolvePlan:
             factor_fused = False
         else:
             factor_fused = True
-            B = math.prod(qp.batch_shape)
             if B < 4:
-                reasons.append(
-                    f"fused_factor at B={B} < 4 inverts the pivot blocks by "
-                    "Cholesky (the JAX package's size rule): the pivot kernel "
-                    "does not run")
+                reasons.append(_small_batch_reason("fused_factor", B))
     else:
         factor_fused = False
     if factor_fused:
         factor = "fused_slab"
-    elif settings.sigma_free_rhs:
-        factor = "torch_cholesky_solve"
+    elif dtype_reason is None:
+        factor = _unfused_factor(settings.sigma_free_rhs, n, B, qp.dtype,
+                                 device, settings.fused_chunk, reasons)
     else:
-        factor = "torch_inverse"
+        factor = ("torch_cholesky_solve" if settings.sigma_free_rhs
+                  else "torch_inverse")
     cache = "G_g" if settings.sigma_free_rhs else "M_inv"
     return SolvePlan(backend=kind.value, chunk=chunk, factor=factor,
                      cache=cache, padded=padded,
@@ -169,19 +191,19 @@ def plan_proxqp(prob, settings, prepared: bool = False) -> SolvePlan:
         if not why:
             chunk = "fused_kernel"
 
+    B = math.prod(batch)
     if prepared:
         factor = "prepared"
-    elif settings.sigma_free_rhs:
-        factor = "torch_cholesky_solve" if why else "fused_slab"
+    elif settings.sigma_free_rhs and not why:
+        factor = "fused_slab"
+        if settings.fused_chunk and B < 4:
+            reasons.append(_small_batch_reason("fused slab factor", B))
+    elif dtype_reason is None:
+        factor = _unfused_factor(settings.sigma_free_rhs, n, B, prob.dtype,
+                                 device, settings.fused_chunk, reasons)
     else:
-        factor = "torch_inverse"
-    if factor == "fused_slab" and settings.fused_chunk:
-        B = math.prod(batch)
-        if B < 4:
-            reasons.append(
-                f"fused slab factor at B={B} < 4 inverts the pivot blocks by "
-                "Cholesky (the JAX package's size rule): the pivot kernel "
-                "does not run")
+        factor = ("torch_cholesky_solve" if settings.sigma_free_rhs
+                  else "torch_inverse")
     cache = "Ga_Gc_g" if settings.sigma_free_rhs else "M_inv"
     return SolvePlan(backend="prox_alm", chunk=chunk, factor=factor,
                      cache=cache, padded=padded,

@@ -20,8 +20,9 @@ the PIQP convergence criteria 13a-c, the split-form Farkas certificates and
 the tau-triggered double-square-root adaptive rho.
 
 The JAX package's ``while_loop``/``scan`` becomes a host loop over check
-intervals: each pass runs one chunk (one launch of csrc/prox_chunk.cu on the
-fused path) and one convergence check on the device. Where the loop needs to
+intervals: each pass runs one chunk (one launch of a csrc/prox_chunk.cu
+kernel on the fused path, sigma-free or M^{-1} form) and one convergence
+check on the device. Where the loop needs to
 know something (whether any lane still runs under ``early_exit``, whether any
 lane's rho tripped), it reads both in ONE device-to-host sync at the top of
 the next pass; ``lax.cond(any(trip))`` becomes a host ``if`` on that flag.
@@ -37,9 +38,10 @@ import torch
 from ..core.problem import ProxQPProblem, pad_proxqp
 from ..core.settings import ProxQPSettings
 from ..core.state import Status
-from ..ops.fused_proxqp import fused_proxqp_chunk, fused_proxqp_chunk_plain
-from ..ops.linalg import add_scaled_identity, inf_norm, matvec, spd_inverse, spd_solve
-from .kkt import kernel_dtype_ok
+from ..ops.fused_proxqp import (fused_proxqp_chunk, fused_proxqp_chunk_minv,
+                                fused_proxqp_chunk_plain)
+from ..ops.linalg import (add_scaled_identity, inf_norm, kernel_dtype_ok,
+                          matvec, spd_inverse, spd_solve)
 from .plan import check_require_fused, plan_proxqp
 
 
@@ -136,7 +138,8 @@ def _build_sigma_free_cache(prob: ProxQPProblem, rho, settings) -> dict:
 
     With one batch axis and 128-multiple dims (f32, or f64 on the CPU) the
     factor runs through the slab kernels with A and C as two row blocks
-    (ops/fused_factor.py); otherwise it is a Cholesky multi-RHS solve.
+    (ops/fused_factor.py); otherwise it is a multi-RHS ``spd_solve`` (the
+    Gauss-Jordan sweep around the pivot kernel, or Cholesky off its shapes).
     """
     n, me, mi = prob.n, prob.n_eq, prob.n_ineq
     batch = prob.batch_shape
@@ -278,23 +281,32 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
               else refresh_factor(rho))
 
     fused = p.chunk == "fused_kernel"
+    refine = settings.kkt_refinement_steps
     if fused:
         n, me, mi = prob.n, prob.n_eq, prob.n_ineq
         A, C = _bcast(prob.A, batch, me, n), _bcast(prob.C, batch, mi, n)
         b, d = _bcast(prob.b, batch, me), _bcast(prob.d, batch, mi)
+        if not sigma_free:
+            q = _bcast(prob.q, batch, n)
+            P = _bcast(prob.P, batch, n, n) if refine > 0 else None
 
     def ldiv(M_inv, rho, r):
         v = matvec(M_inv, r)
-        for _ in range(settings.kkt_refinement_steps):
+        for _ in range(refine):
             v = v + matvec(M_inv, r - _apply_M(prob, rho, sigma, v))
         return v
 
     def run_chunk(x, s, y, z, rho, factor, active):
-        if fused:
+        if fused and sigma_free:
             return fused_proxqp_chunk(
                 factor["G"], A, C, factor["g"], b, d, x.contiguous(),
                 s.contiguous(), y.contiguous(), z.contiguous(), rho, active,
                 K=settings.check_interval)
+        if fused:
+            return fused_proxqp_chunk_minv(
+                factor, A, C, P, q, b, d, x.contiguous(), s.contiguous(),
+                y.contiguous(), z.contiguous(), rho, active,
+                K=settings.check_interval, sigma=sigma, refine=refine)
         if sigma_free:
             return fused_proxqp_chunk_plain(
                 factor["G"], prob.A, prob.C, factor["g"], prob.b, prob.d, x,

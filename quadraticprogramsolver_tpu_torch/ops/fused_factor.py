@@ -67,10 +67,8 @@ def build_slab(P, A, q, rho_row, sigma: float) -> torch.Tensor:
     two on the card), q (B, n), rho_row (B, sum m_i) -> (B, n, kp + n).
     """
     blocks = _blocks(A)
-    if P.device.type == "cpu":
+    if not _build.launches_kernel("build_slab", P):
         return build_slab_plain(P, blocks, q, rho_row, sigma)
-    if P.device.type != "cuda":
-        raise ValueError(f"no slab kernel for device {P.device}")
     if not 1 <= len(blocks) <= 2:
         raise ValueError(f"slab kernel takes one or two row blocks; got "
                          f"{len(blocks)}")
@@ -90,11 +88,10 @@ def build_slab(P, A, q, rho_row, sigma: float) -> torch.Tensor:
     S = torch.empty((B, n, kp + n), dtype=torch.float32, device=P.device)
     _build.require_cuda_f32("build_slab", P, *blocks, q, rho_row, S)
     A1, m1 = (blocks[1].data_ptr(), ms[1]) if len(blocks) == 2 else (None, 0)
-    code = _build.load().lib.qps_slab_build(
+    _build.launch(
+        build_slab, "qps_slab_build",
         P.data_ptr(), blocks[0].data_ptr(), A1, q.data_ptr(), rho_row.data_ptr(),
         S.data_ptr(), B, n, ms[0], m1, kp, float(sigma), _build.stream_ptr(P))
-    build_slab.launches += 1
-    _build.check(code, "qps_slab_build")
     return S
 
 
@@ -117,10 +114,8 @@ def slab_level(S, Dinv, j: int, w_out: int, scratch=None) -> None:
     ``scratch`` (CUDA only): a (B, 128, >= w_out) float32 buffer for
     Dinv . T[j rows], reused across levels; allocated when None.
     """
-    if S.device.type == "cpu":
+    if not _build.launches_kernel("slab_level", S):
         return slab_level_plain(S, Dinv, j, w_out)
-    if S.device.type != "cuda":
-        raise ValueError(f"no slab kernel for device {S.device}")
     B, n, wid = S.shape
     if tuple(Dinv.shape) != (B, NB, NB):
         raise ValueError(f"Dinv must be ({B}, {NB}, {NB}); got {tuple(Dinv.shape)}")
@@ -136,11 +131,10 @@ def slab_level(S, Dinv, j: int, w_out: int, scratch=None) -> None:
         raise ValueError(f"scratch must be ({B}, {NB}, >= {w_out}); got "
                          f"{tuple(scratch.shape)}")
     _build.require_cuda_f32("slab_level", S, Dinv, scratch)
-    code = _build.load().lib.qps_slab_level(
+    _build.launch(
+        slab_level, "qps_slab_level",
         S.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), scratch.shape[2],
         B, n, wid, j, w_out, _build.stream_ptr(S))
-    slab_level.launches += 1
-    _build.check(code, "qps_slab_level")
 
 
 slab_level.launches = 0

@@ -1,13 +1,14 @@
-"""Fused sigma-free prox-ALM chunk: K iterations per active lane in one launch.
+"""Fused prox-ALM chunks: K iterations per active lane in one launch.
 
 Counterpart of ``quadraticprogramsolver_tpu/ops/fused_proxqp.py``
-(``fused_proxqp_chunk(..., sigma_free=True)``) in its "highest", lanes=1,
-refine=0 variant; the M^{-1} form, refinement, lane interleave and
-reduced-precision dots are queued in ROADMAP.md. The column cache enters as
-one operand G = [Ga | Gc] (B, n, me + mi), so the x-update is one product
-with the concatenated t = [rho b - y; rho(d - s) - z]. On a CUDA tensor the
-wrapper launches csrc/prox_chunk.cu; on a CPU tensor it runs
-:func:`fused_proxqp_chunk_plain`.
+(``fused_proxqp_chunk``) in its "highest", lanes=1 variants: the sigma-free
+form (:func:`fused_proxqp_chunk`) and the M^{-1} form with ``refine``
+refinement passes (:func:`fused_proxqp_chunk_minv`). Lane interleave and
+reduced-precision dots are queued in ROADMAP.md. In the sigma-free form the
+column cache enters as one operand G = [Ga | Gc] (B, n, me + mi), so the
+x-update is one product with the concatenated t = [rho b - y; rho(d - s) - z].
+On a CUDA tensor each wrapper launches its kernel in csrc/prox_chunk.cu; on
+a CPU tensor it runs its plain version.
 """
 
 from __future__ import annotations
@@ -23,13 +24,21 @@ def fused_proxqp_chunk_plain(G, A, C, g, b, d, x, s, y, z, rho, active, *,
     """Plain PyTorch chunk; same arguments and outputs as
     :func:`fused_proxqp_chunk`. Any float dtype, device and batch shape
     (A, C, b and d may be shared across the batch)."""
+    r = rho[..., None]
+    return _plain_chunk(
+        lambda x, s, y, z: matvec(G, torch.cat([r * b - y, r * (d - s) - z],
+                                               dim=-1)) - g,
+        A, C, b, d, x, s, y, z, rho, active, K=K)
+
+
+def _plain_chunk(kkt_solve, A, C, b, d, x, s, y, z, rho, active, *, K):
+    """K masked prox-ALM iterations around ``kkt_solve(x, s, y, z) -> x``."""
     act = active.bool()[..., None]
     r = rho[..., None]
     rho_inv = 1.0 / r
     x0, s0, y0, z0 = x, s, y, z
     for _ in range(K):
-        t = torch.cat([r * b - y, r * (d - s) - z], dim=-1)
-        x = matvec(G, t) - g
+        x = kkt_solve(x, s, y, z)
         Cx = matvec(C, x)
         Ax = matvec(A, x)
         s = torch.clamp_min(d - Cx - rho_inv * z, 0.0)
@@ -47,37 +56,91 @@ def fused_proxqp_chunk(G, A, C, g, b, d, x, s, y, z, rho, active, *, K: int):
     active (B,) bool. Returns (x, s, y, z); a frozen lane passes its inputs
     through unchanged.
     """
-    if x.device.type == "cpu":
+    if not _build.launches_kernel("fused_proxqp_chunk", x):
         return fused_proxqp_chunk_plain(G, A, C, g, b, d, x, s, y, z, rho,
                                         active, K=K)
-    if x.device.type != "cuda":
-        raise ValueError(f"no chunk kernel for device {x.device}")
     B, n = x.shape
     me, mi = b.shape[-1], d.shape[-1]
-    shapes = {"G": (B, n, me + mi), "A": (B, me, n), "C": (B, mi, n),
-              "g": (B, n), "b": (B, me), "d": (B, mi), "s": (B, mi),
-              "y": (B, me), "z": (B, mi), "rho": (B,), "active": (B,)}
-    for name, t in zip(shapes, (G, A, C, g, b, d, s, y, z, rho, active)):
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"fused_proxqp_chunk: {name} is {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
-    if n % 128 or me % 128 or mi % 128 or me == 0 or mi == 0 or K < 1:
-        raise ValueError(f"prox chunk kernel needs n, me, mi nonzero multiples "
-                         f"of 128 and K >= 1; got n={n}, me={me}, mi={mi}, K={K}")
-    act = active.to(torch.int32).contiguous()
+    if K < 1:
+        raise ValueError(f"fused_proxqp_chunk: K must be >= 1; got {K}")
     outs = [torch.empty_like(v) for v in (x, s, y, z)]
-    _build.require_cuda_f32("fused_proxqp_chunk", G, A, C, g, b, d, x, s, y, z,
-                            rho, *outs)
-    if act.device != x.device:
-        raise ValueError("active must be on the operands' device")
-    code = _build.load().lib.qps_prox_chunk(
+    act = _build.check_chunk(
+        "fused_proxqp_chunk",
+        {"G": (G, (B, n, me + mi)), "A": (A, (B, me, n)), "C": (C, (B, mi, n)),
+         "g": (g, (B, n)), "b": (b, (B, me)), "d": (d, (B, mi)),
+         "x": (x, (B, n)), "s": (s, (B, mi)), "y": (y, (B, me)),
+         "z": (z, (B, mi)), "rho": (rho, (B,))},
+        {"n": n, "me": me, "mi": mi}, outs, active)
+    _build.launch(
+        fused_proxqp_chunk, "qps_prox_chunk",
         G.data_ptr(), A.data_ptr(), C.data_ptr(), g.data_ptr(), b.data_ptr(),
         d.data_ptr(), rho.data_ptr(), x.data_ptr(), s.data_ptr(), y.data_ptr(),
         z.data_ptr(), act.data_ptr(), *(o.data_ptr() for o in outs), B, n, me,
         mi, K, _build.stream_ptr(x))
-    fused_proxqp_chunk.launches += 1
-    _build.check(code, "qps_prox_chunk")
     return tuple(outs)
 
 
 fused_proxqp_chunk.launches = 0
+
+
+def fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y, z, rho,
+                                  active, *, K: int, sigma: float, refine: int):
+    """Plain PyTorch M^{-1}-form chunk; same arguments and outputs as
+    :func:`fused_proxqp_chunk_minv`. Any float dtype, device and batch shape
+    (A, C, P, q, b and d may be shared across the batch)."""
+    r = rho[..., None]
+    At, Ct = A.transpose(-1, -2), C.transpose(-1, -2)
+
+    def kkt_solve(x, s, y, z):
+        rhs = (-q + sigma * x + matvec(At, r * b - y)
+               + matvec(Ct, r * (d - s) - z))
+        x = matvec(Minv, rhs)
+        for _ in range(refine):
+            Mx = (matvec(P, x) + sigma * x
+                  + r * (matvec(At, matvec(A, x)) + matvec(Ct, matvec(C, x))))
+            x = x + matvec(Minv, rhs - Mx)
+        return x
+
+    return _plain_chunk(kkt_solve, A, C, b, d, x, s, y, z, rho, active, K=K)
+
+
+def fused_proxqp_chunk_minv(Minv, A, C, P, q, b, d, x, s, y, z, rho, active,
+                            *, K: int, sigma: float, refine: int):
+    """Run K M^{-1}-form prox-ALM iterations for every active lane.
+
+    Minv (B, n, n) = (P + sigma*I + rho(A'A + C'C))^{-1} (contracted as
+    Minv @ r), A (B, me, n), C (B, mi, n), P (B, n, n) (read only when
+    refine > 0; may then be None), q/x (B, n), b/y (B, me), d/s/z (B, mi),
+    rho (B,), active (B,) bool. Each KKT solve takes ``refine`` refinement
+    passes against the true M. Returns (x, s, y, z); a frozen lane passes
+    its inputs through unchanged.
+    """
+    if not _build.launches_kernel("fused_proxqp_chunk_minv", x):
+        return fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y,
+                                             z, rho, active, K=K, sigma=sigma,
+                                             refine=refine)
+    B, n = x.shape
+    me, mi = b.shape[-1], d.shape[-1]
+    if K < 1 or refine < 0:
+        raise ValueError(f"fused_proxqp_chunk_minv: K must be >= 1 and refine "
+                         f">= 0; got K={K}, refine={refine}")
+    operands = {"Minv": (Minv, (B, n, n)), "A": (A, (B, me, n)),
+                "C": (C, (B, mi, n)), "q": (q, (B, n)), "b": (b, (B, me)),
+                "d": (d, (B, mi)), "x": (x, (B, n)), "s": (s, (B, mi)),
+                "y": (y, (B, me)), "z": (z, (B, mi)), "rho": (rho, (B,))}
+    if refine > 0:
+        operands["P"] = (P, (B, n, n))
+    outs = [torch.empty_like(v) for v in (x, s, y, z)]
+    act = _build.check_chunk("fused_proxqp_chunk_minv", operands,
+                             {"n": n, "me": me, "mi": mi}, outs, active)
+    _build.launch(
+        fused_proxqp_chunk_minv, "qps_prox_chunk_minv",
+        Minv.data_ptr(), A.data_ptr(), C.data_ptr(),
+        P.data_ptr() if refine > 0 else None, q.data_ptr(), b.data_ptr(),
+        d.data_ptr(), rho.data_ptr(), x.data_ptr(), s.data_ptr(), y.data_ptr(),
+        z.data_ptr(), act.data_ptr(), *(o.data_ptr() for o in outs), B, n, me,
+        mi, K, refine, float(sigma), _build.stream_ptr(x))
+    return tuple(outs)
+
+
+fused_proxqp_chunk_minv.launches = 0

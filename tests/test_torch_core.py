@@ -56,7 +56,6 @@ REJECTED = [
     ("kkt_backend", pt.KKTBackendKind.CG),
     ("kkt_backend", pt.KKTBackendKind.KKT_LDL),
     ("kkt_backend", pt.KKTBackendKind.KKT_MINRES),
-    ("fused_chunk", True),  # without sigma_free_rhs: the M^{-1} chunk
 ]
 
 
@@ -65,6 +64,19 @@ REJECTED = [
 def test_unimplemented_knob_raises(field, value):
     with pytest.raises(NotImplementedError, match=field):
         pt.Settings(**{field: value})
+
+
+def test_m_inverse_fused_chunk_is_accepted():
+    """fused_chunk without sigma_free_rhs (the default M^{-1} form with one
+    refinement step) is accepted and plans the M^{-1} chunk kernel."""
+    st = pt.Settings(fused_chunk=True, require_fused=True)
+    assert (st.sigma_free_rhs, st.kkt_refinement_steps) == (False, 1)
+    qp = device_random_qp_fleet(4, 128, 128,
+                                generator=torch.Generator().manual_seed(0))
+    p = pt.plan(qp, st)
+    assert (p.chunk, p.cache, p.factor) == ("fused_kernel", "M_inv",
+                                            "sweep_inverse")
+    assert p.fallback_reasons == ()
 
 
 def test_settings_validation_matches_jax():
@@ -224,5 +236,46 @@ def test_port_never_imports_jax():
     for f in files:
         m = bad.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"
-    smoke = PORT_DIR.parent / "chip_smoke.py"
-    assert bad.search(smoke.read_text()) is None
+    for script in ("chip_smoke.py", "f64_oracle.py"):
+        text = (PORT_DIR.parent / script).read_text()
+        assert bad.search(text) is None, script
+        # Nor is a module of the JAX package loaded by its path.
+        assert re.search(r"[\"']quadraticprogramsolver_tpu[\"']", text) is None, script
+        assert "spec_from_file_location" not in text, script
+
+
+def _smoke_oracle():
+    import importlib.util
+    import sys
+
+    spec = importlib.util.spec_from_file_location(
+        "f64_oracle", PORT_DIR.parent / "f64_oracle.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass looks its module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive", "static"])
+def test_smoke_oracle_matches_the_jax_package_oracle(adaptive):
+    """chip_smoke.py's f64 reference gives the JAX package's oracle's
+    answers (its splu path) on the same problem."""
+    from quadraticprogramsolver_tpu.utils import oracle
+
+    rng = np.random.default_rng(4)
+    n, m = 30, 20
+    X = rng.standard_normal((n, n))
+    P = X @ X.T / n + 0.1 * np.eye(n)
+    q = rng.standard_normal(n)
+    A = rng.standard_normal((m, n))
+    l, u = -rng.random(m) - 0.5, rng.random(m) + 0.5
+    kw = dict(eps_abs=1e-7, eps_rel=1e-7, rho=0.1, max_iterations=20000,
+              adaptive_rho=adaptive)
+    ref = oracle.solve_qp_reference(P, q, A, l, u, linsys="splu", **kw)
+    got = _smoke_oracle().solve_qp_reference(P, q, A, l, u, **kw)
+    assert (got.status, got.iterations) == (ref.status, ref.iterations)
+    assert ref.status == 3
+    for name in ("x", "z", "y"):
+        np.testing.assert_allclose(getattr(got, name), getattr(ref, name),
+                                   rtol=0, atol=1e-12)
+    assert got.rho == ref.rho

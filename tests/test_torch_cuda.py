@@ -12,7 +12,7 @@ import torch
 
 import quadraticprogramsolver_tpu_torch as pt
 from quadraticprogramsolver_tpu_torch.ops import (
-    fused_admm, fused_factor, fused_proxqp, spd_kernels)
+    fused_admm, fused_factor, fused_proxqp, linalg, spd_kernels)
 from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
     device_random_qp_fleet)
 from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
@@ -169,3 +169,162 @@ def test_prox_solve_on_card(dev):
     assert torch.equal(sol.info.status.cpu(), ref.info.status)
     assert (ref.info.status == 3).all()
     assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3
+
+
+def test_sweep_routed_inverse_and_solve_on_card(dev):
+    """ops/linalg.py routes a sweep-shaped f32 fleet through the pivot
+    kernel (4 launches per sweep at n=512) and agrees with torch.linalg."""
+    qp, _ = _fleet(dev, 7, n=512, m=256)
+    rho = torch.full((B, 256), 0.4, device=dev)
+    Mn = qp.P + 1e-4 * torch.eye(512, device=dev) + (
+        qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
+    spd_kernels.spd_inverse_unrolled.launches = 0
+    inv = linalg.spd_inverse(Mn)
+    X = linalg.spd_solve(Mn, qp.A.transpose(1, 2))
+    assert spd_kernels.spd_inverse_unrolled.launches == 8
+    ref = torch.linalg.inv(Mn.double())
+    assert float((inv.double() - ref).abs().max() / ref.abs().max()) <= 1e-3
+    Xr = ref @ qp.A.transpose(1, 2).double()
+    assert float((X.double() - Xr).abs().max() / Xr.abs().max()) <= 1e-3
+
+
+def test_minv_chunk_kernels_match_plain(dev):
+    qp, g = _fleet(dev, 8)
+    rho = torch.full((B, M), 0.4, device=dev)
+    Mn = qp.P + 1e-4 * torch.eye(N, device=dev) + (
+        qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
+    Minv = linalg.spd_inverse(Mn)
+    x = torch.randn((B, N), generator=g, device=dev)
+    z = torch.randn((B, M), generator=g, device=dev)
+    y = torch.randn((B, M), generator=g, device=dev)
+    active = torch.arange(B, device=dev) % 3 != 1
+    for refine in (0, 1):
+        kw = dict(K=7, alpha=1.6, sigma=1e-4, refine=refine)
+        args = (Minv, qp.A, qp.P, qp.q, qp.l, qp.u, x, z, y, rho, active)
+        out = fused_admm.fused_admm_chunk_minv(*args, **kw)
+        ref = fused_admm.fused_admm_chunk_minv_plain(*args, **kw)
+        for o, r in zip(out, ref):
+            assert _close(o, r)
+        assert torch.equal(out[0][~active], x[~active])
+        assert torch.equal(out[4][~active], z[~active])
+
+    prob, g = _prox_fleet(dev, 9)
+    # The prox fleet's penalty range (chip_smoke.py phase 6). From rho ~ 0.1
+    # up, FP32 rounding alone moves these outputs by ~1e-5 on either side:
+    # test_minv_prox_kernel_against_f64_witness holds the kernel there.
+    rho = 0.0125 * (1.0 + torch.rand(B, generator=g, device=dev))
+    Mn = prob.P + 1e-2 * torch.eye(N, device=dev) + rho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    x = torch.randn((B, N), generator=g, device=dev)
+    s = torch.rand((B, 128), generator=g, device=dev)
+    y = torch.randn((B, 128), generator=g, device=dev)
+    z = torch.rand((B, 128), generator=g, device=dev)
+    active = torch.arange(B, device=dev) % 4 != 3
+    for refine in (0, 1):
+        kw = dict(K=9, sigma=1e-2, refine=refine)
+        args = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y,
+                z, rho, active)
+        out = fused_proxqp.fused_proxqp_chunk_minv(*args, **kw)
+        ref = fused_proxqp.fused_proxqp_chunk_minv_plain(*args, **kw)
+        for o, r, v in zip(out, ref, (x, s, y, z)):
+            assert _close(o, r)
+            assert torch.equal(o[~active], v[~active])
+
+
+@pytest.mark.parametrize("rho_v", [0.1, 0.5])
+@pytest.mark.parametrize("refine", [0, 1])
+def test_minv_prox_kernel_against_f64_witness(dev, rho_v, refine):
+    """At penalties where FP32 rounding moves the outputs past TOL, the
+    kernel and its plain version are each held against the plain version in
+    f64 on the same inputs: per output, the kernel's error stays within 3x
+    the plain version's (rounding gives ratios near 1)."""
+    prob, g = _prox_fleet(dev, 14)
+    rho = torch.full((B,), rho_v, device=dev)
+    Mn = prob.P + 1e-2 * torch.eye(N, device=dev) + rho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    x = torch.randn((B, N), generator=g, device=dev)
+    s = torch.rand((B, 128), generator=g, device=dev)
+    y = torch.randn((B, 128), generator=g, device=dev)
+    z = torch.rand((B, 128), generator=g, device=dev)
+    active = torch.arange(B, device=dev) % 4 != 3
+    args = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y, z,
+            rho, active)
+    kw = dict(K=25, sigma=1e-2, refine=refine)
+    out = fused_proxqp.fused_proxqp_chunk_minv(*args, **kw)
+    ref = fused_proxqp.fused_proxqp_chunk_minv_plain(*args, **kw)
+    wit = fused_proxqp.fused_proxqp_chunk_minv_plain(
+        *(a.double() if a.is_floating_point() else a for a in args), **kw)
+    for o, r, w in zip(out, ref, wit):
+        ek = float((o.double() - w).abs().max())
+        ep = float((r.double() - w).abs().max())
+        assert ek <= 3.0 * ep + 1e-7 * float(w.abs().max()), (ek, ep)
+
+
+def test_default_settings_solves_run_the_minv_kernels(dev):
+    qp, _ = _fleet(dev, 10, n=200, m=100)
+    st = pt.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                     fused_chunk=True, require_fused=True)
+    fns = (spd_kernels.spd_inverse_unrolled, fused_admm.fused_admm_chunk_minv)
+    for f in fns:
+        f.launches = 0
+    sol = pt.solve(qp, st)
+    assert all(f.launches > 0 for f in fns)
+    ref = pt.solve(qp.to("cpu"), st)
+    # Both flags 2 and 3 can pass at one check; which one a lane reports
+    # then rests on FP32 rounding, so only "converged" is compared.
+    assert (sol.info.status >= 2).all() and (ref.info.status >= 2).all()
+    assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3
+
+    prob, _ = _prox_fleet(dev, 11, n=200, me=100, mi=60)
+    pst = pt.ProxQPSettings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                            rho=0.1, kkt_warm_start=False, fused_chunk=True,
+                            require_fused=True)
+    fns = (spd_kernels.spd_inverse_unrolled, fused_proxqp.fused_proxqp_chunk_minv)
+    for f in fns:
+        f.launches = 0
+    psol = pt.solve_proxqp(prob, pst)
+    assert all(f.launches > 0 for f in fns)
+    pref = pt.solve_proxqp(prob.to("cpu"), pst)
+    assert torch.equal(psol.info.status.cpu(), pref.info.status)
+    assert (pref.info.status == 3).all()
+    assert float((psol.x.cpu() - pref.x).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n,m", [(384, 128), (1024, 256)])
+def test_minv_kernels_at_other_widths(dev, n, m):
+    """Widths that take cols_dot's other branches: n = 384 leaves threads
+    idle in the row-group split, n = 1024 gives each thread whole columns."""
+    qp, g = _fleet(dev, 12, b=4, n=n, m=m)
+    rho = torch.full((4, m), 0.4, device=dev)
+    Mn = qp.P + 1e-4 * torch.eye(n, device=dev) + (
+        qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
+    Minv = linalg.spd_inverse(Mn)
+    ref = torch.linalg.inv(Mn.double())
+    assert float((Minv.double() - ref).abs().max() / ref.abs().max()) <= 1e-3
+    x = torch.randn((4, n), generator=g, device=dev)
+    z = torch.randn((4, m), generator=g, device=dev)
+    y = torch.randn((4, m), generator=g, device=dev)
+    active = torch.tensor([True, False, True, True], device=dev)
+    args = (Minv, qp.A, qp.P, qp.q, qp.l, qp.u, x, z, y, rho, active)
+    kw = dict(K=5, alpha=1.6, sigma=1e-4, refine=1)
+    for o, r in zip(fused_admm.fused_admm_chunk_minv(*args, **kw),
+                    fused_admm.fused_admm_chunk_minv_plain(*args, **kw)):
+        assert _close(o, r)
+
+    prob, g = _prox_fleet(dev, 13, b=4, n=n, me=m, mi=m)
+    prho = 0.0125 * (1.0 + torch.rand(4, generator=g, device=dev))
+    Mn = prob.P + 1e-2 * torch.eye(n, device=dev) + prho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    x = torch.randn((4, n), generator=g, device=dev)
+    s = torch.rand((4, m), generator=g, device=dev)
+    y = torch.randn((4, m), generator=g, device=dev)
+    z = torch.rand((4, m), generator=g, device=dev)
+    pargs = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y, z,
+             prho, active)
+    pkw = dict(K=5, sigma=1e-2, refine=1)
+    for o, r in zip(fused_proxqp.fused_proxqp_chunk_minv(*pargs, **pkw),
+                    fused_proxqp.fused_proxqp_chunk_minv_plain(*pargs, **pkw)):
+        assert _close(o, r)

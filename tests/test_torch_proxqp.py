@@ -254,7 +254,7 @@ def test_plan_matches_jax_and_require_fused_raises_on_every_gate():
                   "dot_precision", "fallback_reasons"):
             jv, pv = getattr(jpl, f), getattr(ppl, f)
             jv = {"fused_pallas": "fused_kernel", "xla": "torch",
-                  "xla_gj_sweep": "torch_cholesky_solve"}.get(jv, jv)
+                  "xla_gj_sweep": "gj_sweep"}.get(jv, jv)
             assert pv == jv, (f, pv, jv)
     ok = device_prox_fleet(4, 128, 128, 128,
                            generator=torch.Generator().manual_seed(0))
@@ -288,12 +288,19 @@ def test_settings_fields_defaults_and_validators_match_jax():
     sf = dict(fused_chunk=True, sigma_free_rhs=True, kkt_refinement_steps=0)
     rejected = [dict(chunk_lanes=2), dict(chunk_dot_precision="high"),
                 dict(first_chunk_dot_precision="default", **sf),
-                dict(anderson_memory=4), dict(record_history=True),
-                dict(fused_chunk=True)]
+                dict(anderson_memory=4), dict(record_history=True)]
     for kw in rejected:
         qps.ProxQPSettings(**kw)  # valid for the JAX package
         with pytest.raises(NotImplementedError):
             pt.ProxQPSettings(**kw)
+    # The M^{-1}-form fused chunk (default refinement) is accepted and plans
+    # the M^{-1} prox chunk kernel behind the sweep factor.
+    minv = pt.ProxQPSettings(fused_chunk=True, require_fused=True)
+    ok = device_prox_fleet(4, 128, 128, 128,
+                           generator=torch.Generator().manual_seed(1))
+    plan = pt.plan_proxqp(ok, minv)
+    assert (plan.chunk, plan.cache, plan.factor, plan.fallback_reasons) == (
+        "fused_kernel", "M_inv", "sweep_inverse", ())
     with pytest.raises(ValueError, match="refinement"):
         pt.solve_proxqp(_pair(_fleet_np())[1], pt.ProxQPSettings(
             sigma_free_rhs=True, kkt_refinement_steps=1))
