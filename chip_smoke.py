@@ -17,11 +17,23 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    both times (CUDA events, median of 5), the time of one PyTorch call that
    computes the same function where there is one, and the kernel's bound:
    the larger of its bytes (each input read once, each output written once)
-   over 3.35 TB/s and its FLOPs over 67 TFLOP/s (FP32), the H100 SXM's
-   published peaks. The two M^{-1} chunks are also held, output by output,
+   over 3.35 TB/s and its FLOPs (FP32 ones over 67 TFLOP/s, products of two
+   bf16 operands summed in FP32 over the 989 TFLOP/s of the bf16 tensor
+   cores), the H100 SXM's published peaks. The two M^{-1} chunks are also held, output by output,
    against their plain version run in f64 (the witness: the kernel's error
    within 3x the FP32 plain version's), the prox one at phase 6's penalties
-   and at phase 7c's rho0 = 0.1.
+   and at phase 7c's rho0 = 0.1. Then each chunk variant of rows 4c/5c (an
+   entry of its own in the kernels JSON): the sigma-free ADMM chunk at
+   "high" and "default" (held by the f64 witness, whose plain version in
+   f64 runs without rounding) and with the split G, the slab window, lanes
+   2 (all three at "high", bit for bit equal to the "high" kernel) and
+   lanes 4 (FP32, bit for bit the lanes-1 kernel); the M^{-1} ADMM chunk at
+   lanes 2; the prox chunk at "high", "default" and lanes 2; the M^{-1} prox
+   chunk at lanes 2. The bound of "high" counts its iterate products three
+   times. The witness cannot fail a "default" kernel that skips a rounding
+   (the plain "default" lies far from f64), so each family's "default"
+   kernel is also held at K=1 against its plain version and its own
+   "highest" (``default_check``).
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
@@ -57,11 +69,28 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
        ``torch.cholesky_inverse(torch.linalg.cholesky(M))`` on the same M,
        iterations, refactors and peak memory.
 
-``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve
-and one profiled solve each of phases 7a and 7b (kernel time by name and the
-device's idle share).
+8. bench.py's tuned stacks, each with require_fused, static rho and the
+   audit of its family (16 ADMM / 8 prox lanes), tightening eps while the
+   audit fails; each prints its solve, factor, iterations, eps, audit, peak
+   memory and the launches of every chunk variant, and fails if a variant of
+   its stack never launched: 8a bench.py's ``slab_settings`` (slab window,
+   lanes 2, "high", a "default" first chunk) on phase 3's fleet; 8b its
+   ``slab_hi`` (slab window, lanes 4, FP32, the same schedule); 8c the
+   ``split_cache`` stack (8a with the bf16 G halves, no schedule); 8d the
+   literal 500/250 fleet under ``slab_settings`` (bench.py's
+   ``baseline_shape`` row); 8e the ``benchmarks/proxqp_fleet.py --headline``
+   stack on phase 6's fleet (lanes 2, "high", a "default" first chunk). 8f
+   and 8g run phase 7b's and 7c's stacks at lanes 2 beside lanes 1: the
+   same statuses, iterations and x, bit for bit.
 
-The last lines are the kernels JSON, the nvidia-smi line, and
+``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve,
+one profiled solve each of phases 7a and 7b, and one each of 8a and 8e
+(kernel time by name and the device's idle share). ``--time-chunks`` adds,
+after phase 2, the times of the sigma-free chunks and their variants at the
+main path's B=4096 with every lane active (``time_chunks``).
+
+The last lines are the total wall time, the kernels JSON (the seven kernels
+and the eleven variants of rows 4c and 5c), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -84,8 +113,9 @@ ME, MI, K_PROX = 128, 128, 25
 B_DEFAULTS, K_MINV, REFINE = 2048, 25, 1
 LEVELS = N // 128  # pivot launches per factor at n = 512
 AUDIT_TARGET = 1e-4
-#: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W).
-PEAK_BYTES_S, PEAK_FP32_S = 3.35e12, 67e12
+#: The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): memory,
+#: FP32 outside the tensor cores, bf16 on the tensor cores (dense).
+PEAK_BYTES_S, PEAK_FP32_S, PEAK_BF16_S = 3.35e12, 67e12, 989e12
 #: Kernel-vs-plain limit on max|kernel - plain| / max(max|plain|, 1). Both
 #: sides are FP32 with the same operation order per element except for sum
 #: order and FMA contraction; the pivot blocks of this family are
@@ -100,6 +130,18 @@ LIMIT = 1e-5
 #: WITNESS_RATIO times the plain version's, plus WITNESS_FLOOR of the
 #: output's size: rounding gives ratios near 1, a fault a far larger error.
 WITNESS_RATIO, WITNESS_FLOOR = 3.0, 1e-7
+#: The "default" check (one iteration, K=1): the kernel against its plain
+#: version, which rounds the same operands. Where the two differ by an ulp
+#: in a sum order, a bf16 rounding can flip and move the elements that read
+#: it by up to ~2e-3 of their output's max (a CPU emulation at phase 2's
+#: shapes: 0.06-1.3 % of an output's elements beyond LIMIT of its max), so
+#: the check counts elements: at most DEFAULT_SHARE of each output's may
+#: differ from the plain version by more than LIMIT of its max. A kernel
+#: that skips a rounding (of either operand, or of the check products) moves
+#: 44-99 % of the elements of x, y, Ax or A'y. Every output that one
+#: iteration moves must also differ from the kernel's own "highest" by more
+#: than DEFAULT_GAP of its max (the emulation: >= 8e-4).
+DEFAULT_SHARE, DEFAULT_GAP = 0.1, 1e-4
 
 #: The kernels each main path must launch.
 ADMM_PATH = ("slab_build", "pivot_sweep_v3", "slab_level", "admm_chunk")
@@ -123,6 +165,25 @@ KERNELS = {
     "prox_chunk_minv": ("csrc/prox_chunk.cu",
                         "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
 }
+
+
+#: Rows 4c and 5c: each chunk variant (a kernels-JSON entry of its own) ->
+#: (its chunk, the phase-8 stack whose launches it reports, the token of its
+#: launch key: precision, G source or lanes).
+VARIANTS = {
+    "admm_chunk_high": ("admm_chunk", "8a", ",high,"),
+    "admm_chunk_default": ("admm_chunk", "8a", ",default,"),
+    "admm_chunk_split": ("admm_chunk", "8c", ",split,"),
+    "admm_chunk_slab": ("admm_chunk", "8a", ",slab,"),
+    "admm_chunk_lanes2": ("admm_chunk", "8a", ",lanes2,"),
+    "admm_chunk_lanes4": ("admm_chunk", "8b", ",lanes4,"),
+    "admm_chunk_minv_lanes2": ("admm_chunk_minv", "8f", ",lanes2,"),
+    "prox_chunk_high": ("prox_chunk", "8e", ",high,"),
+    "prox_chunk_default": ("prox_chunk", "8e", ",default,"),
+    "prox_chunk_lanes2": ("prox_chunk", "8e", ",lanes2,"),
+    "prox_chunk_minv_lanes2": ("prox_chunk_minv", "8g", ",lanes2,"),
+}
+T0 = time.perf_counter()
 
 
 def log(*a):
@@ -230,9 +291,80 @@ def prox_minv_witness(torch, prob, rho, iterates, active, label, failures):
                    dict(K=K_MINV, sigma=sigma, refine=REFINE), "xsyz", failures)
 
 
-def bound(nbytes, flops):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
-    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_FP32_S
+def default_check(name, kern_fn, plain_fn, args, kw, outs, failures):
+    """The "default" kernel at K=1 against its plain version, and against
+    its own "highest" (DEFAULT_SHARE, DEFAULT_GAP); a breach is appended to
+    ``failures``."""
+    import torch
+
+    def run(fn, prec):
+        return fn(*args, **dict(kw, K=1, dot_precision=prec))
+
+    k, p = run(kern_fn, "default"), run(plain_fn, "default")
+    kh, ph = run(kern_fn, "highest"), run(plain_fn, "highest")
+    for nm, ko, po, kho, pho in zip(outs, k, p, kh, ph):
+        scale = max(float(po.abs().max()), 1e-30)
+        d = (ko - po).abs()
+        share = float((d > LIMIT * scale).float().mean())
+        gap = float((ko - kho).abs().max()) / max(float(kho.abs().max()), 1e-30)
+        moves = not torch.equal(po, pho)  # x_prev, z_prev: the inputs
+        finite = bool(torch.isfinite(ko).all())
+        log(f"[phase 2 default check] {name} {nm} (K=1): max |kernel - plain| "
+            f"{float(d.max()):.3e} ({float(d.max()) / scale:.2e} of max), share "
+            f"beyond {LIMIT:.0e} of max {share:.4f} (limit {DEFAULT_SHARE}), "
+            f"kernel default vs highest {gap:.2e}"
+            + (f" (must exceed {DEFAULT_GAP:.0e})" if moves else ""))
+        if not (finite and share <= DEFAULT_SHARE):
+            failures.append(f"{name} {nm}: at K=1 {share:.4f} of the elements "
+                            f"differ from the plain version by more than "
+                            f"{LIMIT:.0e} of max (limit {DEFAULT_SHARE}, "
+                            f"finite={finite})")
+        if moves and not gap > DEFAULT_GAP:
+            failures.append(f"{name} {nm}: \"default\" differs from "
+                            f"\"highest\" by {gap:.2e} <= {DEFAULT_GAP:.0e} "
+                            "of max: no bf16 rounding")
+
+
+def variant(out, failures, name, kern_fn, plain_fn, args, kw, nbytes, flops,
+            witness_outs=None, same_as=None, limit=False):
+    """One chunk variant of row 4c or 5c against its plain version: by the
+    f64 witness (``witness_outs``: "high" and "default", where a 1-ulp
+    difference can flip a bf16 rounding), by LIMIT (``limit``: FP32
+    variants), and bit for bit against ``same_as``, the outputs of the
+    variant it must equal (lanes 1, a contiguous G, G split in registers).
+    ``flops``: (FP32 FLOPs, bf16 FLOPs) for the bound. Records (max |kernel
+    - plain|, kernel ms, plain ms, None, bound) in ``out`` and returns the
+    kernel's outputs."""
+    import torch
+
+    k = kern_fn(*args, **kw)
+    p = plain_fn(*args, **kw)
+    if limit:
+        err = compare(name, k, p, failures)
+    else:
+        err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+        log(f"[phase 2] {name}: max |kernel - plain| {err:.3e} (held by "
+            + ("the f64 witness)" if witness_outs else "its identity)"))
+    if witness_outs:
+        witness(f"phase 2 witness, {name}", name, kern_fn, plain_fn, args, kw,
+                witness_outs, failures)
+    if same_as is not None:
+        same = all(torch.equal(a, b) for a, b in zip(k, same_as))
+        log(f"[phase 2] {name}: bit for bit equal to its identity: {same}")
+        if not same:
+            failures.append(f"{name}: not bit for bit equal to its identity")
+    out[name] = (err, cuda_ms(lambda: kern_fn(*args, **kw)),
+                 cuda_ms(lambda: plain_fn(*args, **kw)), None,
+                 bound(nbytes, *flops))
+    return k
+
+
+def bound(nbytes, flops, bf16_flops=0):
+    """(ms, "bytes" | "operations"): the least time the card could take;
+    ``flops`` at the FP32 rate, ``bf16_flops`` (products of two bf16
+    operands, summed in FP32) at the bf16 tensor-core rate."""
+    tb = nbytes / PEAK_BYTES_S
+    tf = flops / PEAK_FP32_S + bf16_flops / PEAK_BF16_S
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -315,7 +447,6 @@ def phase_kernels(torch):
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho_row, sigma=sigma)
     G, gv = S[..., :M].contiguous(), S[..., M].contiguous()
-    del S
     x = torch.randn((B_KERNEL, N), generator=g, device=DEVICE)
     z = torch.randn((B_KERNEL, M), generator=g, device=DEVICE)
     y = torch.randn((B_KERNEL, M), generator=g, device=DEVICE)
@@ -340,7 +471,37 @@ def phase_kernels(torch):
                          cuda_ms(lambda: fused_admm.fused_admm_chunk(*cargs, **kw)),
                          cuda_ms(lambda: fused_admm.fused_admm_chunk_plain(*cargs, **kw)),
                          None, bound(admm_bytes, admm_flops))
-    del qp, G, gv, cargs, ck, cp, rho_row
+    # Row 4c, the sigma-free variants. The iterate products of "high" are
+    # three bf16 passes; the check products stay FP32 there and run at one
+    # bf16 pass at "default". The bytes do not change: G read once (f32, or
+    # two bf16 halves, or a window of the slab).
+    vecs = (qp.l, qp.u, x, z, y, rho_row, active)
+    it_flops, chk_flops = 4 * N * M * n_act * K_CHUNK, 4 * N * M * B_KERNEL
+    hi_flops = (chk_flops, 3 * it_flops)
+    admm_outs = ("x", "z", "y", "x_prev", "z_prev", "Ax", "ATy")
+    run, run_plain = fused_admm.fused_admm_chunk, fused_admm.fused_admm_chunk_plain
+    Ghi, Glo = linalg.bf16_split(G)
+    high = variant(out, failures, "admm_chunk_high", run, run_plain,
+                   cargs, dict(kw, dot_precision="high"), admm_bytes, hi_flops,
+                   witness_outs=admm_outs)
+    variant(out, failures, "admm_chunk_default", run, run_plain, cargs,
+            dict(kw, dot_precision="default"), admm_bytes, (0, admm_flops),
+            witness_outs=admm_outs)
+    default_check("admm_chunk_default", run, run_plain, cargs, kw, admm_outs,
+                  failures)
+    variant(out, failures, "admm_chunk_split", run, run_plain,
+            (Ghi, qp.A, gv, *vecs), dict(kw, dot_precision="high", Glo=Glo),
+            admm_bytes, hi_flops, same_as=high)
+    variant(out, failures, "admm_chunk_slab", run, run_plain, (S, qp.A, gv, *vecs),
+            dict(kw, dot_precision="high", slab=True), admm_bytes, hi_flops,
+            same_as=high)
+    variant(out, failures, "admm_chunk_lanes2", run, run_plain, cargs,
+            dict(kw, dot_precision="high", lanes=2), admm_bytes, hi_flops,
+            same_as=high)
+    variant(out, failures, "admm_chunk_lanes4", run, run_plain, cargs,
+            dict(kw, lanes=4), admm_bytes, (admm_flops, 0), same_as=ck,
+            limit=True)
+    del qp, S, G, gv, Ghi, Glo, cargs, ck, cp, high, rho_row
 
     # The prox family's shapes: the two-block build, then the prox chunk.
     prob = device_prox_fleet(B_KERNEL, N, ME, MI, generator=g)
@@ -382,7 +543,21 @@ def phase_kernels(torch):
         err, cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk(*pargs, K=K_PROX)),
         cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_plain(*pargs, K=K_PROX)),
         None, bound(prox_bytes, prox_flops))
-    del G, gv, pargs, pk, pp
+    # Row 5c: the prox variants ("high" runs G t, C x and A x as three bf16
+    # passes, "default" as one).
+    run, run_plain = fused_proxqp.fused_proxqp_chunk, fused_proxqp.fused_proxqp_chunk_plain
+    high = variant(out, failures, "prox_chunk_high", run, run_plain, pargs,
+                   dict(K=K_PROX, dot_precision="high"), prox_bytes,
+                   (0, 3 * prox_flops), witness_outs="xsyz")
+    variant(out, failures, "prox_chunk_default", run, run_plain, pargs,
+            dict(K=K_PROX, dot_precision="default"), prox_bytes,
+            (0, prox_flops), witness_outs="xsyz")
+    default_check("prox_chunk_default", run, run_plain, pargs, dict(K=K_PROX),
+                  "xsyz", failures)
+    variant(out, failures, "prox_chunk_lanes2", run, run_plain, pargs,
+            dict(K=K_PROX, dot_precision="high", lanes=2), prox_bytes,
+            (0, 3 * prox_flops), same_as=high)
+    del G, gv, pargs, pk, pp, high
 
     # The M^{-1}-form prox chunk: M = P + sigma*I + rho(A'A + C'C).
     sigma_p = 1e-2
@@ -401,13 +576,18 @@ def phase_kernels(torch):
         failures.append("prox_chunk_minv: a frozen lane did not pass through")
     # Minv, P, A and C of the active lanes read once; the vectors in (q, x,
     # b, y, d, s, z, rho, active) and out (x, y, s, z).
+    qbytes = 4 * (n_act * (2 * N * N + mt * N)
+                  + B_KERNEL * (2 * N + 2 * ME + 3 * MI + 2)
+                  + B_KERNEL * (N + ME + 2 * MI))
+    qflops = n_act * K_MINV * minv_flops(N, mt)
     out["prox_chunk_minv"] = (
         err, cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_minv(*qargs, **qkw)),
         cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_minv_plain(*qargs, **qkw)),
-        None, bound(4 * (n_act * (2 * N * N + mt * N)
-                         + B_KERNEL * (2 * N + 2 * ME + 3 * MI + 2)
-                         + B_KERNEL * (N + ME + 2 * MI)),
-                    n_act * K_MINV * minv_flops(N, mt)))
+        None, bound(qbytes, qflops))
+    variant(out, failures, "prox_chunk_minv_lanes2",
+            fused_proxqp.fused_proxqp_chunk_minv,
+            fused_proxqp.fused_proxqp_chunk_minv_plain, qargs,
+            dict(qkw, lanes=2), qbytes, (qflops, 0), same_as=qk, limit=True)
     del Minv, qargs, qk, qpl
     # The f64 witness at these penalties and at 7c's starting rho0 = 0.1.
     for rho_w, tag in ((rho, "rho 0.0125-0.025"),
@@ -440,12 +620,17 @@ def phase_kernels(torch):
     # Minv and P of the active lanes, A of every lane (the check products),
     # the vectors in (q, x, l, u, rho, z, y) and out (x, xp, A'y, z, y, zp,
     # Ax).
+    mbytes = 4 * (n_act * 2 * N * N + B_KERNEL * M * N
+                  + B_KERNEL * (2 * N + 5 * M) + B_KERNEL * (3 * N + 4 * M))
+    mflops = n_act * K_MINV * minv_flops(N, M) + B_KERNEL * 4 * N * M
     out["admm_chunk_minv"] = (
         err, cuda_ms(lambda: fused_admm.fused_admm_chunk_minv(*margs, **mkw)),
         cuda_ms(lambda: fused_admm.fused_admm_chunk_minv_plain(*margs, **mkw)),
-        None, bound(4 * (n_act * 2 * N * N + B_KERNEL * M * N
-                         + B_KERNEL * (2 * N + 5 * M) + B_KERNEL * (3 * N + 4 * M)),
-                    n_act * K_MINV * minv_flops(N, M) + B_KERNEL * 4 * N * M))
+        None, bound(mbytes, mflops))
+    variant(out, failures, "admm_chunk_minv_lanes2",
+            fused_admm.fused_admm_chunk_minv,
+            fused_admm.fused_admm_chunk_minv_plain, margs, dict(mkw, lanes=2),
+            mbytes, (mflops, 0), same_as=mk, limit=True)
     witness("phase 2 witness, rho 0.4", "admm_chunk_minv",
             fused_admm.fused_admm_chunk_minv,
             fused_admm.fused_admm_chunk_minv_plain, margs, mkw,
@@ -457,6 +642,64 @@ def phase_kernels(torch):
             f"median of 5)")
     require(not failures, "; ".join(failures))
     return out
+
+
+def time_chunks(torch):
+    """``--time-chunks``: the sigma-free chunks and their variants at the
+    main path's shapes (B=4096, every lane active; ADMM n=512, m=256, K=11
+    from its slab; prox n=512, me = mi = 128, K=25), kernel ms (median of
+    5, CUDA events)."""
+    from quadraticprogramsolver_tpu_torch.ops import (
+        fused_admm, fused_factor, fused_proxqp, linalg)
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    def show(name, fn):
+        log(f"[phase 2 B={B_MAIN}] {name}: kernel {cuda_ms(fn):.4f} ms "
+            "(every lane active, median of 5)")
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    qp = device_random_qp_fleet(B_MAIN, N, M, generator=g)
+    rho = torch.full((B_MAIN, M), 0.4, device=DEVICE)
+    S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
+    G, gv = S[..., :M].contiguous(), S[..., M].contiguous()
+    Ghi, Glo = linalg.bf16_split(G)
+    x, z, y = (torch.randn((B_MAIN, w), generator=g, device=DEVICE)
+               for w in (N, M, M))
+    act = torch.ones(B_MAIN, dtype=torch.bool, device=DEVICE)
+    vecs = (qp.l, qp.u, x, z, y, rho, act)
+    for name, G_, kw in (
+            ("admm_chunk", G, {}),
+            ("admm_chunk_high", G, dict(dot_precision="high")),
+            ("admm_chunk_default", G, dict(dot_precision="default")),
+            ("admm_chunk_split", Ghi, dict(dot_precision="high", Glo=Glo)),
+            ("admm_chunk_slab", S, dict(dot_precision="high", slab=True)),
+            ("admm_chunk_lanes2", G, dict(dot_precision="high", lanes=2)),
+            ("admm_chunk lanes 2, highest", G, dict(lanes=2)),
+            ("admm_chunk_lanes4", G, dict(lanes=4))):
+        show(name, lambda: fused_admm.fused_admm_chunk(
+            G_, qp.A, gv, *vecs, K=K_CHUNK, alpha=1.6, **kw))
+    del qp, S, G, gv, Ghi, Glo, vecs
+    prob = device_prox_fleet(B_MAIN, N, ME, MI, generator=g)
+    r = 0.0125 * (1.0 + torch.rand(B_MAIN, generator=g, device=DEVICE))
+    S = fused_factor.fused_factor_solve(
+        prob.P, (prob.A, prob.C), prob.q,
+        r[:, None].expand(B_MAIN, ME + MI).contiguous(), sigma=0.0)
+    G, gv = S[..., :ME + MI].contiguous(), S[..., ME + MI].contiguous()
+    del S
+    it = (torch.randn((B_MAIN, N), generator=g, device=DEVICE),
+          torch.rand((B_MAIN, MI), generator=g, device=DEVICE),
+          torch.randn((B_MAIN, ME), generator=g, device=DEVICE),
+          torch.rand((B_MAIN, MI), generator=g, device=DEVICE))
+    for name, kw in (("prox_chunk", {}),
+                     ("prox_chunk_high", dict(dot_precision="high")),
+                     ("prox_chunk_default", dict(dot_precision="default")),
+                     ("prox_chunk_lanes2", dict(dot_precision="high", lanes=2)),
+                     ("prox_chunk lanes 2, highest", dict(lanes=2))):
+        show(name, lambda: fused_proxqp.fused_proxqp_chunk(
+            G, prob.A, prob.C, gv, prob.b, prob.d, *it, r, act, K=K_PROX, **kw))
 
 
 def counters():
@@ -559,6 +802,8 @@ def report_solve(qp, sol, dt, fdt, label):
 def reset(cnt):
     for fn in cnt.values():
         fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants.clear()
 
 
 def read(cnt, path, label):
@@ -881,6 +1126,185 @@ def phase_minv(torch, pkg, cnt, profile):
     return launches
 
 
+def read_variants(cnt, name, want, label):
+    """Launches of each variant of chunk ``name`` in one counted run; every
+    variant in ``want`` must have launched, and every launch is a variant."""
+    variants = dict(cnt[name].variants)
+    log(f"[{label}] {name} launches by variant: {variants}")
+    require(all(variants.get(k, 0) > 0 for k in want),
+            f"{label}: a variant of the stack never launched: {variants}, "
+            f"expected {want}")
+    require(sum(variants.values()) == cnt[name].launches,
+            f"{label}: {name} launches outside its variants")
+    return variants
+
+
+#: Phase 8: bench.py's tuned stacks (bench.py:200-206 headline_settings on
+#: phase 3's knobs at static rho; the baseline_shape row, bench.py:495):
+#: tag -> (fleet n, m; knobs; the chunk variants each must launch).
+SLAB_SETTINGS = dict(slab_cache=True, chunk_lanes=2, chunk_dot_precision="high",
+                     first_chunk_dot_precision="default")
+STACKS = {
+    "8a slab_settings": ((N, M), SLAB_SETTINGS,
+                         ("default,slab,lanes2", "high,slab,lanes2")),
+    "8b slab_hi": ((N, M), dict(slab_cache=True, chunk_lanes=4,
+                                first_chunk_dot_precision="default"),
+                   ("default,slab,lanes4", "highest,slab,lanes4")),
+    "8c split_cache": ((N, M), dict(split_cache=True, chunk_lanes=2,
+                                    chunk_dot_precision="high"),
+                       ("high,split,lanes2",)),
+    "8d baseline_shape 500/250": ((500, 250), SLAB_SETTINGS,
+                                  ("default,slab,lanes2", "high,slab,lanes2")),
+}
+#: The prox headline stack (benchmarks/proxqp_fleet.py --headline).
+PROX_HEADLINE = dict(max_iterations=2000, rho=0.0125, adaptive_rho=False,
+                     check_interval=25, kkt_warm_start=False,
+                     kkt_refinement_steps=0, sigma_free_rhs=True,
+                     fused_chunk=True, chunk_lanes=2, chunk_dot_precision="high",
+                     first_chunk_dot_precision="default", require_fused=True)
+
+
+def phase_stacks(torch, pkg, cnt, profile):
+    """Phase 8: the tuned stacks, each tightening eps while its audit fails;
+    returns each stack's kernel and variant launch counts."""
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    runs, qp, shape = {}, None, None
+    for tag, ((n, m), knobs, want) in STACKS.items():
+        if (n, m) != shape:
+            qp = None
+            g = torch.Generator(device=DEVICE).manual_seed(SEED)
+            qp, shape = device_random_qp_fleet(B_MAIN, n, m, generator=g), (n, m)
+            torch.cuda.synchronize()
+        for eps in (1e-4, 2e-5, 1e-5):
+            settings = pkg.Settings(
+                max_iterations=2000, eps_abs=eps, eps_rel=eps, rho=0.4,
+                check_interval=11, kkt_refinement_steps=0, sigma_free_rhs=True,
+                fused_factor=True, fused_chunk=True, require_fused=True,
+                adaptive_rho=False, **knobs)
+            label = f"phase {tag}, eps {eps:.0e}"
+            p = pkg.plan(qp, settings)
+            log(f"[{label}] plan: cache {p.cache}, lanes {p.lanes}, "
+                f"dot_precision {p.dot_precision}, padded {p.padded}")
+            torch.cuda.reset_peak_memory_stats()
+            reset(cnt)
+            sol = pkg.solve(qp, settings)
+            torch.cuda.synchronize()
+            counts = read(cnt, ADMM_PATH, label)
+            variants = read_variants(cnt, "admm_chunk", want, label)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            x, status, iters = report_solve(qp, sol, None, None, f"{label} counted")
+            del sol
+            dev = audit(qp, x, status, iters, label, required=False,
+                        prefix=f"phase {tag[:2]}")
+            if dev <= AUDIT_TARGET:
+                break
+        require(dev <= AUDIT_TARGET, f"phase {tag}: audit {dev:.3e} > "
+                f"{AUDIT_TARGET:.0e} at eps 1e-5")
+        sol, dt = run_main(torch, lambda: pkg.solve(qp, settings))
+        fqp = qp if p.padded is None else pkg.pad_qp(qp, *p.padded)
+        fdt = factor_seconds(torch, fqp, settings)
+        del fqp
+        report_solve(qp, sol, dt, fdt, f"phase {tag}, eps {eps:.0e}")
+        log(f"[phase {tag}] eps {eps:.0e}, audit {dev:.3e}, peak device "
+            f"memory {peak:.2f} GB")
+        del sol
+        runs[tag[:2]] = {"kernels": counts, "variants": variants}
+        if profile and tag.startswith("8a"):
+            profile_solve(torch, lambda: pkg.solve(qp, settings), "phase 8a profile")
+    del qp
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    prob = device_prox_fleet(B_MAIN, N, ME, MI, generator=g)
+    torch.cuda.synchronize()
+    for eps in (5e-5, 2e-5, 1e-5):
+        settings = pkg.ProxQPSettings(eps_abs=eps, eps_rel=eps, **PROX_HEADLINE)
+        label = f"phase 8e prox headline, eps {eps:.0e}"
+        torch.cuda.reset_peak_memory_stats()
+        reset(cnt)
+        sol = pkg.solve_proxqp(prob, settings)
+        torch.cuda.synchronize()
+        counts = read(cnt, PROX_PATH, label)
+        variants = read_variants(cnt, "prox_chunk",
+                                 ("default,lanes2", "high,lanes2"), label)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        report_prox(prob, sol, None, None, f"{label} counted")
+        dev = prox_audit(pkg, prob, sol, label)
+        del sol
+        if dev <= AUDIT_TARGET:
+            break
+    require(dev <= AUDIT_TARGET, f"phase 8e: audit {dev:.3e} > "
+            f"{AUDIT_TARGET:.0e} at eps 1e-5")
+    sol, dt = run_main(torch, lambda: pkg.solve_proxqp(prob, settings))
+    fdt = factor_seconds(torch, prob, settings)
+    report_prox(prob, sol, dt, fdt, f"phase 8e prox headline, eps {eps:.0e}")
+    log(f"[phase 8e] eps {eps:.0e}, audit {dev:.3e}, peak device memory "
+        f"{peak:.2f} GB")
+    del sol
+    runs["8e"] = {"kernels": counts, "variants": variants}
+    if profile:
+        profile_solve(torch, lambda: pkg.solve_proxqp(prob, settings),
+                      "phase 8e profile")
+    del prob
+    runs.update(phase_minv_lanes(torch, pkg, cnt))
+    return runs
+
+
+def phase_minv_lanes(torch, pkg, cnt):
+    """8f, 8g: phase 7b's and 7c's stacks (at the eps their audits passed)
+    with chunk_lanes=2 against chunk_lanes=1, each timed in this call: the
+    same statuses and iterations, the same x bit for bit."""
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    runs = {}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qp = device_random_qp_fleet(B_DEFAULTS, N, M, generator=g)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    prob = device_prox_fleet(B_DEFAULTS, N, ME, MI, generator=g)
+    cases = (
+        ("8f", "admm_chunk_minv", ADMM_MINV_PATH, pkg.solve, qp,
+         lambda lanes: pkg.Settings(max_iterations=2000, eps_abs=1e-4,
+                                    eps_rel=1e-4, fused_chunk=True,
+                                    require_fused=True, chunk_lanes=lanes)),
+        ("8g", "prox_chunk_minv", PROX_MINV_PATH, pkg.solve_proxqp, prob,
+         lambda lanes: pkg.ProxQPSettings(
+             max_iterations=2000, eps_abs=2e-5, eps_rel=2e-5, rho=0.1,
+             adaptive_rho=True, kkt_refinement_steps=REFINE, check_interval=50,
+             kkt_warm_start=False, fused_chunk=True, require_fused=True,
+             chunk_lanes=lanes)))
+    for tag, name, path, solve, fleet, make in cases:
+        sols = {}
+        for lanes in (1, 2):
+            settings = make(lanes)
+            label = f"phase {tag} {name} lanes {lanes}"
+            reset(cnt)
+            sols[lanes] = solve(fleet, settings)
+            torch.cuda.synchronize()
+            counts = read(cnt, path, label)
+            variants = read_variants(cnt, name, (f"lanes{lanes}",), label)
+            _, dt = run_main(torch, lambda: solve(fleet, settings))
+            info = sols[lanes].info
+            log(f"[{label}] solve {dt * 1e3:.2f} ms (best of 3), "
+                f"{info.status.numel() / dt:.1f} solves/s, iterations p50 "
+                f"{float(info.iterations.float().median()):.0f} max "
+                f"{int(info.iterations.max())}")
+        a, b = sols[1], sols[2]
+        dx = float((a.x - b.x).abs().max())
+        log(f"[phase {tag}] lanes 2 vs lanes 1: max |dx| {dx:.3e}")
+        require(torch.equal(a.info.status, b.info.status)
+                and torch.equal(a.info.iterations, b.info.iterations)
+                and dx == 0.0, f"phase {tag}: lanes 2 changed the solve")
+        runs[tag] = {"kernels": counts, "variants": variants}
+        del sols, a, b
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -914,6 +1338,8 @@ def main() -> int:
 
     # Phase 2: every kernel against its plain version.
     kstats = phase_kernels(torch)
+    if "--time-chunks" in sys.argv[1:]:
+        time_chunks(torch)
     base = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
                 check_interval=11, kkt_refinement_steps=0,
                 sigma_free_rhs=True, fused_factor=True, fused_chunk=True,
@@ -961,6 +1387,10 @@ def main() -> int:
     minv_launches = phase_minv(torch, pkg, cnt, "--profile" in sys.argv[1:])
     paths = {"admm": launches, "prox": prox_launches, **minv_launches}
 
+    # Phase 8: bench.py's tuned stacks and the M^{-1} chunks' lanes.
+    stacks = phase_stacks(torch, pkg, cnt, "--profile" in sys.argv[1:])
+    paths.update({f"phase_{k}": v["kernels"] for k, v in stacks.items()})
+
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
         by_path = {k: v.get(name) for k, v in paths.items()}
@@ -981,7 +1411,21 @@ def main() -> int:
                               "bound_ms": bms2, "bound_by": by2}
         return e
 
+    def variant_entry(name, base, stack, token):
+        err, ms, pms, lms, (bms, by) = kstats[name]
+        src, rep = KERNELS[base]
+        # Its stack's launches of this variant (every launch whose key has
+        # the variant's precision, G source or lane count).
+        n = sum(v for k, v in stacks[stack]["variants"].items()
+                if token in f",{k},")
+        return {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+                "replaces": rep, "variant_of": base, "stack": f"phase {stack}",
+                "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                "bound_ms": bms, "bound_by": by, "library_ms": lms}
+
     kernels = [entry(name, src, rep) for name, (src, rep) in KERNELS.items()]
+    kernels += [variant_entry(name, *v) for name, v in VARIANTS.items()]
+    log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

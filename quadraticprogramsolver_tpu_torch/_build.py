@@ -34,10 +34,10 @@ _SIGNATURES = {
     "qps_slab_build": (_P,) * 6 + (_I, _I, _I, _I, _I, _F, _P),
     "qps_pivot_sweep_v3": (_P, _L, _L, _P, _I, _P),
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
-    "qps_admm_chunk": (_P,) * 17 + (_I, _I, _I, _I, _F, _P),
-    "qps_prox_chunk": (_P,) * 16 + (_I, _I, _I, _I, _I, _P),
-    "qps_admm_chunk_minv": (_P,) * 18 + (_I,) * 5 + (_F, _F, _P),
-    "qps_prox_chunk_minv": (_P,) * 17 + (_I,) * 6 + (_F, _P),
+    "qps_admm_chunk": (_P,) * 19 + (_I,) * 7 + (_F, _P),
+    "qps_prox_chunk": (_P,) * 16 + (_I,) * 7 + (_P,),
+    "qps_admm_chunk_minv": (_P,) * 18 + (_I,) * 6 + (_F, _F, _P),
+    "qps_prox_chunk_minv": (_P,) * 17 + (_I,) * 7 + (_F, _P),
 }
 
 
@@ -146,33 +146,46 @@ def launches_kernel(name: str, t) -> bool:
     return True
 
 
-def launch(wrapper, entry: str, *args) -> None:
-    """Call the C entry point ``entry``, count one launch on ``wrapper`` and
-    raise if the launch reported a CUDA error."""
+def launch(wrapper, entry: str, *args, variant: str | None = None) -> None:
+    """Call the C entry point ``entry``, count one launch on ``wrapper`` (and
+    on ``wrapper.variants[variant]``, when the wrapper names its variants)
+    and raise if the launch reported a CUDA error."""
     code = getattr(load().lib, entry)(*args)
     wrapper.launches += 1
+    if variant is not None:
+        wrapper.variants[variant] += 1
     check(code, entry)
 
 
-def check_chunk(name: str, operands: dict, widths: dict, outs, active):
+def check_chunk(name: str, operands: dict, widths: dict, outs, active, *,
+                bf16=(), windows=()):
     """Check a chunk kernel's operands; returns the lane mask as int32.
 
-    ``operands`` maps each float32 operand's name to (tensor, expected
-    shape), ``widths`` each width the kernel tiles by 128 to its value (a
-    nonzero multiple of 128). The operands and ``outs`` must pass
-    :func:`require_cuda_f32`; ``active`` must be (B,) on their device.
+    ``operands`` maps each operand's name to (tensor, expected shape),
+    ``widths`` each width the kernel tiles by 128 to its value (a nonzero
+    multiple of 128). The operands and ``outs`` must pass
+    :func:`require_cuda_f32`, except that the operands named in ``bf16`` are
+    bfloat16 and those named in ``windows`` are read as a window of their
+    first columns: their last axis may be wider than the shape says, with
+    rows of a multiple of 16 bytes. ``active`` must be (B,) on their device.
     """
     import torch
 
     for key, (t, shape) in operands.items():
-        if tuple(t.shape) != shape:
+        got = tuple(t.shape)
+        if key in windows:
+            got = got[:-1] + (min(got[-1], shape[-1]),)
+        if got != shape:
             raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
-                             f"{shape}")
+                             f"{shape}" + (" or wider" if key in windows else ""))
     bad = {k: w for k, w in widths.items() if w % 128 or w == 0}
     if bad:
         raise ValueError(f"{name}: the widths must be nonzero multiples of "
                          f"128; got {bad}")
-    require_cuda_f32(name, *(t for t, _ in operands.values()), *outs)
+    keys = list(operands)
+    require_cuda_f32(name, *(t for t, _ in operands.values()), *outs,
+                     bf16={keys.index(k) for k in bf16},
+                     windows={keys.index(k) for k in windows})
     B = outs[0].shape[0]
     if tuple(active.shape) != (B,) or active.device != outs[0].device:
         raise ValueError(f"{name}: active must be ({B},) on the operands' "
@@ -187,9 +200,12 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, *tensors) -> None:
+def require_cuda_f32(name: str, *tensors, bf16=frozenset(),
+                     windows=frozenset()) -> None:
     """Raise unless every tensor is a contiguous, 16-byte aligned float32
-    CUDA tensor on one device."""
+    CUDA tensor on one device. The tensors at the indices in ``bf16`` must be
+    bfloat16 instead; those at the indices in ``windows`` must also have rows
+    (last axis) of a multiple of 16 bytes."""
     import torch
 
     dev = tensors[0].device
@@ -197,10 +213,14 @@ def require_cuda_f32(name: str, *tensors) -> None:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name}: operand {i} is on {t.device}, expected "
                              f"the CUDA device {dev}")
-        if t.dtype != torch.float32:
+        want = torch.bfloat16 if i in bf16 else torch.float32
+        if t.dtype != want:
             raise ValueError(f"{name}: operand {i} is {t.dtype}, the kernel "
-                             "takes float32")
+                             f"takes {str(want).removeprefix('torch.')}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operand {i} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operand {i} is not 16-byte aligned")
+        if i in windows and (t.shape[-1] * t.element_size()) % 16:
+            raise ValueError(f"{name}: operand {i}'s rows are not a multiple "
+                             "of 16 bytes")

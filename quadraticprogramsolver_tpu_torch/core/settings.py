@@ -1,10 +1,10 @@
 """Solver settings for the PyTorch port.
 
-Same field names and defaults as ``quadraticprogramsolver_tpu.core.settings``
-(that module cannot be imported here: its package imports jax). The port
-implements a slice of the knobs; each validator RAISES on every knob the slice
-does not implement instead of ignoring it, so a configuration never runs a
-path other than the one it names.
+Same field names, defaults and ``ValueError`` checks as
+``quadraticprogramsolver_tpu.core.settings`` (that module cannot be imported
+here: its package imports jax). The port implements a slice of the knobs;
+each validator RAISES on every knob the slice does not implement instead of
+ignoring it, so a configuration never runs a path other than the one it names.
 """
 
 from __future__ import annotations
@@ -47,6 +47,16 @@ def sigma_for(sigma: float, dtype) -> float:
     return sigma
 
 
+def chunk_precision(settings, iteration: int) -> str:
+    """The sigma-free chunk's product precision for the chunk that starts at
+    ``iteration``: first_chunk_dot_precision for the first one, when set,
+    else chunk_dot_precision (both families; the kernels' plain versions
+    run any non-float32 dtype in full)."""
+    if iteration == 0 and settings.first_chunk_dot_precision is not None:
+        return settings.first_chunk_dot_precision
+    return settings.chunk_dot_precision
+
+
 @dataclasses.dataclass(frozen=True)
 class Settings:
     """OSQP-ADMM solver settings (frozen, hashable)."""
@@ -72,8 +82,13 @@ class Settings:
     #: Run each check interval as one launch of a chunk kernel
     #: (csrc/admm_chunk.cu: the sigma-free or the M^{-1} form).
     fused_chunk: bool = False
+    #: Lanes per CTA of the chunk kernel (bit-identical results at any
+    #: value); falls back to 1 when it does not divide the batch.
     chunk_lanes: int = 1
+    #: The sigma-free chunk's iterate products: "highest" (FP32), "high"
+    #: (bf16x3) or "default" (one bf16 pass, check products included).
     chunk_dot_precision: str = "highest"
+    #: The first chunk's precision (None: chunk_dot_precision throughout).
     first_chunk_dot_precision: str | None = None
     record_history: bool = False
     check_infeasibility: bool = True
@@ -89,7 +104,11 @@ class Settings:
     #: (csrc/slab_build.cu, csrc/pivot_sweep.cu, csrc/slab_level.cu).
     fused_factor: bool = False
     pivot_variant: str = "v3"
+    #: Keep the factor's slab as the cache: the chunk reads G as a window
+    #: of it (row pitch kp + n), so no (B, n, m) G copy is made.
     slab_cache: bool = False
+    #: Cache G as two bf16 halves {Ghi, Glo} split from the slab once; the
+    #: chunk reads them from memory at chunk_dot_precision="high".
     split_cache: bool = False
     #: Raise at setup when a requested kernel will not run (models/plan.py).
     require_fused: bool = False
@@ -103,7 +122,8 @@ class Settings:
         if self.check_interval < 1:
             raise ValueError("check_interval must be positive")
         if self.chunk_lanes < 1:
-            raise ValueError("chunk_lanes must be >= 1")
+            raise ValueError("chunk_lanes must be >= 1 (0 would divide by "
+                             "zero in the lane fallback; negatives disable it)")
         if not (0.0 < self.alpha < 2.0):
             raise ValueError("alpha must be in (0, 2)")
         for name in ("eps_abs", "eps_rel", "rho", "sigma", "delta"):
@@ -113,6 +133,33 @@ class Settings:
             raise ValueError(
                 "sigma_free_rhs caches only G = M^{-1}A' and g = M^{-1}q — "
                 "iterative refinement needs M^{-1}; set kkt_refinement_steps=0")
+        if self.slab_cache and not (
+                self.fused_factor and self.sigma_free_rhs and self.fused_chunk
+                and not self.adaptive_rho):
+            raise ValueError(
+                "slab_cache requires fused_factor + sigma_free_rhs + "
+                "fused_chunk and adaptive_rho=False (a rho refactor would "
+                "hold two live slabs — the OOM this flag exists to avoid)")
+        if self.split_cache and (self.slab_cache or not (
+                self.fused_factor and self.sigma_free_rhs and self.fused_chunk
+                and self.chunk_dot_precision == "high"
+                and not self.adaptive_rho)):
+            raise ValueError(
+                "split_cache requires fused_factor + sigma_free_rhs + "
+                "fused_chunk + chunk_dot_precision='high' with "
+                "adaptive_rho=False, and excludes slab_cache")
+        if self.first_chunk_dot_precision is not None:
+            if self.first_chunk_dot_precision not in ("default", "high",
+                                                      "highest"):
+                raise ValueError("first_chunk_dot_precision must be one of "
+                                 "'default'/'high'/'highest'")
+            if not (self.fused_chunk and self.sigma_free_rhs):
+                raise ValueError("first_chunk_dot_precision needs the fused "
+                                 "sigma-free chunk (fused_chunk + "
+                                 "sigma_free_rhs)")
+            if self.split_cache:
+                raise ValueError("first_chunk_dot_precision excludes "
+                                 "split_cache (its G halves force 'high')")
         for name, reason in _unimplemented(self):
             raise NotImplementedError(
                 f"Settings.{name}: {reason} is not implemented by the "
@@ -164,6 +211,8 @@ class ProxQPSettings:
     #: Run each check interval as one launch of a prox chunk kernel
     #: (csrc/prox_chunk.cu: the sigma-free or the M^{-1} form).
     fused_chunk: bool = False
+    #: Lanes, iterate-product precision and first-chunk schedule of the
+    #: sigma-free prox chunk, as in Settings.
     chunk_lanes: int = 1
     chunk_dot_precision: str = "highest"
     first_chunk_dot_precision: str | None = None
@@ -209,14 +258,16 @@ class ProxQPSettings:
         return -(-self.max_iterations // self.check_interval)
 
 
+#: The chunk kernels' product precisions, in the order of their codes
+#: (csrc/common.cuh: Prec): full FP32, bf16x3, one bf16 pass.
+DOT_PRECISIONS = ("highest", "high", "default")
+
+
 def _prox_unimplemented(s: ProxQPSettings):
     """(field, reason) for every prox knob this slice of the port rejects."""
-    if s.chunk_lanes != 1:
-        yield "chunk_lanes", "lane interleave (a TPU layout knob)"
-    if s.chunk_dot_precision != "highest":
-        yield "chunk_dot_precision", "a reduced-precision chunk"
-    if s.first_chunk_dot_precision is not None:
-        yield "first_chunk_dot_precision", "the first-chunk precision schedule"
+    if s.chunk_dot_precision not in DOT_PRECISIONS:
+        # The JAX package runs any other value as "highest".
+        yield "chunk_dot_precision", f"precision {s.chunk_dot_precision!r}"
     if s.anderson_memory > 0:
         yield "anderson_memory", "Anderson acceleration"
     if s.record_history:
@@ -225,16 +276,9 @@ def _prox_unimplemented(s: ProxQPSettings):
 
 def _unimplemented(s: Settings):
     """(field, reason) for every knob this slice of the port rejects."""
-    if s.slab_cache:
-        yield "slab_cache", "the slab-window G cache (a TPU layout knob)"
-    if s.split_cache:
-        yield "split_cache", "the pre-split bf16 G cache (a TPU layout knob)"
-    if s.chunk_lanes != 1:
-        yield "chunk_lanes", "lane interleave (a TPU layout knob)"
-    if s.chunk_dot_precision != "highest":
-        yield "chunk_dot_precision", "a reduced-precision chunk"
-    if s.first_chunk_dot_precision is not None:
-        yield "first_chunk_dot_precision", "the first-chunk precision schedule"
+    if s.chunk_dot_precision not in DOT_PRECISIONS:
+        # The JAX package runs any other value as "highest".
+        yield "chunk_dot_precision", f"precision {s.chunk_dot_precision!r}"
     if s.factor_precision not in (None, "highest"):
         yield "factor_precision", f"a {s.factor_precision!r}-precision factor"
     if s.matmul_precision != "highest":

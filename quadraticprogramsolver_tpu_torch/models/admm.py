@@ -27,7 +27,7 @@ import dataclasses
 import torch
 
 from ..core.problem import QP, pad_qp
-from ..core.settings import RHO_MAX, RHO_MIN, Settings
+from ..core.settings import RHO_MAX, RHO_MIN, Settings, chunk_precision
 from ..core.state import SolveInfo, Solution, SolverState, Status
 from ..ops.linalg import inf_norm, kernel_dtype_ok
 from . import kkt as kkt_mod
@@ -87,18 +87,27 @@ def _run_chunk(qp: QP, settings: Settings, state: SolverState):
 
         c = state.kkt_cache
         active = state.status == Status.RUNNING
+        B = state.x.shape[0]
+        lanes = settings.chunk_lanes if B % settings.chunk_lanes == 0 else 1
         if settings.sigma_free_rhs:
+            if "S" in c:  # slab_cache: G read as a window of the slab
+                G, kw = c["S"], dict(slab=True)
+            elif "Ghi" in c:  # split_cache: G as its bf16 halves
+                G, kw = c["Ghi"], dict(Glo=c["Glo"])
+            else:
+                G, kw = c["G"], {}
             x, z, y, xp, zp, Ax, ATy = fused_admm_chunk(
-                c["G"], qp.A, c["g"], qp.l, qp.u, state.x, state.z, state.y,
+                G, qp.A, c["g"], qp.l, qp.u, state.x, state.z, state.y,
                 rho_row, active, K=settings.check_interval,
-                alpha=settings.alpha)
+                alpha=settings.alpha, lanes=lanes,
+                dot_precision=chunk_precision(settings, state.iteration), **kw)
         else:
             # The factor's sigma (the f32 floor applies to both).
             x, z, y, xp, zp, Ax, ATy = fused_admm_chunk_minv(
                 c["M_inv"], qp.A, qp.P, qp.q, qp.l, qp.u, state.x, state.z,
                 state.y, rho_row, active, K=settings.check_interval,
                 alpha=settings.alpha, sigma=settings.sigma_for(qp.dtype),
-                refine=settings.kkt_refinement_steps)
+                refine=settings.kkt_refinement_steps, lanes=lanes)
         return x, z, y, xp, zp, (Ax, ATy)
 
     alpha, alpha1 = settings.alpha, 1.0 - settings.alpha

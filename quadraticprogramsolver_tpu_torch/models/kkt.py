@@ -6,7 +6,9 @@ A' diag(rho) A (SPD):
     xx = M^{-1} (sigma*x - q + A'(rho*z - y)),      zz = A xx,
 
 or, in sigma-free form (Settings.sigma_free_rhs), xx = G(rho*z - y) - g with
-the cached G = M^{-1}A' and g = M^{-1}q. Off the fused slab factor, M^{-1}
+the cached G = M^{-1}A' and g = M^{-1}q: a copy {G, g}, the factor's slab
+{S, g} (Settings.slab_cache) or G's bf16 halves {Ghi, Glo, g}
+(Settings.split_cache). Off the fused slab factor, M^{-1}
 and {G, g} come from ``spd_inverse``/``spd_solve`` (ops/linalg.py: the
 blocked Gauss-Jordan sweep around the pivot kernel on its shapes, Cholesky
 elsewhere). Only the CHOLESKY backend is ported; AUTO resolves to it or
@@ -19,8 +21,8 @@ import torch
 
 from ..core.problem import QP
 from ..core.settings import MAX_DIRECT_KKT_DIM, KKTBackendKind, Settings
-from ..ops.linalg import (add_scaled_identity, kernel_dtype_ok, matvec,
-                          spd_inverse, spd_solve)
+from ..ops.linalg import (add_scaled_identity, bf16_split, kernel_dtype_ok,
+                          matvec, spd_inverse, spd_solve)
 
 
 def resolve_backend(kind: KKTBackendKind, qp) -> KKTBackendKind:
@@ -81,9 +83,24 @@ def cholesky_init(qp: QP, rho, sigma, settings: Settings) -> dict:
 
         S = fused_factor_solve(qp.P, qp.A, qp.q, rho_row,
                                sigma=float(settings.sigma_for(qp.dtype)))
+        g = S[..., qp.m].contiguous()
+        if settings.split_cache and qp.dtype == torch.float32:
+            # Settings.split_cache: G's two bf16 halves, split once here
+            # exactly as the kernel splits in registers (ops/linalg.py:
+            # bf16_split); the slab is freed when this returns. (Eager torch
+            # keeps the bf16 round trip that the JAX package has to pin with
+            # an optimization barrier.) In float64 the halves would round
+            # the solve: there the cache stays G, as in JAX's f64 solve.
+            Ghi, Glo = bf16_split(S[..., : qp.m])
+            return {"Ghi": Ghi, "Glo": Glo, "g": g}
+        if settings.slab_cache:
+            # Settings.slab_cache: the chunk reads G as a window of the slab
+            # (its first m columns), so no (B, n, m) copy is made; the slab
+            # stays live through the solve.
+            return {"S": S, "g": g}
         # Copies: the chunk kernel takes a contiguous (B, n, m) G, and the
         # slab (n x (kp + n) per lane) is freed when this returns.
-        return {"G": S[..., : qp.m].contiguous(), "g": S[..., qp.m].contiguous()}
+        return {"G": S[..., : qp.m].contiguous(), "g": g}
     M = _build_normal_matrix(qp, rho_row, sigma)
     if settings.sigma_free_rhs:
         At = qp.A.transpose(-1, -2).expand(qp.batch_shape + (qp.n, qp.m))
@@ -101,6 +118,9 @@ def cholesky_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
     sigma = settings.sigma_for(qp.dtype)
     rho_row = rho_rows(qp, rho, settings)
     if settings.sigma_free_rhs:
+        # The slab and split caches exist only where the fused chunk runs
+        # (Settings requires fused_chunk for them, and the fused factor's
+        # gate implies the chunk's), so this path always holds a copy of G.
         xx = matvec(cache["G"], rho_row * z - y) - cache["g"]
         return xx, qp.matvec_A(xx)
     b = sigma * x - qp.q + qp.matvec_At(rho_row * z - y)

@@ -7,9 +7,11 @@ before the solve starts, and ``Settings.require_fused`` turns any requested
 kernel that would not run into an error instead of a silent slowdown.
 
 Dropped from the JAX plan: the scoped-VMEM byte gates
-(models/admm.py:_fused_chunk_shape_ok there). They encode the TPU's 16 MB
-scoped VMEM; the Hopper chunk kernel streams G and A from device memory and
-holds only vectors in shared memory, so no such gate applies.
+(models/admm.py:_fused_chunk_shape_ok there), which also send lanes 4 with
+"high", or lanes 8, at 512/256 to the JAX package's XLA chunk. They encode
+the TPU's 16 MB scoped VMEM; the Hopper chunk kernel streams G and A from
+device memory and holds only vectors in shared memory, so no such gate
+applies and those configurations run the kernel here.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
+
 from ..core.settings import Settings
-from ..ops.linalg import kernel_dtype_ok, sweep_ok
+from ..ops.linalg import kernel_dtype_ok, resolve_precision, sweep_ok
 from . import kkt as kkt_mod
 
 
@@ -36,17 +40,19 @@ class SolvePlan:
     #: "torch_inverse" (Cholesky, off the sweep's shapes); or "prepared" (a
     #: prox solve with a prepared factor).
     factor: str
-    #: KKT cache layout: "G_g" or "M_inv" (ADMM); "Ga_Gc_g" or "M_inv" (prox).
+    #: KKT cache layout: "G_g", "slab" (Settings.slab_cache), "split_bf16"
+    #: (Settings.split_cache) or "M_inv" (ADMM); "Ga_Gc_g" or "M_inv" (prox).
     cache: str
     #: (n_pad, m_pad) when the solve pads to 128-multiples ((n_pad, me_pad,
     #: mi_pad) for the prox family); else None.
     padded: tuple | None
     #: Why requested kernels will NOT run (empty = all on).
     fallback_reasons: tuple = ()
-    #: Lanes interleaved per chunk launch (always 1: lane interleave is a
-    #: TPU layout knob the port rejects).
+    #: Lanes per CTA of the chunk kernel (after the B % chunk_lanes
+    #: fallback); 1 on the torch chunk.
     lanes: int = 1
-    #: Precision of the chunk's products (always "highest": true FP32).
+    #: Precision of the chunk's iterate products (chunk_dot_precision on the
+    #: sigma-free chunk kernel at float32, else "highest").
     dot_precision: str = "highest"
 
 
@@ -67,6 +73,21 @@ def _unfused_factor(sigma_free: bool, n: int, B: int, dtype, device,
         reasons.append(_small_batch_reason(
             "the sigma-free factor" if sigma_free else "the M^{-1} factor", B))
     return "torch_cholesky_solve" if sigma_free else "torch_inverse"
+
+
+def _chunk_knobs(batch, sigma_free: bool, dtype, settings, reasons: list):
+    """(lanes, dot_precision) of a chunk kernel, with the B % chunk_lanes
+    fallback's reason. The bf16 precisions apply to float32 only (a float64
+    solve runs its products in full, as the JAX package's does)."""
+    B = batch[0] if batch else 1
+    lanes = settings.chunk_lanes
+    if lanes > 1 and B % lanes:
+        reasons.append(f"chunk_lanes={lanes} does not divide the fleet size "
+                       f"B={B}; the kernel falls back to 1 lane")
+        lanes = 1
+    prec = (resolve_precision(settings.chunk_dot_precision, dtype)
+            if sigma_free else "highest")
+    return lanes, prec
 
 
 def _dtype_reason(dtype, device):
@@ -116,13 +137,16 @@ def plan(qp, settings: Settings) -> SolvePlan:
                        f"(n={n}, m={m})")
         return out
 
-    chunk = "torch"
+    chunk, lanes, dot_precision = "torch", 1, "highest"
     if settings.fused_chunk:
         why = shape_reasons("fused chunk")
         if why:
             reasons.extend(why)
         else:
             chunk = "fused_kernel"
+            lanes, dot_precision = _chunk_knobs(
+                qp.batch_shape, settings.sigma_free_rhs, qp.dtype, settings,
+                reasons)
 
     if settings.fused_factor:
         why = shape_reasons("fused_factor")
@@ -145,10 +169,24 @@ def plan(qp, settings: Settings) -> SolvePlan:
     else:
         factor = ("torch_cholesky_solve" if settings.sigma_free_rhs
                   else "torch_inverse")
-    cache = "G_g" if settings.sigma_free_rhs else "M_inv"
+    if not settings.sigma_free_rhs:
+        cache = "M_inv"
+    elif factor_fused and settings.split_cache and qp.dtype == torch.float32:
+        cache = "split_bf16"
+    elif factor_fused and settings.slab_cache:
+        cache = "slab"
+    else:
+        # A float64 split_cache keeps G (its halves would round the solve).
+        cache = "G_g"
+        if not factor_fused and (settings.split_cache or settings.slab_cache):
+            reasons.append(
+                ("split_cache" if settings.split_cache else "slab_cache")
+                + " falls back to the plain {G, g} cache (fused factor "
+                "gates failed — see above)")
     return SolvePlan(backend=kind.value, chunk=chunk, factor=factor,
                      cache=cache, padded=padded,
-                     fallback_reasons=tuple(reasons))
+                     fallback_reasons=tuple(reasons), lanes=lanes,
+                     dot_precision=dot_precision)
 
 
 def plan_proxqp(prob, settings, prepared: bool = False) -> SolvePlan:
@@ -185,11 +223,13 @@ def plan_proxqp(prob, settings, prepared: bool = False) -> SolvePlan:
                    f"n_eq={me}, n_ineq={mi})"
                    + (" — a prepared solve is not padded" if prepared else ""))
 
-    chunk = "torch"
+    chunk, lanes, dot_precision = "torch", 1, "highest"
     if settings.fused_chunk:
         reasons.extend(f"fused prox chunk: {w}" for w in why)
         if not why:
             chunk = "fused_kernel"
+            lanes, dot_precision = _chunk_knobs(
+                batch, settings.sigma_free_rhs, prob.dtype, settings, reasons)
 
     B = math.prod(batch)
     if prepared:
@@ -207,7 +247,8 @@ def plan_proxqp(prob, settings, prepared: bool = False) -> SolvePlan:
     cache = "Ga_Gc_g" if settings.sigma_free_rhs else "M_inv"
     return SolvePlan(backend="prox_alm", chunk=chunk, factor=factor,
                      cache=cache, padded=padded,
-                     fallback_reasons=tuple(reasons))
+                     fallback_reasons=tuple(reasons), lanes=lanes,
+                     dot_precision=dot_precision)
 
 
 def check_require_fused(p: SolvePlan, family: str = "ADMM") -> None:

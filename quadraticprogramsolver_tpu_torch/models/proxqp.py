@@ -36,7 +36,7 @@ import dataclasses
 import torch
 
 from ..core.problem import ProxQPProblem, pad_proxqp
-from ..core.settings import ProxQPSettings
+from ..core.settings import ProxQPSettings, chunk_precision
 from ..core.state import Status
 from ..ops.fused_proxqp import (fused_proxqp_chunk, fused_proxqp_chunk_minv,
                                 fused_proxqp_chunk_plain)
@@ -284,6 +284,8 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
     refine = settings.kkt_refinement_steps
     if fused:
         n, me, mi = prob.n, prob.n_eq, prob.n_ineq
+        lanes = (settings.chunk_lanes
+                 if batch[0] % settings.chunk_lanes == 0 else 1)
         A, C = _bcast(prob.A, batch, me, n), _bcast(prob.C, batch, mi, n)
         b, d = _bcast(prob.b, batch, me), _bcast(prob.d, batch, mi)
         if not sigma_free:
@@ -296,17 +298,21 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
             v = v + matvec(M_inv, r - _apply_M(prob, rho, sigma, v))
         return v
 
-    def run_chunk(x, s, y, z, rho, factor, active):
+    def run_chunk(x, s, y, z, rho, factor, active, it):
         if fused and sigma_free:
+            # The first-chunk schedule keys on this solve's own count, so
+            # every segment of solve_segmented starts at the first precision.
             return fused_proxqp_chunk(
                 factor["G"], A, C, factor["g"], b, d, x.contiguous(),
                 s.contiguous(), y.contiguous(), z.contiguous(), rho, active,
-                K=settings.check_interval)
+                K=settings.check_interval, lanes=lanes,
+                dot_precision=chunk_precision(settings, it))
         if fused:
             return fused_proxqp_chunk_minv(
                 factor, A, C, P, q, b, d, x.contiguous(), s.contiguous(),
                 y.contiguous(), z.contiguous(), rho, active,
-                K=settings.check_interval, sigma=sigma, refine=refine)
+                K=settings.check_interval, sigma=sigma, refine=refine,
+                lanes=lanes)
         if sigma_free:
             return fused_proxqp_chunk_plain(
                 factor["G"], prob.A, prob.C, factor["g"], prob.b, prob.d, x,
@@ -365,7 +371,7 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
         active = (running if settings.early_exit
                   else status < Status.PRIMAL_INFEASIBLE)
         x_in, y_in, z_in = x, y, z
-        x, s, y, z = run_chunk(x, s, y, z, rho, factor, active)
+        x, s, y, z = run_chunk(x, s, y, z, rho, factor, active, it)
         it += ci
 
         # PIQP criteria 13a-c.

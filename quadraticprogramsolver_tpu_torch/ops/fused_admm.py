@@ -1,39 +1,85 @@
 """Fused ADMM chunks: K iterations per active lane in one launch.
 
 Counterpart of ``quadraticprogramsolver_tpu/ops/fused_admm.py``
-(``fused_admm_chunk``) in its "highest", lanes=1 variants: the sigma-free
-form (:func:`fused_admm_chunk`) and the M^{-1} form with ``refine``
-refinement passes (:func:`fused_admm_chunk_minv`). Lane interleave, slab
-windows and reduced-precision dots are queued in ROADMAP.md. On a CUDA
-tensor each wrapper launches its kernel in csrc/admm_chunk.cu; on a CPU
-tensor it runs its plain version.
+(``fused_admm_chunk``) in every variant the solver reaches:
+
+- :func:`fused_admm_chunk`, the sigma-free form, with ``lanes`` lanes per
+  CTA; G contiguous, as a window of the factor's slab (``slab=True``,
+  Settings.slab_cache) or as two bf16 halves (``Glo``, Settings.split_cache);
+  iterate products at ``dot_precision`` "highest" (FP32), "high" (bf16x3)
+  or "default" (one bf16 pass, the check products included);
+- :func:`fused_admm_chunk_minv`, the M^{-1} form with ``refine`` refinement
+  passes, with ``lanes``.
+
+On a CUDA tensor each wrapper launches its kernel in csrc/admm_chunk.cu; on
+a CPU tensor it runs its plain version, which rounds to bf16 only float32
+operands (float64 runs in full, as the JAX package's f64 solve does) and
+runs any lane grouping as lanes=1 (the kernels give the same bits).
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import _build
-from .linalg import matvec
+from .linalg import (PRECISIONS, bf16_round, dot_operand, matvec, matvec_at,
+                     resolve_precision)
+
+
+def _check_sigma_free(G, Glo, B, m, lanes, dot_precision, slab):
+    """The JAX wrapper's checks of a sigma-free variant (ValueError)."""
+    if dot_precision not in PRECISIONS:
+        raise ValueError(f"dot_precision must be one of {tuple(PRECISIONS)}; "
+                         f"got {dot_precision!r}")
+    if lanes < 1 or B % lanes:
+        raise ValueError(f"batch {B} not divisible by lanes={lanes}")
+    if Glo is not None and (slab or dot_precision != "high"):
+        raise ValueError("a pre-split G (Glo) requires sigma_free + "
+                         "dot_precision='high' and excludes slab")
+    if Glo is not None and (G.dtype != torch.bfloat16
+                            or Glo.dtype != torch.bfloat16):
+        raise ValueError("pre-split G halves must be bfloat16")
+    if slab and G.shape[-1] < m:
+        raise ValueError(f"slab width {G.shape[-1]} < m={m}")
+    if not slab and G.shape[-1] != m:
+        raise ValueError(f"G must be (B, n, m); got {tuple(G.shape)} "
+                         "(pass slab=True for a slab-backed G)")
 
 
 def fused_admm_chunk_plain(G, A, g, l, u, x, z, y, rho_row, active, *,
-                           K: int, alpha: float):
+                           K: int, alpha: float, lanes: int = 1,
+                           dot_precision: str = "highest", slab: bool = False,
+                           Glo=None):
     """Plain PyTorch chunk; same arguments and outputs as
     :func:`fused_admm_chunk`. Any float dtype and device."""
-    return _plain_chunk(lambda x, z, y: matvec(G, rho_row * z - y) - g,
-                        A, l, u, x, z, y, rho_row, active, K=K, alpha=alpha)
+    m = l.shape[-1]
+    _check_sigma_free(G, Glo, x.shape[0], m, lanes, dot_precision, slab)
+    prec = resolve_precision(dot_precision, x.dtype)
+    if Glo is not None:
+        halves = (G.to(x.dtype), Glo.to(x.dtype))
+        Gop = halves if prec == "high" else (halves[0] + halves[1],)
+    else:
+        Gop = dot_operand(G[..., :m].contiguous() if slab else G, prec)
+    return _plain_chunk(lambda x, z, y: matvec_at(Gop, rho_row * z - y, prec) - g,
+                        A, l, u, x, z, y, rho_row, active, K=K, alpha=alpha,
+                        precision=prec)
 
 
-def _plain_chunk(kkt_solve, A, l, u, x, z, y, rho_row, active, *, K, alpha):
-    """K masked ADMM iterations around ``kkt_solve(x, z, y) -> xx``."""
+def _plain_chunk(kkt_solve, A, l, u, x, z, y, rho_row, active, *, K, alpha,
+                 precision="highest"):
+    """K masked ADMM iterations around ``kkt_solve(x, z, y) -> xx``; zz = A xx
+    at ``precision``, and the check products at one bf16 pass when it is
+    "default", else in full."""
     act = active.bool()[:, None]
     rho_inv = 1.0 / rho_row
+    Aop = dot_operand(A, precision)
     x0, z0, y0 = x, z, y
     xp, zp = x, z
     for _ in range(K):
         xx = kkt_solve(x, z, y)
-        zz = matvec(A, xx)
+        zz = matvec_at(Aop, xx, precision)
         xp, zp = x, z
         x = alpha * xx + (1.0 - alpha) * xp
         zr = alpha * zz + (1.0 - alpha) * zp
@@ -44,52 +90,79 @@ def _plain_chunk(kkt_solve, A, l, u, x, z, y, rho_row, active, *, K, alpha):
     y = torch.where(act, y, y0)
     xp = torch.where(act, xp, x0)
     zp = torch.where(act, zp, z0)
-    Ax = matvec(A, x)
-    ATy = torch.matmul(y.unsqueeze(-2), A).squeeze(-2)
+    if precision == "default":
+        Ab, xc, yc = Aop[0], bf16_round(x), bf16_round(y)
+    else:
+        Ab, xc, yc = A, x, y
+    Ax = matvec(Ab, xc)
+    ATy = torch.matmul(yc.unsqueeze(-2), Ab).squeeze(-2)
     return x, z, y, xp, zp, Ax, ATy
 
 
 def fused_admm_chunk(G, A, g, l, u, x, z, y, rho_row, active, *,
-                     K: int, alpha: float):
+                     K: int, alpha: float, lanes: int = 1,
+                     dot_precision: str = "highest", slab: bool = False,
+                     Glo=None):
     """Run K sigma-free ADMM iterations for every active lane.
 
     G (B, n, m) = M^{-1}A', A (B, m, n), g (B, n) = M^{-1}q, l/u/z/y/rho_row
-    (B, m), x (B, n), active (B,) bool. Returns (x, z, y, x_prev, z_prev,
-    Ax, ATy): prev is the iterate at the start of the last iteration; frozen
-    lanes pass through with prev = current; Ax and A'y are the check
-    products of the returned x and y, computed for frozen lanes too.
+    (B, m), x (B, n), active (B,) bool. ``lanes`` lanes per CTA (B must
+    divide). ``slab``: G is the factor's whole slab (B, n, W >= m), read as
+    the window of its first m columns. ``Glo``: G is the bf16 high half and
+    Glo the low half (dot_precision "high" only, no slab). ``dot_precision``
+    of G t and A xx: "highest", "high" (bf16x3; the check products in
+    full) or "default" (one bf16 pass, the check products too). Returns
+    (x, z, y, x_prev, z_prev, Ax, ATy): prev is the iterate at the start of
+    the last iteration; frozen lanes pass through with prev = current; Ax
+    and A'y are the check products of the returned x and y, computed for
+    frozen lanes too.
     """
     if not _build.launches_kernel("fused_admm_chunk", x):
         return fused_admm_chunk_plain(G, A, g, l, u, x, z, y, rho_row, active,
-                                      K=K, alpha=alpha)
+                                      K=K, alpha=alpha, lanes=lanes,
+                                      dot_precision=dot_precision, slab=slab,
+                                      Glo=Glo)
     B, n = x.shape
     m = l.shape[-1]
+    _check_sigma_free(G, Glo, B, m, lanes, dot_precision, slab)
     if K < 1:
         raise ValueError(f"fused_admm_chunk: K must be >= 1; got {K}")
+    split = Glo is not None
     outs = [torch.empty_like(v) for v in (x, z, y, x, z, z, x)]
+    operands = {"G": (G, (B, n, m)), "A": (A, (B, m, n)), "g": (g, (B, n)),
+                "l": (l, (B, m)), "u": (u, (B, m)), "x": (x, (B, n)),
+                "z": (z, (B, m)), "y": (y, (B, m)),
+                "rho_row": (rho_row, (B, m))}
+    if split:
+        operands["Glo"] = (Glo, (B, n, m))
     act = _build.check_chunk(
-        "fused_admm_chunk",
-        {"G": (G, (B, n, m)), "A": (A, (B, m, n)), "g": (g, (B, n)),
-         "l": (l, (B, m)), "u": (u, (B, m)), "x": (x, (B, n)), "z": (z, (B, m)),
-         "y": (y, (B, m)), "rho_row": (rho_row, (B, m))},
-        {"n": n, "m": m}, outs, active)
+        "fused_admm_chunk", operands, {"n": n, "m": m}, outs, active,
+        bf16=("G", "Glo") if split else (), windows=("G",) if slab else ())
+    source = "split" if split else "slab" if slab else "G"
+    # Each launch also counts under its variant, e.g. "high,slab,lanes2".
     _build.launch(
         fused_admm_chunk, "qps_admm_chunk",
-        G.data_ptr(), A.data_ptr(), g.data_ptr(), l.data_ptr(), u.data_ptr(),
-        rho_row.data_ptr(), x.data_ptr(), z.data_ptr(), y.data_ptr(),
-        act.data_ptr(), *(o.data_ptr() for o in outs), B, n, m, K,
-        float(alpha), _build.stream_ptr(x))
+        None if split else G.data_ptr(), G.data_ptr() if split else None,
+        Glo.data_ptr() if split else None, A.data_ptr(), g.data_ptr(),
+        l.data_ptr(), u.data_ptr(), rho_row.data_ptr(), x.data_ptr(),
+        z.data_ptr(), y.data_ptr(), act.data_ptr(),
+        *(o.data_ptr() for o in outs), B, n, m, G.shape[-1], K, lanes,
+        PRECISIONS[dot_precision], float(alpha), _build.stream_ptr(x),
+        variant=f"{dot_precision},{source},lanes{lanes}")
     return tuple(outs)
 
 
 fused_admm_chunk.launches = 0
+fused_admm_chunk.variants = collections.Counter()
 
 
 def fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y, rho_row, active,
                                 *, K: int, alpha: float, sigma: float,
-                                refine: int):
+                                refine: int, lanes: int = 1):
     """Plain PyTorch M^{-1}-form chunk; same arguments and outputs as
     :func:`fused_admm_chunk_minv`. Any float dtype and device."""
+    if lanes < 1 or x.shape[0] % lanes:
+        raise ValueError(f"batch {x.shape[0]} not divisible by lanes={lanes}")
     At = A.transpose(-1, -2)
 
     def kkt_solve(x, z, y):
@@ -105,24 +178,28 @@ def fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y, rho_row, active,
 
 
 def fused_admm_chunk_minv(Minv, A, P, q, l, u, x, z, y, rho_row, active, *,
-                          K: int, alpha: float, sigma: float, refine: int):
+                          K: int, alpha: float, sigma: float, refine: int,
+                          lanes: int = 1):
     """Run K M^{-1}-form ADMM iterations for every active lane.
 
     Minv (B, n, n) = (P + sigma*I + A' diag(rho_row) A)^{-1} (contracted as
     Minv @ rhs), A (B, m, n), P (B, n, n) (read only when refine > 0; may
     then be None), q/x (B, n), l/u/z/y/rho_row (B, m), active (B,) bool.
     Each KKT solve takes ``refine`` refinement passes against the true M
-    built from P and A. Returns what :func:`fused_admm_chunk` returns.
+    built from P and A; ``lanes`` lanes per CTA (B must divide). Returns
+    what :func:`fused_admm_chunk` returns.
     """
     if not _build.launches_kernel("fused_admm_chunk_minv", x):
         return fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y,
                                            rho_row, active, K=K, alpha=alpha,
-                                           sigma=sigma, refine=refine)
+                                           sigma=sigma, refine=refine,
+                                           lanes=lanes)
     B, n = x.shape
     m = l.shape[-1]
-    if K < 1 or refine < 0:
-        raise ValueError(f"fused_admm_chunk_minv: K must be >= 1 and refine "
-                         f">= 0; got K={K}, refine={refine}")
+    if K < 1 or refine < 0 or lanes < 1 or B % lanes:
+        raise ValueError(f"fused_admm_chunk_minv: K must be >= 1, refine >= 0 "
+                         f"and lanes must divide B={B}; got K={K}, "
+                         f"refine={refine}, lanes={lanes}")
     operands = {"Minv": (Minv, (B, n, n)), "A": (A, (B, m, n)),
                 "q": (q, (B, n)), "l": (l, (B, m)), "u": (u, (B, m)),
                 "x": (x, (B, n)), "z": (z, (B, m)), "y": (y, (B, m)),
@@ -137,9 +214,11 @@ def fused_admm_chunk_minv(Minv, A, P, q, l, u, x, z, y, rho_row, active, *,
         Minv.data_ptr(), A.data_ptr(), P.data_ptr() if refine > 0 else None,
         q.data_ptr(), l.data_ptr(), u.data_ptr(), rho_row.data_ptr(),
         x.data_ptr(), z.data_ptr(), y.data_ptr(), act.data_ptr(),
-        *(o.data_ptr() for o in outs), B, n, m, K, refine, float(alpha),
-        float(sigma), _build.stream_ptr(x))
+        *(o.data_ptr() for o in outs), B, n, m, K, refine, lanes,
+        float(alpha), float(sigma), _build.stream_ptr(x),
+        variant=f"lanes{lanes}")
     return tuple(outs)
 
 
 fused_admm_chunk_minv.launches = 0
+fused_admm_chunk_minv.variants = collections.Counter()

@@ -6,10 +6,57 @@ import math
 
 import torch
 
+from ..core.settings import DOT_PRECISIONS
+
 
 def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched M @ v: (*B, r, c) x (*B, c) -> (*B, r)."""
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+
+#: The code of each chunk product precision in the kernels' C entry points
+#: (csrc/common.cuh: Prec).
+PRECISIONS = {p: i for i, p in enumerate(DOT_PRECISIONS)}
+
+
+def resolve_precision(precision: str, dtype) -> str:
+    """The bf16 precisions apply to float32 only: any other dtype runs its
+    products in full, as the JAX package's float64 solve does."""
+    return precision if dtype == torch.float32 else "highest"
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (nearest even), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def bf16_split(t: torch.Tensor):
+    """The two bfloat16 halves of t: hi = bf16(t), lo = bf16(t - hi), each
+    rounded to nearest even (what the kernels compute in registers)."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.to(t.dtype)).to(torch.bfloat16)
+
+
+def dot_operand(M: torch.Tensor, precision: str) -> tuple:
+    """M as a product at a (resolved) precision reads it, in M's dtype:
+    (M,) at "highest", (bf16(M),) at "default", its halves at "high"."""
+    if precision == "default":
+        return (bf16_round(M),)
+    if precision == "high":
+        return tuple(h.to(M.dtype) for h in bf16_split(M))
+    return (M,)
+
+
+def matvec_at(op: tuple, v: torch.Tensor, precision: str) -> torch.Tensor:
+    """M @ v at a (resolved) precision, M given as :func:`dot_operand` made
+    it: "default" rounds v to bf16 too; "high" is the bf16x3 sum
+    (Mh vh + Mh vl) + Ml vh, in the JAX kernel's order."""
+    if precision == "default":
+        return matvec(op[0], bf16_round(v))
+    if precision == "high":
+        vh, vl = (h.to(v.dtype) for h in bf16_split(v))
+        return matvec(op[0], vh) + matvec(op[0], vl) + matvec(op[1], vh)
+    return matvec(op[0], v)
 
 
 def inf_norm(v: torch.Tensor) -> torch.Tensor:

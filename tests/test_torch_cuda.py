@@ -328,3 +328,221 @@ def test_minv_kernels_at_other_widths(dev, n, m):
     for o, r in zip(fused_proxqp.fused_proxqp_chunk_minv(*pargs, **pkw),
                     fused_proxqp.fused_proxqp_chunk_minv_plain(*pargs, **pkw)):
         assert _close(o, r)
+
+
+def _witness(out, plain, wit):
+    """Per output, the kernel's error against the f64 witness (the plain
+    version in float64, which runs every precision in full) stays within
+    3x the FP32 plain version's: a 1-ulp difference in t can flip a bf16
+    rounding, so kernel and plain are not held to TOL at "high"/"default"."""
+    for o, p, w in zip(out, plain, wit):
+        ek = float((o.double() - w).abs().max())
+        ep = float((p.double() - w).abs().max())
+        assert bool(torch.isfinite(o).all())
+        assert ek <= 3.0 * ep + 1e-7 * float(w.abs().max()), (ek, ep)
+
+
+def _f64(args):
+    return [a.double() if a.is_floating_point() else a for a in args]
+
+
+def test_admm_chunk_variants_on_card(dev):
+    """Each sigma-free variant against its plain version ("high" and
+    "default" by the f64 witness), and the bitwise identities: split and
+    "high" on the same G, the slab window and the contiguous G, lanes 2 and
+    4 and lanes 1; frozen lanes pass through."""
+    qp, g = _fleet(dev, 15)
+    rho = torch.full((B, M), 0.4, device=dev)
+    S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
+    G, gv = S[..., :M].contiguous(), S[..., M].contiguous()
+    x = torch.randn((B, N), generator=g, device=dev)
+    z = torch.randn((B, M), generator=g, device=dev)
+    y = torch.randn((B, M), generator=g, device=dev)
+    active = torch.arange(B, device=dev) % 3 != 1
+    vecs = (qp.l, qp.u, x, z, y, rho, active)
+    kw = dict(K=11, alpha=1.6)
+    run = fused_admm.fused_admm_chunk
+    base = {}
+    for prec in ("highest", "high", "default"):
+        base[prec] = run(G, qp.A, gv, *vecs, dot_precision=prec, **kw)
+        plain = fused_admm.fused_admm_chunk_plain(G, qp.A, gv, *vecs,
+                                                  dot_precision=prec, **kw)
+        if prec == "highest":
+            assert all(_close(o, r) for o, r in zip(base[prec], plain))
+        else:
+            wit = fused_admm.fused_admm_chunk_plain(
+                *_f64((G, qp.A, gv, *vecs)), dot_precision=prec, **kw)
+            _witness(base[prec], plain, wit)
+        for o, v in zip(base[prec][:5], (x, z, y, x, z)):
+            assert torch.equal(o[~active], v[~active])
+    Ghi, Glo = linalg.bf16_split(G)
+    same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))  # noqa: E731
+    assert same(run(Ghi, qp.A, gv, *vecs, dot_precision="high", Glo=Glo, **kw),
+                base["high"])
+    for prec in ("highest", "high"):
+        assert same(run(S, qp.A, gv, *vecs, dot_precision=prec, slab=True, **kw),
+                    base[prec])
+        for lanes in (2, 4):
+            assert same(run(G, qp.A, gv, *vecs, dot_precision=prec,
+                            lanes=lanes, **kw), base[prec])
+    assert same(run(S, qp.A, gv, *vecs, dot_precision="default", slab=True,
+                    lanes=2, **kw), base["default"])
+    assert same(run(Ghi, qp.A, gv, *vecs, dot_precision="high", Glo=Glo,
+                    lanes=4, **kw), base["high"])
+
+
+def test_prox_chunk_variants_on_card(dev):
+    prob, g = _prox_fleet(dev, 16)
+    rho = 0.0125 * (1.0 + torch.rand(B, generator=g, device=dev))
+    S = fused_factor.fused_factor_solve(
+        prob.P, (prob.A, prob.C), prob.q, rho[:, None].expand(B, 256).contiguous(),
+        sigma=0.0)
+    G, gv = S[..., :256].contiguous(), S[..., 256].contiguous()
+    x = torch.randn((B, N), generator=g, device=dev)
+    s = torch.rand((B, 128), generator=g, device=dev)
+    y = torch.randn((B, 128), generator=g, device=dev)
+    z = torch.rand((B, 128), generator=g, device=dev)
+    active = torch.arange(B, device=dev) % 4 != 3
+    args = (G, prob.A, prob.C, gv, prob.b, prob.d, x, s, y, z, rho, active)
+    run = fused_proxqp.fused_proxqp_chunk
+    for prec in ("highest", "high", "default"):
+        out = run(*args, K=25, dot_precision=prec)
+        plain = fused_proxqp.fused_proxqp_chunk_plain(*args, K=25,
+                                                      dot_precision=prec)
+        if prec == "highest":
+            assert all(_close(o, r) for o, r in zip(out, plain))
+        else:
+            wit = fused_proxqp.fused_proxqp_chunk_plain(*_f64(args), K=25,
+                                                        dot_precision=prec)
+            _witness(out, plain, wit)
+        for o, v in zip(out, (x, s, y, z)):
+            assert torch.equal(o[~active], v[~active])
+        for lanes in (2, 4):
+            assert all(torch.equal(u, v) for u, v in zip(
+                run(*args, K=25, dot_precision=prec, lanes=lanes), out))
+
+
+@pytest.mark.parametrize("family", ["admm", "prox"])
+def test_default_chunk_rounds_like_plain_on_card(dev, family):
+    """The witness above cannot fail a "default" kernel that skips a bf16
+    rounding (the plain "default" lies far from f64), so: one iteration
+    (K=1) of the kernel against its plain version, which rounds the same
+    operands, and against the kernel's own "highest". A rounding flipped by
+    a 1-ulp sum-order difference moves the few elements that read it, so at
+    most 10 % of each output's elements may differ from the plain version by
+    more than TOL of its max (a skipped rounding moves 44-99 % of x, y, Ax
+    or A'y); every output one iteration moves must differ from "highest" by
+    more than 1e-4 of its max."""
+    b = 64
+    if family == "admm":
+        qp, g = _fleet(dev, 21, b=b)
+        rho = torch.full((b, M), 0.4, device=dev)
+        S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
+        args = (S[..., :M].contiguous(), qp.A, S[..., M].contiguous(), qp.l,
+                qp.u, *(torch.randn((b, w), generator=g, device=dev)
+                        for w in (N, M, M)), rho)
+        run, plain, kw = (fused_admm.fused_admm_chunk,
+                          fused_admm.fused_admm_chunk_plain, dict(alpha=1.6))
+    else:
+        prob, g = _prox_fleet(dev, 22, b=b)
+        rho = 0.0125 * (1.0 + torch.rand(b, generator=g, device=dev))
+        S = fused_factor.fused_factor_solve(
+            prob.P, (prob.A, prob.C), prob.q,
+            rho[:, None].expand(b, 256).contiguous(), sigma=0.0)
+        args = (S[..., :256].contiguous(), prob.A, prob.C,
+                S[..., 256].contiguous(), prob.b, prob.d,
+                torch.randn((b, N), generator=g, device=dev),
+                torch.rand((b, 128), generator=g, device=dev),
+                torch.randn((b, 128), generator=g, device=dev),
+                torch.rand((b, 128), generator=g, device=dev), rho)
+        run, plain, kw = (fused_proxqp.fused_proxqp_chunk,
+                          fused_proxqp.fused_proxqp_chunk_plain, {})
+    args = (*args, torch.arange(b, device=dev) % 4 != 3)
+    out = {(fn, prec): fn(*args, K=1, dot_precision=prec, **kw)
+           for fn in (run, plain) for prec in ("default", "highest")}
+    for k, p, kh, ph in zip(out[run, "default"], out[plain, "default"],
+                            out[run, "highest"], out[plain, "highest"]):
+        scale = float(p.abs().max())
+        assert bool(torch.isfinite(k).all())
+        share = float(((k - p).abs() > TOL * scale).float().mean())
+        assert share <= 0.1, share
+        if not torch.equal(p, ph):  # x_prev, z_prev are the inputs
+            gap = float((k - kh).abs().max()) / float(kh.abs().max())
+            assert gap > 1e-4, gap
+
+
+def test_minv_chunks_with_lanes_on_card(dev):
+    """The M^{-1} chunks at lanes 2 and 4 give the bits of lanes 1."""
+    qp, g = _fleet(dev, 17)
+    rho = torch.full((B, M), 0.4, device=dev)
+    Mn = qp.P + 1e-4 * torch.eye(N, device=dev) + (
+        qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
+    Minv = linalg.spd_inverse(Mn)
+    x = torch.randn((B, N), generator=g, device=dev)
+    z = torch.randn((B, M), generator=g, device=dev)
+    y = torch.randn((B, M), generator=g, device=dev)
+    active = torch.arange(B, device=dev) % 3 != 1
+    args = (Minv, qp.A, qp.P, qp.q, qp.l, qp.u, x, z, y, rho, active)
+    kw = dict(K=7, alpha=1.6, sigma=1e-4, refine=1)
+    one = fused_admm.fused_admm_chunk_minv(*args, **kw)
+    for lanes in (2, 4):
+        assert all(torch.equal(u, v) for u, v in zip(
+            fused_admm.fused_admm_chunk_minv(*args, lanes=lanes, **kw), one))
+
+    prob, g = _prox_fleet(dev, 18)
+    prho = 0.0125 * (1.0 + torch.rand(B, generator=g, device=dev))
+    Mn = prob.P + 1e-2 * torch.eye(N, device=dev) + prho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    x = torch.randn((B, N), generator=g, device=dev)
+    s = torch.rand((B, 128), generator=g, device=dev)
+    y = torch.randn((B, 128), generator=g, device=dev)
+    z = torch.rand((B, 128), generator=g, device=dev)
+    pargs = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y, z,
+             prho, active)
+    pkw = dict(K=9, sigma=1e-2, refine=1)
+    one = fused_proxqp.fused_proxqp_chunk_minv(*pargs, **pkw)
+    for lanes in (2, 4):
+        assert all(torch.equal(u, v) for u, v in zip(
+            fused_proxqp.fused_proxqp_chunk_minv(*pargs, lanes=lanes, **pkw), one))
+
+
+def test_headline_stacks_run_their_variants_on_card(dev):
+    """bench.py's slab_settings and the split stack, and the prox headline
+    stack, on small fleets: every lane converges, the variants launch, and
+    x agrees with the CPU solve (plain versions) within 1e-3."""
+    qp, _ = _fleet(dev, 19, n=200, m=100)
+    base = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
+                check_interval=11, kkt_refinement_steps=0, sigma_free_rhs=True,
+                fused_factor=True, fused_chunk=True, require_fused=True,
+                adaptive_rho=False, chunk_lanes=2, chunk_dot_precision="high")
+    stacks = {"high,slab,lanes2": dict(slab_cache=True,
+                                       first_chunk_dot_precision="default"),
+              "high,split,lanes2": dict(split_cache=True)}
+    for key, knobs in stacks.items():
+        st = pt.Settings(**base, **knobs)
+        fused_admm.fused_admm_chunk.variants.clear()
+        sol = pt.solve(qp, st)
+        counts = fused_admm.fused_admm_chunk.variants
+        assert counts[key] > 0, counts
+        if "slab" in key:
+            assert counts["default,slab,lanes2"] == 1, counts
+        ref = pt.solve(qp.to("cpu"), st)
+        assert (sol.info.status.cpu() >= 2).all() and (ref.info.status >= 2).all()
+        assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3
+
+    prob, _ = _prox_fleet(dev, 20, n=200, me=40, mi=100)
+    pst = pt.ProxQPSettings(max_iterations=2000, eps_abs=5e-5, eps_rel=5e-5,
+                            rho=0.0125, adaptive_rho=False, check_interval=25,
+                            kkt_warm_start=False, kkt_refinement_steps=0,
+                            sigma_free_rhs=True, fused_chunk=True,
+                            chunk_lanes=2, chunk_dot_precision="high",
+                            first_chunk_dot_precision="default",
+                            require_fused=True)
+    fused_proxqp.fused_proxqp_chunk.variants.clear()
+    psol = pt.solve_proxqp(prob, pst)
+    counts = fused_proxqp.fused_proxqp_chunk.variants
+    assert counts["default,lanes2"] == 1 and counts["high,lanes2"] > 0, counts
+    pref = pt.solve_proxqp(prob.to("cpu"), pst)
+    assert (psol.info.status == 3).all() and (pref.info.status == 3).all()
+    assert float((psol.x.cpu() - pref.x).abs().max()) <= 1e-3

@@ -286,9 +286,11 @@ def test_settings_fields_defaults_and_validators_match_jax():
         with pytest.raises(ValueError):
             pt.ProxQPSettings(**kw)
     sf = dict(fused_chunk=True, sigma_free_rhs=True, kkt_refinement_steps=0)
-    rejected = [dict(chunk_lanes=2), dict(chunk_dot_precision="high"),
-                dict(first_chunk_dot_precision="default", **sf),
-                dict(anderson_memory=4), dict(record_history=True)]
+    for kw in (dict(chunk_lanes=2), dict(chunk_dot_precision="high"),
+               dict(first_chunk_dot_precision="default", **sf)):
+        qps.ProxQPSettings(**kw)
+        pt.ProxQPSettings(**kw)  # ported: accepted as in the JAX package
+    rejected = [dict(anderson_memory=4), dict(record_history=True)]
     for kw in rejected:
         qps.ProxQPSettings(**kw)  # valid for the JAX package
         with pytest.raises(NotImplementedError):
