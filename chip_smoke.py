@@ -33,7 +33,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    times. The witness cannot fail a "default" kernel that skips a rounding
    (the plain "default" lies far from f64), so each family's "default"
    kernel is also held at K=1 against its plain version and its own
-   "highest" (``default_check``).
+   "highest" (``default_check``). Then rows 7-10 and 3b, the fused
+   factor's knobs: each pivot formulation ("ref", "value", "r2", "r4",
+   "r8", "panel") on the slab's pivot blocks and on spread-diagonal blocks,
+   against its plain version (LIMIT; "ref", which has no Jacobi scaling, by
+   the f64 witness where FP32 rounding alone fills LIMIT; "value" bit for
+   bit against v3, whose arithmetic it is), timed on the slab's blocks
+   beside ``torch.linalg.inv``; and the bf16x3 slab level ("high") at j=3
+   against its plain version (LIMIT) and apart from its own FP32 level on
+   the pivot rows (HIGH_GAP).
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
@@ -82,15 +90,25 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    stack on phase 6's fleet (lanes 2, "high", a "default" first chunk). 8f
    and 8g run phase 7b's and 7c's stacks at lanes 2 beside lanes 1: the
    same statuses, iterations and x, bit for bit.
+9. The fused factor's knobs on phase 3's fleet and static-rho stack, one at
+   a time: 9a-9f ``pivot_variant`` = "ref", "value", "r2", "r4", "r8",
+   "panel", 9g ``factor_precision="high"``. Each tightens eps while its
+   16-lane audit fails, prints its solve (best of 3), factor (best of 4),
+   iterations, eps, audit and peak memory, and fails unless every factor
+   build launched its named pivot formulation and level precision 4 times
+   each and nothing else (``spd_inverse_unrolled.variants``,
+   ``slab_level.variants``).
 
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve,
-one profiled solve each of phases 7a and 7b, and one each of 8a and 8e
-(kernel time by name and the device's idle share). ``--time-chunks`` adds,
+one profiled solve each of phases 7a and 7b, one each of 8a and 8e, and one
+of the fastest phase-9 stack (kernel time by name and the device's idle
+share). ``--time-chunks`` adds,
 after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
-The last lines are the total wall time, the kernels JSON (the seven kernels
-and the eleven variants of rows 4c and 5c), the nvidia-smi line, and
+The last lines are the total wall time, the kernels JSON (the seven kernels,
+the eleven variants of rows 4c and 5c, and the six pivot formulations and
+the bf16x3 level of rows 7-10 and 3b), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -142,6 +160,11 @@ WITNESS_RATIO, WITNESS_FLOOR = 3.0, 1e-7
 #: iteration moves must also differ from the kernel's own "highest" by more
 #: than DEFAULT_GAP of its max (the emulation: >= 8e-4).
 DEFAULT_SHARE, DEFAULT_GAP = 0.1, 1e-4
+#: The bf16x3 level ("high") must differ from its own FP32 level on the
+#: pivot rows (Dinv . T[j rows], a product of split operands alone) by more
+#: than HIGH_GAP of their max. A CPU emulation at phase 2's shapes (the plain
+#: versions): "high" 1.2e-5 from "highest" there, FP32 7.5e-7 from f64.
+HIGH_GAP = 4e-6
 
 #: The kernels each main path must launch.
 ADMM_PATH = ("slab_build", "pivot_sweep_v3", "slab_level", "admm_chunk")
@@ -182,6 +205,29 @@ VARIANTS = {
     "prox_chunk_default": ("prox_chunk", "8e", ",default,"),
     "prox_chunk_lanes2": ("prox_chunk", "8e", ",lanes2,"),
     "prox_chunk_minv_lanes2": ("prox_chunk_minv", "8g", ",lanes2,"),
+}
+#: Rows 7-10 and 3b: each pivot formulation and the bf16x3 level (a
+#: kernels-JSON entry of its own) -> (its source, the TPU kernel it
+#: replaces, the phase-9 stack whose launches it reports, its launch key).
+#: "value" is v3's arithmetic (spd_kernels.py:251-262 against :286-294), so
+#: it runs v3's kernel.
+FACTOR_VARIANTS = {
+    "pivot_sweep_ref": ("csrc/pivot_variants.cu",
+                        "quadraticprogramsolver_tpu/ops/spd_kernels.py:199",
+                        "9a", "ref"),
+    "pivot_sweep_value": ("csrc/pivot_sweep.cu",
+                          "quadraticprogramsolver_tpu/ops/spd_kernels.py:225",
+                          "9b", "value"),
+    **{f"pivot_sweep_r{q}": ("csrc/pivot_variants.cu",
+                             "quadraticprogramsolver_tpu/ops/spd_kernels.py:298",
+                             tag, f"r{q}")
+       for q, tag in ((2, "9c"), (4, "9d"), (8, "9e"))},
+    "pivot_sweep_panel": ("csrc/pivot_variants.cu",
+                          "quadraticprogramsolver_tpu/ops/spd_kernels.py:349",
+                          "9f", "panel"),
+    "slab_level_high": ("csrc/slab_level.cu",
+                        "quadraticprogramsolver_tpu/ops/fused_factor.py:151",
+                        "9g", "high"),
 }
 T0 = time.perf_counter()
 
@@ -368,6 +414,97 @@ def bound(nbytes, flops, bf16_flops=0):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
+def pivot_bound(B):
+    """An SPD inverse of a 128 x 128 block (Cholesky, then the inverse from
+    it) is 128^3 FLOPs; each block read once and written once."""
+    return bound(4 * 2 * B * 128 * 128, B * 128 ** 3)
+
+
+def spread_blocks(torch, B, g):
+    """(B, 128, 128) SPD blocks with a spread of diagonal magnitudes
+    (tests/test_torch_spd_kernels.py's: X X'/128 + I scaled by exp(U(-2, 2))
+    on each side), made on the card in float64 and rounded to float32."""
+    X = torch.randn((B, 128, 128), generator=g, device=DEVICE, dtype=torch.float64)
+    D = X @ X.transpose(1, 2) / 128 + torch.eye(128, device=DEVICE, dtype=torch.float64)
+    s = torch.exp(4 * torch.rand((B, 128), generator=g, device=DEVICE,
+                                 dtype=torch.float64) - 2)
+    return (D * s[:, :, None] * s[:, None, :]).float()
+
+
+def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures):
+    """Rows 7-10 and 3b: each pivot formulation against its plain version
+    (LIMIT; "ref", unscaled, by the f64 witness where FP32 rounding alone
+    fills LIMIT) and "value" bit for bit against v3, on the slab's pivot
+    blocks ``D`` and on spread-diagonal blocks; then the bf16x3 level at
+    level ``j`` against its plain version (LIMIT) and apart from its own
+    FP32 level on the pivot rows (HIGH_GAP)."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_factor, spd_kernels
+
+    inv = spd_kernels.spd_inverse_unrolled
+    blocks = {"slab": D, "spread": spread_blocks(torch, D.shape[0], g)}
+    v3 = {kind: inv(Dk) for kind, Dk in blocks.items()}
+    for name, (_, _, _, variant) in FACTOR_VARIANTS.items():
+        if variant == "high":
+            continue
+        errs = []
+        for kind, Dk in blocks.items():
+            k = inv(Dk, variant=variant)
+            if variant == "value":
+                same = torch.equal(k, v3[kind])
+                log(f"[phase 2] {name} ({kind} blocks): bit for bit equal to "
+                    f"pivot_sweep_v3: {same}")
+                if not same:
+                    failures.append(f"{name} ({kind} blocks): not v3's bits")
+            p = spd_kernels.pivot_sweep_plain(Dk, variant)
+            rel = float((k - p).abs().max()) / max(float(p.abs().max()), 1.0)
+            if variant == "ref" and rel > LIMIT:
+                # No Jacobi scaling: the folded fix loses digits on spread
+                # diagonals on both sides alike.
+                witness(f"phase 2 witness, {kind} blocks", name,
+                        lambda x, **_: (inv(x, variant="ref"),),
+                        lambda x, **_: (spd_kernels.pivot_sweep_ref_plain(x),),
+                        (Dk,), {}, ("inverse",), failures)
+                errs.append(float((k - p).abs().max()))
+                log(f"[phase 2] {name} ({kind} blocks): relative {rel:.3e} "
+                    "held by the f64 witness")
+            else:
+                errs.append(compare(f"{name} ({kind} blocks)", k, p, failures))
+        # On the slab's blocks: the kernel, its plain version ("value":
+        # v3's) and the library inverse.
+        out[name] = (errs[0], cuda_ms(lambda v=variant: inv(D, variant=v)),
+                     cuda_ms(lambda v=variant: spd_kernels.pivot_sweep_plain(D, v)),
+                     cuda_ms(lambda: torch.linalg.inv(D)), pivot_bound(D.shape[0]))
+
+    rows = slice(j * 128, (j + 1) * 128)
+    Sh, Sf, Sq = Sp.clone(), Sp.clone(), Sp.clone()
+    fused_factor.slab_level(Sh, Dp, j, w_out, dot_precision="high")
+    fused_factor.slab_level(Sf, Dp, j, w_out)
+    fused_factor.slab_level_plain(Sq, Dp, j, w_out, "high")
+    err = compare("slab_level_high", Sh[:, :, :w_out], Sq[:, :, :w_out], failures)
+    if not torch.equal(Sh[:, :, w_out:], Sp[:, :, w_out:]):
+        failures.append("slab_level_high wrote outside the live region")
+    gap = (float((Sh[:, rows, :w_out] - Sf[:, rows, :w_out]).abs().max())
+           / float(Sf[:, rows, :w_out].abs().max()))
+    log(f"[phase 2] slab_level_high: pivot rows apart from the FP32 level by "
+        f"{gap:.3e} of their max (must exceed {HIGH_GAP:.0e})")
+    if not gap > HIGH_GAP:
+        failures.append(f"slab_level_high: {gap:.3e} from the FP32 level <= "
+                        f"{HIGH_GAP:.0e}: no bf16x3 rounding")
+    del Sh, Sf, Sq
+    B, n = Sp.shape[:2]
+    scratch = torch.empty((B, 128, w_out), device=DEVICE)
+    clone = lambda: (Sp.clone(),)  # noqa: E731 — a fresh slab per timed call
+    # As the FP32 level's bytes; its products are three bf16 passes.
+    level_bytes = 4 * B * (n * (w_out + 128) + 128 * 128 + n * w_out)
+    out["slab_level_high"] = (
+        err,
+        cuda_ms(lambda S: fused_factor.slab_level(S, Dp, j, w_out, scratch, "high"),
+                setup=clone),
+        cuda_ms(lambda S: fused_factor.slab_level_plain(S, Dp, j, w_out, "high"),
+                setup=clone),
+        None, bound(level_bytes, 0, 3 * 2 * B * 128 * w_out * n))
+
+
 def slab_build_bound(B, n, ms):
     m = sum(ms)
     kp = -(-(m + 1) // 64) * 64
@@ -417,9 +554,7 @@ def phase_kernels(torch):
         compare("pivot_sweep_v3", Dk, Dp, failures),
         cuda_ms(lambda: spd_kernels.spd_inverse_unrolled(D)),
         cuda_ms(lambda: spd_kernels.pivot_sweep_v3_plain(D)),
-        cuda_ms(lambda: torch.linalg.inv(D)),
-        # An SPD inverse (Cholesky, then the inverse from it) is n^3 FLOPs.
-        bound(4 * 2 * B_KERNEL * 128 * 128, B_KERNEL * 128 ** 3))
+        cuda_ms(lambda: torch.linalg.inv(D)), pivot_bound(B_KERNEL))
 
     S1, S2 = Sp.clone(), Sp.clone()
     fused_factor.slab_level(S1, Dp, j, w_out)
@@ -443,6 +578,7 @@ def phase_kernels(torch):
         cuda_ms(lambda S: fused_factor.slab_level_plain(S, Dp, j, w_out),
                 setup=clone),
         None, bound(level_bytes, level_flops))
+    phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures)
     del Sp, D, Dk, Dp, scratch
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho_row, sigma=sigma)
@@ -1305,6 +1441,75 @@ def phase_minv_lanes(torch, pkg, cnt):
     return runs
 
 
+#: Phase 9: the fused factor's knobs, one at a time on phase 3's stack:
+#: tag -> (knobs, the pivot formulation and level precision every factor
+#: build must launch, LEVELS times each).
+FACTOR_KNOBS = {
+    **{f"9{t} {v}": (dict(pivot_variant=v), v, "highest")
+       for t, v in zip("abcdef", ("ref", "value", "r2", "r4", "r8", "panel"))},
+    "9g high": (dict(factor_precision="high"), "v3", "high"),
+}
+
+
+def phase_factor_knobs(torch, pkg, cnt, base, profile):
+    """Phase 9: phase 3's fleet and static-rho knobs with one factor knob
+    changed, each tightening eps while its audit fails; returns each
+    stack's launches and solve ms."""
+    from quadraticprogramsolver_tpu_torch.models import kkt
+    from quadraticprogramsolver_tpu_torch.ops import fused_factor, spd_kernels
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qp = device_random_qp_fleet(B_MAIN, N, M, generator=g)
+    torch.cuda.synchronize()
+    runs = {}
+    for tag, (knobs, pivot, level) in FACTOR_KNOBS.items():
+        for eps in (1e-4, 2e-5, 1e-5):
+            settings = pkg.Settings(**dict(base, eps_abs=eps, eps_rel=eps),
+                                    adaptive_rho=False, **knobs)
+            label = f"phase {tag}, eps {eps:.0e}"
+            builds = CallCount(kkt, "cholesky_init")
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                reset(cnt)
+                sol = pkg.solve(qp, settings)
+                torch.cuda.synchronize()
+            finally:
+                builds.close()
+            counts = read(cnt, ADMM_PATH, label)
+            piv = dict(spd_kernels.spd_inverse_unrolled.variants)
+            lev = dict(fused_factor.slab_level.variants)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            log(f"[{label}] factor builds {builds.calls}, pivot launches by "
+                f"formulation {piv}, level launches by precision {lev}")
+            want = LEVELS * builds.calls
+            require(piv == {pivot: want} and lev == {level: want},
+                    f"{label}: expected {want} launches of pivot {pivot!r} "
+                    f"and level {level!r} alone; got {piv}, {lev}")
+            x, status, iters = report_solve(qp, sol, None, None, f"{label} counted")
+            del sol
+            dev = audit(qp, x, status, iters, label, required=False,
+                        prefix=f"phase {tag[:2]}")
+            if dev <= AUDIT_TARGET:
+                break
+        require(dev <= AUDIT_TARGET, f"phase {tag}: audit {dev:.3e} > "
+                f"{AUDIT_TARGET:.0e} at eps 1e-5")
+        sol, dt = run_main(torch, lambda: pkg.solve(qp, settings))
+        fdt = factor_seconds(torch, qp, settings)
+        report_solve(qp, sol, dt, fdt, f"phase {tag}, eps {eps:.0e}")
+        log(f"[phase {tag}] eps {eps:.0e}, audit {dev:.3e}, peak device "
+            f"memory {peak:.2f} GB")
+        del sol
+        runs[tag[:2]] = {"kernels": counts, "pivot": piv, "level": lev,
+                         "settings": settings, "ms": dt * 1e3}
+    if profile:
+        tag = min(runs, key=lambda k: runs[k]["ms"])
+        st = runs[tag]["settings"]
+        profile_solve(torch, lambda: pkg.solve(qp, st), f"phase {tag} profile")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1391,6 +1596,10 @@ def main() -> int:
     stacks = phase_stacks(torch, pkg, cnt, "--profile" in sys.argv[1:])
     paths.update({f"phase_{k}": v["kernels"] for k, v in stacks.items()})
 
+    # Phase 9: the fused factor's knobs (pivot formulations, bf16x3 level).
+    knobs = phase_factor_knobs(torch, pkg, cnt, base, "--profile" in sys.argv[1:])
+    paths.update({f"phase_{k}": v["kernels"] for k, v in knobs.items()})
+
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
         by_path = {k: v.get(name) for k, v in paths.items()}
@@ -1423,8 +1632,20 @@ def main() -> int:
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lms}
 
+    def factor_entry(name, src, rep, stack, key):
+        err, ms, pms, lms, (bms, by) = kstats[name]
+        run = knobs[stack]
+        n = run["level" if key == "high" else "pivot"].get(key, 0)
+        return {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+                "replaces": rep,
+                "variant_of": "slab_level" if key == "high" else "pivot_sweep_v3",
+                "stack": f"phase {stack}", "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lms}
+
     kernels = [entry(name, src, rep) for name, (src, rep) in KERNELS.items()]
     kernels += [variant_entry(name, *v) for name, v in VARIANTS.items()]
+    kernels += [factor_entry(name, *v) for name, v in FACTOR_VARIANTS.items()]
     log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

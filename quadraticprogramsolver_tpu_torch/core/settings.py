@@ -96,6 +96,9 @@ class Settings:
     eps_dual_inf: float = 1e-4
     scaling_iters: int = 0
     matmul_precision: str = "highest"
+    #: The factor's product precision: None/"highest" (FP32), or "high"
+    #: (bf16x3 slab-level dots, csrc/slab_level.cu) and "default" (the FP32
+    #: level, as in the JAX package) on the fused slab factor only.
     factor_precision: str | None = None
     #: Sigma-free right-hand side: cache G = M^{-1}A' and g = M^{-1}q, and
     #: iterate xx = G(rho z - y) - g. No f32 sigma floor (sigma_for).
@@ -103,6 +106,11 @@ class Settings:
     #: Build the sigma-free factor with the slab kernels
     #: (csrc/slab_build.cu, csrc/pivot_sweep.cu, csrc/slab_level.cu).
     fused_factor: bool = False
+    #: The fused slab factor's pivot sweep (csrc/pivot_sweep.cu): "v3"
+    #: (Jacobi-scaled, the default), "ref" (unscaled), "value" (v3's
+    #: arithmetic, so v3's kernel), "r<q>" for q dividing 128 (q steps a
+    #: group, 128/q groups) or "panel" (rank-8 panels). The M^{-1} and
+    #: unfused sigma-free routes always run v3, as in the JAX package.
     pivot_variant: str = "v3"
     #: Keep the factor's slab as the cache: the chunk reads G as a window
     #: of it (row pitch kp + n), so no (B, n, m) G copy is made.
@@ -160,6 +168,10 @@ class Settings:
             if self.split_cache:
                 raise ValueError("first_chunk_dot_precision excludes "
                                  "split_cache (its G halves force 'high')")
+        if self.factor_precision not in FACTOR_PRECISIONS:
+            raise ValueError(f"factor_precision must be one of "
+                             f"{FACTOR_PRECISIONS}; got {self.factor_precision!r}")
+        pivot_rank(self.pivot_variant)
         for name, reason in _unimplemented(self):
             raise NotImplementedError(
                 f"Settings.{name}: {reason} is not implemented by the "
@@ -261,6 +273,25 @@ class ProxQPSettings:
 #: The chunk kernels' product precisions, in the order of their codes
 #: (csrc/common.cuh: Prec): full FP32, bf16x3, one bf16 pass.
 DOT_PRECISIONS = ("highest", "high", "default")
+#: Settings.factor_precision's values (None: as matmul_precision).
+FACTOR_PRECISIONS = (None, "highest", "high", "default")
+#: The pivot sweep's named formulations; "r<q>" adds one per divisor q of 128.
+PIVOT_VARIANTS = ("v3", "ref", "value", "panel")
+
+
+def pivot_rank(variant: str, nb: int = 128):
+    """q of a rank-q pivot variant "r<q>", None for a named one; raises
+    ValueError on any other string, and on q not dividing nb with the JAX
+    package's message (which runs other strings as "ref" instead)."""
+    if variant in PIVOT_VARIANTS:
+        return None
+    if variant.startswith("r") and variant[1:].isdigit():
+        q = int(variant[1:])
+        if q == 0 or nb % q:
+            raise ValueError(f"rank-q variant needs nb % q == 0; got {nb}, {q}")
+        return q
+    raise ValueError(f"pivot_variant must be one of {PIVOT_VARIANTS} or "
+                     f"'r<q>' with q dividing {nb}; got {variant!r}")
 
 
 def _prox_unimplemented(s: ProxQPSettings):
@@ -279,12 +310,15 @@ def _unimplemented(s: Settings):
     if s.chunk_dot_precision not in DOT_PRECISIONS:
         # The JAX package runs any other value as "highest".
         yield "chunk_dot_precision", f"precision {s.chunk_dot_precision!r}"
-    if s.factor_precision not in (None, "highest"):
-        yield "factor_precision", f"a {s.factor_precision!r}-precision factor"
+    if s.factor_precision in ("high", "default") and not (
+            s.fused_factor and s.sigma_free_rhs):
+        # The JAX package runs its XLA factor products at this precision
+        # off the slab factor; the port has no such route yet.
+        yield "factor_precision", (f"a {s.factor_precision!r}-precision "
+                                   "factor off the fused slab factor "
+                                   "(fused_factor + sigma_free_rhs)")
     if s.matmul_precision != "highest":
         yield "matmul_precision", "reduced matmul precision"
-    if s.pivot_variant != "v3":
-        yield "pivot_variant", f"pivot variant {s.pivot_variant!r}"
     if s.anderson_memory > 0:
         yield "anderson_memory", "Anderson acceleration"
     if s.polish_iterations > 0:

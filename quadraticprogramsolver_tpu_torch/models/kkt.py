@@ -81,8 +81,14 @@ def cholesky_init(qp: QP, rho, sigma, settings: Settings) -> dict:
     if _fused_factor_ok(qp, settings):
         from ..ops.fused_factor import fused_factor_solve
 
-        S = fused_factor_solve(qp.P, qp.A, qp.q, rho_row,
-                               sigma=float(settings.sigma_for(qp.dtype)))
+        # Settings.pivot_variant picks the pivot sweep; factor_precision
+        # "high" the bf16x3 level products ("default" runs the FP32 level,
+        # as in the JAX package). The build and the pivots stay FP32.
+        S = fused_factor_solve(
+            qp.P, qp.A, qp.q, rho_row, sigma=float(settings.sigma_for(qp.dtype)),
+            pivot_variant=settings.pivot_variant,
+            dot_precision=("high" if settings.factor_precision == "high"
+                           else "highest"))
         g = S[..., qp.m].contiguous()
         if settings.split_cache and qp.dtype == torch.float32:
             # Settings.split_cache: G's two bf16 halves, split once here
@@ -101,6 +107,13 @@ def cholesky_init(qp: QP, rho, sigma, settings: Settings) -> dict:
         # Copies: the chunk kernel takes a contiguous (B, n, m) G, and the
         # slab (n x (kp + n) per lane) is freed when this returns.
         return {"G": S[..., : qp.m].contiguous(), "g": g}
+    if settings.factor_precision in ("high", "default"):
+        raise NotImplementedError(
+            f"Settings.factor_precision={settings.factor_precision!r} off the "
+            "fused slab factor (its gates fail for this problem: float32, or "
+            "float64 on the CPU, one batch axis, n and m nonzero multiples "
+            "of 128) is not implemented by the PyTorch port yet (see "
+            "ROADMAP.md)")
     M = _build_normal_matrix(qp, rho_row, sigma)
     if settings.sigma_free_rhs:
         At = qp.A.transpose(-1, -2).expand(qp.batch_shape + (qp.n, qp.m))

@@ -13,16 +13,20 @@ the first, in place; afterwards S[b, :, :kp] = M^{-1} [A' | q | 0], so
 G = S[:, :, :m] and g = S[:, :, m].
 
 Kernels (CUDA, float32): :func:`build_slab` (csrc/slab_build.cu, one or two
-blocks) and :func:`slab_level` (csrc/slab_level.cu); the pivot blocks go
-through :func:`~.spd_kernels.spd_inverse_unrolled` (csrc/pivot_sweep.cu). On
-CPU tensors each wrapper runs its plain PyTorch version.
+blocks) and :func:`slab_level` (csrc/slab_level.cu, FP32 or bf16x3
+products); the pivot blocks go through
+:func:`~.spd_kernels.spd_inverse_unrolled` (csrc/pivot_sweep.cu, any pivot
+formulation). On CPU tensors each wrapper runs its plain PyTorch version.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import _build
+from .linalg import bf16_split, resolve_precision
 from .spd_kernels import spd_inverse_unrolled
 
 NB = 128
@@ -98,24 +102,48 @@ def build_slab(P, A, q, rho_row, sigma: float) -> torch.Tensor:
 build_slab.launches = 0
 
 
-def slab_level_plain(S, Dinv, j: int, w_out: int) -> None:
+#: The slab level's product precisions, in the order of their codes in
+#: qps_slab_level: FP32, and bf16x3 (csrc/common.cuh: Prec).
+LEVEL_PRECISIONS = ("highest", "high")
+
+
+def _dot3(a, b):
+    """a @ b in bf16x3 as the JAX level kernel writes it: (ah bh + ah bl) +
+    al bh, each a product of bf16 halves summed in a's dtype (lo lo
+    dropped)."""
+    ah, al = (h.to(a.dtype) for h in bf16_split(a))
+    bh, bl = (h.to(b.dtype) for h in bf16_split(b))
+    return torch.matmul(ah, bh) + torch.matmul(ah, bl) + torch.matmul(al, bh)
+
+
+def slab_level_plain(S, Dinv, j: int, w_out: int,
+                     dot_precision: str = "highest") -> None:
     rows = slice(j * NB, (j + 1) * NB)
-    DinvT = torch.matmul(Dinv, S[:, rows, :w_out])
-    S[:, :, :w_out] -= torch.matmul(S[:, :, w_out:w_out + NB], DinvT)
+    mm = _dot3 if resolve_precision(dot_precision, S.dtype) == "high" else torch.matmul
+    DinvT = mm(Dinv, S[:, rows, :w_out])
+    S[:, :, :w_out] -= mm(S[:, :, w_out:w_out + NB], DinvT)
     S[:, rows, :w_out] = DinvT
 
 
-def slab_level(S, Dinv, j: int, w_out: int, scratch=None) -> None:
+def slab_level(S, Dinv, j: int, w_out: int, scratch=None,
+               dot_precision: str = "highest") -> None:
     """One Gauss-Jordan level on S[:, :, :w_out + 128], in place.
 
     The pivot columns are S[:, :, w_out:w_out + 128] (M's block column j),
     Dinv (B, 128, 128) the inverse of their pivot block. Pivot rows become
     Dinv . T[j rows]; the other rows get T - C . (Dinv . T[j rows]).
-    ``scratch`` (CUDA only): a (B, 128, >= w_out) float32 buffer for
-    Dinv . T[j rows], reused across levels; allocated when None.
+    ``dot_precision``: "highest" (FP32 products) or "high" (bf16x3: Dinv,
+    the pivot rows, C and Dinv . T split into bf16 halves, lo . lo
+    dropped; the level's other operand, T, enters elementwise); float64
+    runs "highest". ``scratch`` (CUDA only): a (B, 128, >= w_out) float32
+    buffer for Dinv . T[j rows], reused across levels; allocated when None.
+    A launch counts in ``slab_level.variants[dot_precision]``.
     """
+    if dot_precision not in LEVEL_PRECISIONS:
+        raise ValueError(f"slab level precision must be one of "
+                         f"{LEVEL_PRECISIONS}; got {dot_precision!r}")
     if not _build.launches_kernel("slab_level", S):
-        return slab_level_plain(S, Dinv, j, w_out)
+        return slab_level_plain(S, Dinv, j, w_out, dot_precision)
     B, n, wid = S.shape
     if tuple(Dinv.shape) != (B, NB, NB):
         raise ValueError(f"Dinv must be ({B}, {NB}, {NB}); got {tuple(Dinv.shape)}")
@@ -134,19 +162,26 @@ def slab_level(S, Dinv, j: int, w_out: int, scratch=None) -> None:
     _build.launch(
         slab_level, "qps_slab_level",
         S.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), scratch.shape[2],
-        B, n, wid, j, w_out, _build.stream_ptr(S))
+        B, n, wid, j, w_out, LEVEL_PRECISIONS.index(dot_precision),
+        _build.stream_ptr(S), variant=dot_precision)
 
 
 slab_level.launches = 0
+slab_level.variants = collections.Counter()
 
 
-def fused_factor_solve(P, A, q, rho_row, *, sigma: float) -> torch.Tensor:
+def fused_factor_solve(P, A, q, rho_row, *, sigma: float,
+                       pivot_variant: str = "v3",
+                       dot_precision: str = "highest") -> torch.Tensor:
     """Slab S with S[:, :, :kp] = (P + sigma*I + A' diag(rho) A)^{-1} [A' q 0].
 
     P (B, n, n), A (B, m, n) or a tuple of row blocks, q (B, n), rho_row
-    (B, m) with m the blocks' total rows; n % 128 == 0. Returns the full
-    (B, n, kp + n) slab; callers slice G = S[:, :, :m] and g = S[:, :, m].
-    Columns past kp are dead pivot state.
+    (B, m) with m the blocks' total rows; n % 128 == 0. ``pivot_variant``
+    picks the pivot sweep (:func:`~.spd_kernels.spd_inverse_unrolled`),
+    ``dot_precision`` the levels' products ("highest" or "high"); the build
+    and the pivot inverses are FP32 under every setting, as in the JAX
+    package. Returns the full (B, n, kp + n) slab; callers slice G = S[:, :,
+    :m] and g = S[:, :, m]. Columns past kp are dead pivot state.
     """
     B, n = q.shape
     m = rho_row.shape[-1]
@@ -165,6 +200,6 @@ def fused_factor_solve(P, A, q, rho_row, *, sigma: float) -> torch.Tensor:
         w_out = kp + j * NB
         # The pivot block is read through the slab's strides: no copy.
         D = S[:, j * NB:(j + 1) * NB, w_out:w_out + NB]
-        Dinv = spd_inverse_unrolled(D)
-        slab_level(S, Dinv, j, w_out, scratch)
+        Dinv = spd_inverse_unrolled(D, variant=pivot_variant)
+        slab_level(S, Dinv, j, w_out, scratch, dot_precision)
     return S

@@ -62,7 +62,7 @@ REJECTED = [
 #: Knobs of REJECTED that the port has implemented since: set alone, each
 #: now does what it does in the JAX package (the same ValueError, or none).
 PORTED = {"slab_cache", "split_cache", "chunk_lanes", "chunk_dot_precision",
-          "first_chunk_dot_precision"}
+          "first_chunk_dot_precision", "pivot_variant"}
 
 
 @pytest.mark.parametrize("field,value", REJECTED,

@@ -546,3 +546,90 @@ def test_headline_stacks_run_their_variants_on_card(dev):
     pref = pt.solve_proxqp(prob.to("cpu"), pst)
     assert (psol.info.status == 3).all() and (pref.info.status == 3).all()
     assert float((psol.x.cpu() - pref.x).abs().max()) <= 1e-3
+
+
+def _spread_blocks(dev, b, g):
+    """SPD blocks with a spread of diagonal magnitudes (X X'/128 + I scaled
+    by exp(U(-2, 2)) on each side), made in float64, rounded to float32."""
+    X = torch.randn((b, 128, 128), generator=g, device=dev, dtype=torch.float64)
+    D = X @ X.transpose(1, 2) / 128 + torch.eye(128, device=dev, dtype=torch.float64)
+    s = torch.exp(4 * torch.rand((b, 128), generator=g, device=dev,
+                                 dtype=torch.float64) - 2)
+    return (D * s[:, :, None] * s[:, None, :]).float()
+
+
+def test_pivot_formulations_match_plain_on_card(dev):
+    """Each pivot formulation's kernel (every rank-q variant q | 128 and the
+    panel) against its plain version at B=64, on the slab's pivot blocks (a
+    strided view) and on spread-diagonal blocks: TOL, or for "ref" (no
+    Jacobi scaling) the f64 witness where FP32 rounding fills TOL; "value"
+    and "r1" run v3's kernel, bit for bit; each launch counts under its
+    formulation."""
+    b = 64
+    qp, g = _fleet(dev, 23, b=b)
+    rho = torch.full((b, M), 0.4, device=dev)
+    S = fused_factor.build_slab(qp.P, qp.A, qp.q, rho, 1e-6)
+    kp, j = fused_factor.slab_k(M), N // 128 - 1
+    w_out = kp + j * 128
+    inv = spd_kernels.spd_inverse_unrolled
+    for D in (S[:, j * 128:(j + 1) * 128, w_out:w_out + 128],
+              _spread_blocks(dev, b, g)):
+        v3 = inv(D)
+        for v in ("value", "r1"):
+            assert torch.equal(inv(D, variant=v), v3), v
+        for v in ("ref", "panel", *(f"r{q}" for q in (2, 4, 8, 16, 32, 64, 128))):
+            inv.variants.clear()
+            out = inv(D, variant=v)
+            assert dict(inv.variants) == {v: 1}
+            plain = spd_kernels.pivot_sweep_plain(D, v)
+            if not _close(out, plain):
+                assert v == "ref", v
+                _witness((out,), (plain,),
+                         (spd_kernels.pivot_sweep_ref_plain(D.double()),))
+
+
+def test_slab_level_high_on_card(dev):
+    """The bf16x3 level against its plain version (TOL) at B=64; its pivot
+    rows apart from the FP32 level's by more than 4e-6 of their max (the
+    bf16x3 rounding; FP32 rounding is ~1e-6 of it); the pivot columns
+    untouched; one launch counted under "high"."""
+    b = 64
+    qp, _ = _fleet(dev, 24, b=b)
+    rho = torch.full((b, M), 0.4, device=dev)
+    Sp = fused_factor.build_slab_plain(qp.P, qp.A, qp.q, rho, 1e-6)
+    kp, j = fused_factor.slab_k(M), N // 128 - 1
+    w_out, rows = kp + j * 128, slice(j * 128, (j + 1) * 128)
+    Dinv = spd_kernels.spd_inverse_unrolled(Sp[:, rows, w_out:w_out + 128])
+    Sh, Sf, Sq = Sp.clone(), Sp.clone(), Sp.clone()
+    fused_factor.slab_level.variants.clear()
+    fused_factor.slab_level(Sh, Dinv, j, w_out, dot_precision="high")
+    assert dict(fused_factor.slab_level.variants) == {"high": 1}
+    fused_factor.slab_level(Sf, Dinv, j, w_out)
+    fused_factor.slab_level_plain(Sq, Dinv, j, w_out, "high")
+    assert _close(Sh, Sq)
+    assert torch.equal(Sh[..., w_out:], Sp[..., w_out:])
+    gap = float((Sh[:, rows, :w_out] - Sf[:, rows, :w_out]).abs().max())
+    assert gap > 4e-6 * float(Sf[:, rows, :w_out].abs().max()), gap
+
+
+@pytest.mark.parametrize("knob", ["ref", "value", "r2", "r4", "r8", "panel", "high"])
+def test_factor_knob_solves_on_card(dev, knob):
+    """One small fused solve per factor knob with require_fused: every
+    factor level launches the named pivot formulation and level precision
+    and nothing else, every lane converges, and x agrees with the CPU solve
+    (plain versions) within 1e-3."""
+    qp, _ = _fleet(dev, 25, b=8, n=200, m=100)   # padded to 256/128: 2 levels
+    kw = dict(factor_precision="high") if knob == "high" else dict(pivot_variant=knob)
+    st = pt.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
+                     check_interval=11, kkt_refinement_steps=0,
+                     sigma_free_rhs=True, fused_factor=True, fused_chunk=True,
+                     adaptive_rho=False, require_fused=True, **kw)
+    inv, level = spd_kernels.spd_inverse_unrolled, fused_factor.slab_level
+    inv.variants.clear()
+    level.variants.clear()
+    sol = pt.solve(qp, st)
+    assert dict(inv.variants) == {"v3" if knob == "high" else knob: 2}
+    assert dict(level.variants) == {"high" if knob == "high" else "highest": 2}
+    ref = pt.solve(qp.to("cpu"), st)
+    assert (sol.info.status.cpu() >= 2).all() and (ref.info.status >= 2).all()
+    assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3

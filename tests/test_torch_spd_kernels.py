@@ -59,8 +59,9 @@ def test_leading_axes_and_strided_views():
 
 def test_rejects_what_it_does_not_implement():
     D = torch.from_numpy(_spd_blocks(4, 4))
-    with pytest.raises(NotImplementedError):
-        spd_kernels.spd_inverse_unrolled(D, variant="r2")
+    for variant in ("r3", "bogus"):  # q must divide 128; no such formulation
+        with pytest.raises(ValueError):
+            spd_kernels.spd_inverse_unrolled(D, variant=variant)
     with pytest.raises(ValueError):
         spd_kernels.spd_inverse_unrolled(D[:, :64, :64])
     with pytest.raises(ValueError, match="device"):
