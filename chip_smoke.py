@@ -41,7 +41,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    bit against v3, whose arithmetic it is), timed on the slab's blocks
    beside ``torch.linalg.inv``; and the bf16x3 slab level ("high") at j=3
    against its plain version (LIMIT) and apart from its own FP32 level on
-   the pivot rows (HIGH_GAP).
+   the pivot rows (HIGH_GAP). Then rows 6, 11 and 12, the package's other
+   SPD-inverse entry points (``phase_entry_kernels``): the round-1 unscaled
+   sweep on the slab's pivot blocks and spread-diagonal blocks, the
+   paired-64 sweep on their leading 64-blocks (LIMIT, or the f64 witness
+   where FP32 rounding fills it; beside ``torch.linalg.inv``), the Schur
+   inverse of the 128-blocks, and the fused normal-matrix inverse of the
+   phase's n=512, m=256 fleet with per-lane rho (beside the library
+   Cholesky inverse of a torch-built M and the port's M^{-1} route).
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
@@ -99,6 +106,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    each and nothing else (``spd_inverse_unrolled.variants``,
    ``slab_level.variants``).
 
+10. The SPD-inverse entry points at sizes users run: 10a the shootout of
+    benchmarks/pivot_inverse_probe.py on its defaults (B=3072 blocks
+    Dm'Dm/128 + 0.05 I): v3, "ref", "r2", "r4", "r8", "panel",
+    ``spd_inverse_nb``, ``spd_inverse_128_schur``, ``torch.linalg.inv`` and
+    the Cholesky inverse, each the best of 3 after a warm call with its
+    error against f64 on three lanes (rows 6 and 11 must reach the probe's
+    1e-5); 10b ``spd_inverse_sweep`` beside ``spd_inverse_sweep_fused`` on
+    phase 7a's normal matrices (B=2048, n=512; 4 row-6 launches a call);
+    10c ``normal_inverse`` on phase 7a's P and A with one rho a lane (0.1,
+    sigma 1e-6) beside the M^{-1} route's build and sweep of the same M,
+    with peak memory, held by the f64 witness and against f64 on three
+    lanes; 10d phase 7a's defaults solve on 64 lanes with
+    ``allow_tf32 = True`` globally, whose x must equal the TF32-off x bit
+    for bit (the solve scopes its products to FP32).
+
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve,
 one profiled solve each of phases 7a and 7b, one each of 8a and 8e, and one
 of the fastest phase-9 stack (kernel time by name and the device's idle
@@ -107,8 +129,9 @@ after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
 The last lines are the total wall time, the kernels JSON (the seven kernels,
-the eleven variants of rows 4c and 5c, and the six pivot formulations and
-the bf16x3 level of rows 7-10 and 3b), the nvidia-smi line, and
+the eleven variants of rows 4c and 5c, the six pivot formulations and the
+bf16x3 level of rows 7-10 and 3b, and the three kernels of rows 6, 11 and
+12), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -229,6 +252,20 @@ FACTOR_VARIANTS = {
                         "quadraticprogramsolver_tpu/ops/fused_factor.py:151",
                         "9g", "high"),
 }
+#: Rows 6, 11 and 12, the package's other SPD-inverse entry points: each
+#: kernel (a kernels-JSON entry of its own) -> (its source, the TPU kernel it
+#: replaces). Their launches are phase 10's (one counted call each).
+ENTRY_KERNELS = {
+    "pivot_sweep_2d": ("csrc/pivot_sweep_2d.cu",
+                       "quadraticprogramsolver_tpu/ops/spd_kernels.py:84"),
+    "pivot_sweep_v3p": ("csrc/pivot_sweep_v3p.cu",
+                        "quadraticprogramsolver_tpu/ops/spd_kernels.py:407"),
+    "normal_inverse": ("csrc/normal_inverse.cu",
+                       "quadraticprogramsolver_tpu/ops/spd_kernels.py:709"),
+}
+#: Phase 10a: benchmarks/pivot_inverse_probe.py's defaults (B=3072 blocks
+#: Dm'Dm/128 + 0.05 I) and its usability mark against an f64 inverse.
+B_PROBE, PROBE_MARK = 3072, 1e-5
 T0 = time.perf_counter()
 
 
@@ -371,6 +408,21 @@ def default_check(name, kern_fn, plain_fn, args, kw, outs, failures):
                             "of max: no bf16 rounding")
 
 
+def limit_or_witness(label, name, kern_fn, plain_fn, args, failures, k=None):
+    """An inverse kernel against its plain version: by LIMIT, or where FP32
+    rounding alone fills LIMIT (the unscaled sweeps on spread diagonals) by
+    the f64 witness of its plain version. Returns max |kernel - plain|."""
+    k = kern_fn(*args) if k is None else k
+    p = plain_fn(*args)
+    rel = float((k - p).abs().max()) / max(float(p.abs().max()), 1.0)
+    if rel <= LIMIT:
+        return compare(label, k, p, failures)
+    witness(f"phase 2 witness, {label}", name, lambda *a: (kern_fn(*a),),
+            lambda *a: (plain_fn(*a),), args, {}, ("inverse",), failures)
+    log(f"[phase 2] {label}: relative {rel:.3e} held by the f64 witness")
+    return float((k - p).abs().max())
+
+
 def variant(out, failures, name, kern_fn, plain_fn, args, kw, nbytes, flops,
             witness_outs=None, same_as=None, limit=False):
     """One chunk variant of row 4c or 5c against its plain version: by the
@@ -455,20 +507,17 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures):
                     f"pivot_sweep_v3: {same}")
                 if not same:
                     failures.append(f"{name} ({kind} blocks): not v3's bits")
-            p = spd_kernels.pivot_sweep_plain(Dk, variant)
-            rel = float((k - p).abs().max()) / max(float(p.abs().max()), 1.0)
-            if variant == "ref" and rel > LIMIT:
+            if variant == "ref":
                 # No Jacobi scaling: the folded fix loses digits on spread
                 # diagonals on both sides alike.
-                witness(f"phase 2 witness, {kind} blocks", name,
-                        lambda x, **_: (inv(x, variant="ref"),),
-                        lambda x, **_: (spd_kernels.pivot_sweep_ref_plain(x),),
-                        (Dk,), {}, ("inverse",), failures)
-                errs.append(float((k - p).abs().max()))
-                log(f"[phase 2] {name} ({kind} blocks): relative {rel:.3e} "
-                    "held by the f64 witness")
+                errs.append(limit_or_witness(
+                    f"{name} ({kind} blocks)", name,
+                    lambda x: inv(x, variant="ref"),
+                    spd_kernels.pivot_sweep_ref_plain, (Dk,), failures, k))
             else:
-                errs.append(compare(f"{name} ({kind} blocks)", k, p, failures))
+                errs.append(compare(f"{name} ({kind} blocks)", k,
+                                    spd_kernels.pivot_sweep_plain(Dk, variant),
+                                    failures))
         # On the slab's blocks: the kernel, its plain version ("value":
         # v3's) and the library inverse.
         out[name] = (errs[0], cuda_ms(lambda v=variant: inv(D, variant=v)),
@@ -505,6 +554,81 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures):
         None, bound(level_bytes, 0, 3 * 2 * B * 128 * w_out * n))
 
 
+def phase_entry_kernels(torch, D, qp, out, extra, failures):
+    """Rows 6, 11 and 12 at phase 2's shapes, each against its plain version
+    (LIMIT, or the f64 witness where FP32 rounding alone fills it) and timed
+    beside its library call: the round-1 sweep on the slab's pivot blocks
+    ``D`` (and on spread-diagonal blocks) beside ``torch.linalg.inv``; the
+    paired-64 sweep on their leading 64-blocks beside ``torch.linalg.inv`` on
+    those, and the Schur inverse of ``D``; the normal-matrix inverse of
+    ``qp``'s P and A with per-lane rho in [0.1, 10] beside the library
+    Cholesky inverse of a torch-built M and the port's M^{-1} route
+    (``spd_inverse(_build_normal_matrix(...))``). Numbers beyond ``out``'s
+    go to ``extra[kernel]`` for the kernels JSON."""
+    from quadraticprogramsolver_tpu_torch.models import kkt
+    from quadraticprogramsolver_tpu_torch.ops import linalg, spd_kernels as sk
+
+    B = D.shape[0]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    spread = spread_blocks(torch, B, g)
+    nb_plain = lambda x: sk.sweep_inverse_block_plain(x, guard_zero=True)  # noqa: E731
+    errs = [limit_or_witness(f"pivot_sweep_2d ({kind} blocks)", "pivot_sweep_2d",
+                             sk.spd_inverse_nb, nb_plain, (Dk,), failures)
+            for kind, Dk in (("slab", D), ("spread", spread))]
+    out["pivot_sweep_2d"] = (errs[0], cuda_ms(lambda: sk.spd_inverse_nb(D)),
+                             cuda_ms(lambda: nb_plain(D)),
+                             cuda_ms(lambda: torch.linalg.inv(D)), pivot_bound(B))
+
+    D64 = D[:, :64, :64]
+    errs = [limit_or_witness(f"pivot_sweep_v3p ({kind} blocks)", "pivot_sweep_v3p",
+                             sk.spd_inverse_64p, sk.pivot_sweep_v3p_plain,
+                             (Dk,), failures)
+            for kind, Dk in (("slab", D64), ("spread", spread[:, :64, :64]))]
+    out["pivot_sweep_v3p"] = (
+        errs[0], cuda_ms(lambda: sk.spd_inverse_64p(D64)),
+        cuda_ms(lambda: sk.pivot_sweep_v3p_plain(D64)),
+        cuda_ms(lambda: torch.linalg.inv(D64)),
+        bound(4 * 2 * B * 64 * 64, B * 64 ** 3))
+    ref = torch.linalg.inv(D.double())
+    schur_err = float((sk.spd_inverse_128_schur(D).double() - ref).abs().max()
+                      / ref.abs().max())
+    extra["pivot_sweep_v3p"] = {
+        "schur_ms": cuda_ms(lambda: sk.spd_inverse_128_schur(D)),
+        "schur_rel_err_f64": schur_err,
+        "schur_library_ms": out["pivot_sweep_2d"][3]}
+    log(f"[phase 2] spd_inverse_128_schur (B={B}): "
+        f"{extra['pivot_sweep_v3p']['schur_ms']:.4f} ms (median of 5), "
+        f"{schur_err:.3e} from f64 relative to its max, beside "
+        f"torch.linalg.inv {out['pivot_sweep_2d'][3]:.4f} ms")
+    del spread, ref
+
+    n, m, sigma = qp.n, qp.m, 1e-6
+    rho = 0.1 * 100.0 ** torch.rand(B, generator=g, device=DEVICE)
+    args = (qp.P, qp.A, rho)
+    ni_plain = lambda *a: sk.normal_inverse_plain(*a, sigma)  # noqa: E731
+    ni = lambda *a: sk.normal_inverse(*a, sigma=sigma)  # noqa: E731
+    err = limit_or_witness("normal_inverse", "normal_inverse", ni, ni_plain,
+                           args, failures)
+    eye = torch.eye(n, device=DEVICE)
+    library = lambda: torch.cholesky_inverse(torch.linalg.cholesky(  # noqa: E731
+        qp.P + sigma * eye + rho[:, None, None] * (qp.A.transpose(1, 2) @ qp.A)))
+    rho_row = rho[:, None].expand(B, m).contiguous()
+    route = lambda: linalg.spd_inverse(  # noqa: E731
+        kkt._build_normal_matrix(qp, rho_row, sigma))
+    out["normal_inverse"] = (
+        err, cuda_ms(lambda: ni(*args)), cuda_ms(lambda: ni_plain(*args)),
+        cuda_ms(library), normal_inverse_bound(B, n, m))
+    extra["normal_inverse"] = {"route_ms": cuda_ms(route)}
+    log(f"[phase 2] normal_inverse: the port's M^-1 route (build + sweep) "
+        f"{extra['normal_inverse']['route_ms']:.4f} ms (median of 5)")
+
+
+def normal_inverse_bound(B, n, m):
+    """P and A read once, rho, M^{-1} written once; per lane the gram's
+    distinct entries (n(n+1)m FLOPs) and one SPD inverse (n^3)."""
+    return bound(4 * B * (2 * n * n + m * n + 1), B * (n * (n + 1) * m + n ** 3))
+
+
 def slab_build_bound(B, n, ms):
     m = sum(ms)
     kp = -(-(m + 1) // 64) * 64
@@ -520,7 +644,7 @@ def minv_flops(n, m):
     return 2 * n * n * (1 + 2 * REFINE) + 4 * m * n * (1 + REFINE)
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, extra):
     from quadraticprogramsolver_tpu_torch.ops import (
         fused_admm, fused_factor, fused_proxqp, linalg, spd_kernels)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
@@ -579,6 +703,7 @@ def phase_kernels(torch):
                 setup=clone),
         None, bound(level_bytes, level_flops))
     phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures)
+    phase_entry_kernels(torch, D, qp, out, extra, failures)
     del Sp, D, Dk, Dp, scratch
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho_row, sigma=sigma)
@@ -848,7 +973,10 @@ def counters():
             "admm_chunk": fused_admm.fused_admm_chunk,
             "prox_chunk": fused_proxqp.fused_proxqp_chunk,
             "admm_chunk_minv": fused_admm.fused_admm_chunk_minv,
-            "prox_chunk_minv": fused_proxqp.fused_proxqp_chunk_minv}
+            "prox_chunk_minv": fused_proxqp.fused_proxqp_chunk_minv,
+            "pivot_sweep_2d": spd_kernels.spd_inverse_nb,
+            "pivot_sweep_v3p": spd_kernels.spd_inverse_64p,
+            "normal_inverse": spd_kernels.normal_inverse}
 
 
 def audit(qp, x, status, iters, label, required=True, prefix="phase 4"):
@@ -1510,6 +1638,202 @@ def phase_factor_knobs(torch, pkg, cnt, base, profile):
     return runs
 
 
+def best_ms(torch, fn, reps=3):
+    """A warm call, then the best of ``reps`` host-clock ms, each call
+    ending in a sync."""
+    fn()
+    torch.cuda.synchronize()
+    return best_seconds(torch, fn, reps) * 1e3
+
+
+def rel_f64(out, ref, idx):
+    """max |out - ref| over lanes ``idx`` relative to max |ref| (ref: f64
+    inverses of those lanes)."""
+    return float((out[idx].double() - ref).abs().max() / ref.abs().max())
+
+
+#: The device kernels of csrc/normal_inverse.cu's fixed sequence.
+NORMAL_INVERSE_KERNELS = ("normal_gram_kernel", "normal_level_products_kernel",
+                          "sweep_block_kernel", "normal_level_update_kernel")
+
+
+def device_kernels(torch, fn):
+    """The device kernels that one call of fn ran, counted by name, as
+    torch.profiler traced them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def counted_call(torch, cnt, fn, name, label):
+    """One call with every launch counter at 0 before it; returns (its
+    result, the launches of ``name``, which must be > 0)."""
+    reset(cnt)
+    res = fn()
+    torch.cuda.synchronize()
+    return res, read(cnt, (name,), label)[name]
+
+
+def phase_entry_points(torch, pkg, cnt, extra):
+    """Phase 10: the SPD-inverse entry points at sizes users run. 10a the
+    pivot_inverse_probe shootout, 10b the flat sweep, 10c the fused
+    normal-matrix inverse, 10d phase 7a's solve with TF32 on. Returns each
+    new kernel's launches in its counted call."""
+    from quadraticprogramsolver_tpu_torch.models import kkt
+    from quadraticprogramsolver_tpu_torch.ops import linalg, spd_kernels as sk
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+
+    launches, failures = {}, []
+    # 10a: benchmarks/pivot_inverse_probe.py's shootout on its defaults.
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    Dm = torch.randn((B_PROBE, 128, 128), generator=g, device=DEVICE)
+    D = Dm.transpose(1, 2) @ Dm / 128 + 0.05 * torch.eye(128, device=DEVICE)
+    del Dm
+    idx = [0, B_PROBE // 2, B_PROBE - 1]
+    ref = torch.linalg.inv(D[idx].double())
+    inv = sk.spd_inverse_unrolled
+    cands = {**{v: (lambda v=v: inv(D, variant=v))
+                for v in ("v3", "ref", "r2", "r4", "r8", "panel")},
+             "spd_inverse_nb (row 6)": lambda: sk.spd_inverse_nb(D),
+             "spd_inverse_128_schur (row 11)": lambda: sk.spd_inverse_128_schur(D),
+             "torch.linalg.inv": lambda: torch.linalg.inv(D),
+             "cholesky inverse": lambda: torch.cholesky_inverse(torch.linalg.cholesky(D))}
+    shootout = {}
+    for name, fn in cands.items():
+        ms = best_ms(torch, fn)
+        err = rel_f64(fn(), ref, idx)
+        shootout[name] = {"ms": ms, "rel_err_f64": err}
+        log(f"[phase 10a] B={B_PROBE} {name:32s}: {ms:8.3f} ms (best of 3), "
+            f"rel err {err:.2e} (lanes {idx})")
+    for name in ("spd_inverse_nb (row 6)", "spd_inverse_128_schur (row 11)"):
+        if not shootout[name]["rel_err_f64"] <= PROBE_MARK:
+            failures.append(f"phase 10a {name}: rel err "
+                            f"{shootout[name]['rel_err_f64']:.2e} > {PROBE_MARK:.0e}")
+    _, launches["pivot_sweep_v3p"] = counted_call(
+        torch, cnt, lambda: sk.spd_inverse_128_schur(D), "pivot_sweep_v3p",
+        "phase 10a spd_inverse_128_schur")
+    require(launches["pivot_sweep_v3p"] == 2, "phase 10a: the Schur inverse "
+            f"launched {launches['pivot_sweep_v3p']} paired sweeps, not 2")
+    extra["pivot_sweep_v3p"]["shootout"] = shootout
+    del D, ref
+
+    # 10b: the flat sweep on phase 7a's normal matrices (bench.py's defaults).
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qp = device_random_qp_fleet(B_DEFAULTS, N, M, generator=g)
+    st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4)
+    rho_row = torch.full((B_DEFAULTS, M), st.rho, device=DEVICE)
+    Mn = kkt._build_normal_matrix(qp, rho_row, st.sigma_for(qp.dtype))
+    idx = [0, B_DEFAULTS // 2, B_DEFAULTS - 1]
+    ref = torch.linalg.inv(Mn[idx].double())
+    sweeps = {}
+    for name, fn in (("spd_inverse_sweep", lambda: sk.spd_inverse_sweep(Mn)),
+                     ("spd_inverse_sweep_fused",
+                      lambda: sk.spd_inverse_sweep_fused(Mn))):
+        ms = best_ms(torch, fn)
+        err = rel_f64(fn(), ref, idx)
+        sweeps[name] = {"ms": ms, "rel_err_f64": err}
+        log(f"[phase 10b] B={B_DEFAULTS}, n={N}: {name}: {ms:.2f} ms (best "
+            f"of 3), rel err {err:.2e} (lanes {idx})")
+    _, launches["pivot_sweep_2d"] = counted_call(
+        torch, cnt, lambda: sk.spd_inverse_sweep(Mn), "pivot_sweep_2d",
+        "phase 10b spd_inverse_sweep")
+    require(launches["pivot_sweep_2d"] == LEVELS, "phase 10b: "
+            f"{launches['pivot_sweep_2d']} row-6 launches, not {LEVELS}")
+    extra["pivot_sweep_2d"] = {"sweep": sweeps}
+    del ref
+
+    # 10c: the fused normal-matrix inverse on the same fleet, one rho a lane.
+    rho_v, sigma = 0.1, 1e-6
+    rho = torch.full((B_DEFAULTS,), rho_v, device=DEVICE)
+    row = torch.full((B_DEFAULTS, M), rho_v, device=DEVICE)  # uniform rows
+    del Mn
+    peaks = {}
+    for name, fn in (
+            ("normal_inverse", lambda: sk.normal_inverse(qp.P, qp.A, rho, sigma=sigma)),
+            ("M^-1 route (build + sweep)", lambda: linalg.spd_inverse(
+                kkt._build_normal_matrix(qp, row, sigma)))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = best_ms(torch, fn)
+        peaks[name] = {"ms": ms,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[phase 10c] B={B_DEFAULTS}, n={N}, m={M}: {name}: {ms:.2f} ms "
+            f"(best of 3), peak device memory {peaks[name]['peak_gb']:.2f} GB "
+            "(the fleet included)")
+    out, launches["normal_inverse"] = counted_call(
+        torch, cnt, lambda: sk.normal_inverse(qp.P, qp.A, rho, sigma=sigma),
+        "normal_inverse", "phase 10c normal_inverse")
+    require(launches["normal_inverse"] == 1, "phase 10c: "
+            f"{launches['normal_inverse']} counted launches for one call")
+    traced = device_kernels(
+        torch, lambda: sk.normal_inverse(qp.P, qp.A, rho, sigma=sigma))
+    per_kernel = {k: sum(v for name, v in traced.items() if k in name)
+                  for k in NORMAL_INVERSE_KERNELS}
+    device_launches = sum(per_kernel.values())
+    log(f"[phase 10c] normal_inverse: one call ran {device_launches} device "
+        f"kernels of its sequence ({per_kernel}; traced, all kernels: "
+        f"{sum(traced.values())})")
+    require(device_launches == 1 + 3 * (N // 128) == sum(traced.values()),
+            f"phase 10c: one normal_inverse call traced {traced}, not the "
+            f"1 + 3 n/128 = {1 + 3 * (N // 128)} kernels of its sequence")
+    Mf = (qp.P[idx].double() + sigma * torch.eye(N, device=DEVICE, dtype=torch.float64)
+          + rho_v * qp.A[idx].double().transpose(1, 2) @ qp.A[idx].double())
+    ref = torch.linalg.inv(Mf)
+    err = rel_f64(out, ref, idx)
+    resid = float((out[idx].double() @ Mf - torch.eye(
+        N, device=DEVICE, dtype=torch.float64)).abs().max())
+    log(f"[phase 10c] normal_inverse against f64 (lanes {idx}): rel err "
+        f"{err:.2e}, residual |M^-1 M - I| {resid:.2e}")
+    require(torch.isfinite(out).all() and err <= 1e-4,
+            f"phase 10c: normal_inverse {err:.2e} from f64")
+    del out, Mf, ref
+    worst = witness("phase 10c witness", "normal_inverse",
+                    lambda *a: (sk.normal_inverse(*a, sigma=sigma),),
+                    lambda *a: (sk.normal_inverse_plain(*a, sigma),),
+                    (qp.P, qp.A, rho), {}, ("inverse",), failures)
+    extra["normal_inverse"].update(
+        {"fleet": peaks, "rel_err_f64": err, "residual": resid,
+         "witness_rel_err": worst,
+         "device_launches_per_call": device_launches})
+
+    # 10d: phase 7a's solve at small B with TF32 on globally.
+    lanes = pkg.QP(*(t[:64].contiguous() for t in qp.tensors()))
+    del qp
+    matmul = torch.backends.cuda.matmul
+    sols, bare = {}, {}
+    try:
+        for tf32 in (False, True):
+            matmul.allow_tf32 = tf32
+            sols[tf32] = pkg.solve(lanes, st)
+            bare[tf32] = torch.bmm(lanes.P[:4], lanes.P[:4])
+            torch.cuda.synchronize()
+    finally:
+        matmul.allow_tf32 = False
+    off, on = sols[False], sols[True]
+    bare_dx = float((bare[True] - bare[False]).abs().max() / bare[False].abs().max())
+    same = torch.equal(on.x, off.x) and torch.equal(on.info.iterations,
+                                                    off.info.iterations)
+    log(f"[phase 10d] B={lanes.P.shape[0]} defaults solve with allow_tf32 = "
+        f"True: x bit for "
+        f"bit the TF32-off x: {same} (a bare torch.bmm outside the solve "
+        f"moves by {bare_dx:.2e} of its max with TF32 on)")
+    if not same:
+        failures.append("phase 10d: TF32 on changed the solve")
+    require(not failures, "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1542,7 +1866,8 @@ def main() -> int:
             log(f"[phase 1]   {line.strip()}")
 
     # Phase 2: every kernel against its plain version.
-    kstats = phase_kernels(torch)
+    extra = {}  # further numbers of the ENTRY_KERNELS, by kernel
+    kstats = phase_kernels(torch, extra)
     if "--time-chunks" in sys.argv[1:]:
         time_chunks(torch)
     base = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
@@ -1600,6 +1925,10 @@ def main() -> int:
     knobs = phase_factor_knobs(torch, pkg, cnt, base, "--profile" in sys.argv[1:])
     paths.update({f"phase_{k}": v["kernels"] for k, v in knobs.items()})
 
+    # Phase 10: the SPD-inverse entry points (rows 6, 11, 12) and the TF32
+    # scope of a solve.
+    entry_launches = phase_entry_points(torch, pkg, cnt, extra)
+
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
         by_path = {k: v.get(name) for k, v in paths.items()}
@@ -1646,6 +1975,13 @@ def main() -> int:
     kernels = [entry(name, src, rep) for name, (src, rep) in KERNELS.items()]
     kernels += [variant_entry(name, *v) for name, v in VARIANTS.items()]
     kernels += [factor_entry(name, *v) for name, v in FACTOR_VARIANTS.items()]
+    for name, (src, rep) in ENTRY_KERNELS.items():
+        err, ms, pms, lms, (bms, by) = kstats[name]
+        kernels.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+                        "replaces": rep, "stack": "phase 10",
+                        "launches": entry_launches[name], "max_abs_err": err,
+                        "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": lms, **extra[name]})
     log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

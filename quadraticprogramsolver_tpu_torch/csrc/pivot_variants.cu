@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of quadraticprogramsolver_tpu/ops/spd_kernels.py
 // reached through pallas_spd_inverse_unrolled:
 //
-//   "ref"    _pivot_sweep_unrolled_kernel  -> pivot_sweep_ref_kernel
+//   "ref"    _pivot_sweep_unrolled_kernel  -> sweep_block_kernel<false, true>
+//                                            (sweep_block.cuh)
 //   "r<q>"   _pivot_sweep_rq_kernel        -> pivot_sweep_group_kernel<false>
 //   "panel"  _pivot_sweep_panel_kernel     -> pivot_sweep_group_kernel<true>
 //
@@ -19,7 +20,8 @@
 //
 // "ref": no Jacobi scaling. Step j, with the column C and row r read before
 // it: W -= (C dinv)(r - e_j), row j = r dinv, (j, j) = -dinv; out = -W. One
-// barrier per step, as v3.
+// barrier per step, as v3. Its kernel is the unscaled sweep that rows 6 and
+// 12 share, with the e_j fix folded into the row (sweep_block.cuh, FOLD).
 //
 // "r<q>" and "panel" (q = 8): v3's scaling and folded fixes, the 128 steps
 // taken q at a time. Step t of a group needs the group's pivot row and column
@@ -42,7 +44,7 @@
 // with fewer barriers per sweep and q^2/2 more work per row and column per
 // group; the one-warp core is sequential in q.
 
-#include "common.cuh"
+#include "sweep_block.cuh"
 
 using qps::i64;
 
@@ -50,73 +52,6 @@ namespace {
 constexpr int NB = 128;
 constexpr int THREADS = 512;
 }  // namespace
-
-__global__ void __launch_bounds__(THREADS)
-pivot_sweep_ref_kernel(const float* __restrict__ D, i64 d_batch, i64 d_row,
-                       float* __restrict__ out) {
-  __shared__ float cbuf[2][NB];
-  __shared__ float rbuf[2][NB];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x, tx = t & 31, ty = t >> 5;
-  const float* Db = D + (i64)b * d_batch;
-
-  float w[8][4];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) w[r][c] = Db[(i64)(ty * 8 + r) * d_row + tx + 32 * c];
-
-  for (int j = 0; j < NB; ++j) {
-    const int buf = j & 1;  // double-buffered by step parity, as in v3
-    if (ty == (j >> 3)) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        if (r == (j & 7)) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) rbuf[buf][tx + 32 * c] = w[r][c];
-        }
-    }
-    if (tx == (j & 31)) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (c == (j >> 5)) {
-#pragma unroll
-          for (int r = 0; r < 8; ++r) cbuf[buf][ty * 8 + r] = w[r][c];
-        }
-    }
-    __syncthreads();
-    const float dinv = 1.0f / rbuf[buf][j];
-    float a[8], rr[4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) a[r] = __fmul_rn(cbuf[buf][ty * 8 + r], dinv);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = tx + 32 * c;
-      rr[c] = __fsub_rn(rbuf[buf][k], k == j ? 1.0f : 0.0f);
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w[r][c] = __fsub_rn(w[r][c], __fmul_rn(a[r], rr[c]));
-    if (ty == (j >> 3)) {  // row j = r dinv, (j, j) = -dinv
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        if (r == (j & 7)) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int k = tx + 32 * c;
-            w[r][c] = k == j ? -dinv : __fmul_rn(rbuf[buf][k], dinv);
-          }
-        }
-    }
-  }
-
-  float* ob = out + (i64)b * NB * NB;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) ob[(ty * 8 + r) * NB + tx + 32 * c] = -w[r][c];
-}
 
 // Floats of one group buffer: R[q][128] (the pivot rows, then w_t), Cc[q][128]
 // (the pivot columns, then a_t), dinv[q] padded to 16 bytes.
@@ -269,7 +204,8 @@ pivot_sweep_group_kernel(const float* __restrict__ D, i64 d_batch, i64 d_row,
 extern "C" int qps_pivot_sweep_ref(const float* D, i64 d_batch, i64 d_row,
                                    float* out, int B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pivot_sweep_ref_kernel<<<B, THREADS, 0, s>>>(D, d_batch, d_row, out);
+  qps::sweep_block_kernel<false, true><<<B, qps::kSweepThreads, 0, s>>>(
+      D, d_batch, d_row, out);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@ import torch
 from ..core.problem import QP, pad_qp
 from ..core.settings import RHO_MAX, RHO_MIN, Settings, chunk_precision
 from ..core.state import SolveInfo, Solution, SolverState, Status
-from ..ops.linalg import inf_norm, kernel_dtype_ok
+from ..ops.linalg import fp32_products, inf_norm, kernel_dtype_ok
 from . import kkt as kkt_mod
 from .plan import check_require_fused, plan as plan_fn
 
@@ -294,6 +294,7 @@ def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0) -> Solution:
     return Solution(x=x, z=state.z, y=y, info=info)
 
 
+@fp32_products()
 def solve(qp: QP, settings: Settings = Settings(), x0=None, z0=None, y0=None,
           rho0=None) -> Solution:
     """Solve a (batched) box-constrained QP on the device its tensors are on.
@@ -303,7 +304,8 @@ def solve(qp: QP, settings: Settings = Settings(), x0=None, z0=None, y0=None,
     128-multiples is padded first (the inert padding of
     :func:`~..core.problem.pad_qp`), solved, and sliced back. With
     ``settings.require_fused`` any requested kernel that would not run is
-    an error (models/plan.py).
+    an error (models/plan.py). Torch's products run in full FP32 inside
+    (:func:`~..ops.linalg.fp32_products`).
     """
     qp = QP(*(t.contiguous() for t in qp.tensors()))  # what the kernels take
     p = plan_fn(qp, settings)  # also rejects backends other than CHOLESKY

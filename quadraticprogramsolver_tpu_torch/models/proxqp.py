@@ -40,8 +40,8 @@ from ..core.settings import ProxQPSettings, chunk_precision
 from ..core.state import Status
 from ..ops.fused_proxqp import (fused_proxqp_chunk, fused_proxqp_chunk_minv,
                                 fused_proxqp_chunk_plain)
-from ..ops.linalg import (add_scaled_identity, inf_norm, kernel_dtype_ok,
-                          matvec, spd_inverse, spd_solve)
+from ..ops.linalg import (add_scaled_identity, fp32_products, inf_norm,
+                          kernel_dtype_ok, matvec, spd_inverse, spd_solve)
 from .plan import check_require_fused, plan_proxqp
 
 
@@ -186,6 +186,7 @@ class PreparedProxFactor:
         return self.cache
 
 
+@fp32_products()
 def prepare(prob, settings: ProxQPSettings = ProxQPSettings(),
             rho0=None) -> PreparedProxFactor:
     """Factor M = P + rho(A'A + C'C) (+ sigma*I) once for repeated solves.
@@ -208,6 +209,7 @@ def prepare(prob, settings: ProxQPSettings = ProxQPSettings(),
                               rho=rho)
 
 
+@fp32_products()
 def solve(prob, settings: ProxQPSettings = ProxQPSettings(),
           init=None, rho0=None, prepared=None) -> ProxQPSolution:
     """Solve a (batched) dense split-form QP on the device its tensors are on.
@@ -218,7 +220,8 @@ def solve(prob, settings: ProxQPSettings = ProxQPSettings(),
     that the fused chunk wants in 128-multiples is padded first
     (:func:`~..core.problem.pad_proxqp`), solved, and sliced back. With
     ``settings.require_fused`` any requested kernel that would not run is
-    an error (models/plan.py).
+    an error (models/plan.py). Torch's products run in full FP32 inside
+    (:func:`~..ops.linalg.fp32_products`), here and in :func:`prepare`.
     """
     _require_dense(prob)
     prob = ProxQPProblem(*(t.contiguous() for t in prob.tensors()))
@@ -459,6 +462,7 @@ def _certificates(prob, settings, status, running, x, y, z, x_in, y_in, z_in,
                               int(Status.DUAL_INFEASIBLE))
 
 
+@fp32_products()
 def solve_segmented(prob, settings: ProxQPSettings = ProxQPSettings(),
                     segment_iterations: int = 250,
                     init=None) -> ProxQPSolution:

@@ -2,11 +2,76 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
 from ..core.settings import DOT_PRECISIONS
+
+
+#: The open FP32 scopes of the process, and the settings the outermost one
+#: found (guarded by the lock: only the outermost exit restores them).
+_scope_lock = threading.Lock()
+_scope = {"depth": 0, "saved": None}
+
+
+def _read_product_settings():
+    """The caller's float32 product settings: the legacy precision and, on a
+    torch with per-backend precisions, the cuda and mkldnn matmul ones."""
+    try:
+        precision = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        # The caller mixed the legacy and the per-backend settings, which
+        # torch refuses to read as one: the per-backend ones come back below,
+        # the legacy one is TF32's flag where that still reads, else its
+        # default (only the per-backend API was used).
+        try:
+            precision = "high" if torch.backends.cuda.matmul.allow_tf32 else "highest"
+        except RuntimeError:
+            precision = "highest"
+    backends = [m for m in (getattr(torch.backends.cuda, "matmul", None),
+                            getattr(torch.backends.mkldnn, "matmul", None))
+                if hasattr(m, "fp32_precision")]
+    return precision, [(m, m.fp32_precision) for m in backends]
+
+
+@contextlib.contextmanager
+def fp32_products():
+    """Full-FP32 torch products inside the block, whatever the caller set:
+    the float32 matmul precision "highest", which also turns cuBLAS's TF32
+    off (``torch.backends.cuda.matmul.allow_tf32`` reads the same setting).
+    On exit, also when the block raises, the caller's settings come back
+    exactly: the precision and, on a torch with per-backend precisions, the
+    cuda and mkldnn matmul ones. The JAX package's counterpart is
+    ``jax.default_matmul_precision`` around each solve (models/admm.py:669,
+    843; "highest" in models/proxqp.py:258, 295). The hand-written kernels
+    compute in FP32 either way; this scopes the products torch computes
+    around them.
+
+    Torch's settings are global to the process, where JAX's scope is local
+    to a thread. Scopes nest and may overlap across threads: the outermost
+    entry saves the caller's settings and the last exit restores them, so
+    concurrent solves all run in FP32. While any scope is open, code of
+    other threads outside it also sees "highest", and a setting another
+    thread changes meanwhile is overwritten at the last exit.
+    """
+    with _scope_lock:
+        if _scope["depth"] == 0:
+            _scope["saved"] = _read_product_settings()
+            torch.set_float32_matmul_precision("highest")
+        _scope["depth"] += 1
+    try:
+        yield
+    finally:
+        with _scope_lock:
+            _scope["depth"] -= 1
+            if _scope["depth"] == 0:
+                precision, backends = _scope["saved"]
+                torch.set_float32_matmul_precision(precision)
+                for m, value in backends:
+                    m.fp32_precision = value
 
 
 def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

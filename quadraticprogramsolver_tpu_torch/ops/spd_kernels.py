@@ -1,13 +1,23 @@
-"""Batched 128x128 SPD inverse: the pivot sweep formulations
-(csrc/pivot_sweep.cu), and the blocked Gauss-Jordan inverse and solve built
-around the v3 sweep.
+"""Batched SPD inverses: the pivot sweep formulations (csrc/pivot_sweep.cu,
+csrc/pivot_variants.cu), the blocked Gauss-Jordan inverse and solve built
+around the v3 sweep, and the package's other SPD-inverse entry points: the
+round-1 unscaled sweep and the flat sweep around it (csrc/pivot_sweep_2d.cu),
+the paired-64 sweep and the 2x2 block Schur inverse built on it
+(csrc/pivot_sweep_v3p.cu), and the fused normal-matrix inverse
+(csrc/normal_inverse.cu).
 
 Counterpart of ``quadraticprogramsolver_tpu/ops/spd_kernels.py``
 (``pallas_spd_inverse_unrolled`` with each ``variant``,
-``spd_inverse_sweep_fused``, ``gj_solve_sweep``). Every formulation has a
-plain PyTorch version that copies the JAX kernel's arithmetic, and a CUDA
-kernel: "v3" and "value" (the same arithmetic, so one kernel), "ref", "r<q>"
-and "panel".
+``spd_inverse_sweep_fused``, ``gj_solve_sweep``, ``pallas_spd_inverse_nb``,
+``spd_inverse_sweep``, ``pallas_spd_inverse_64p``, ``spd_inverse_128_schur``,
+``pallas_normal_inverse``). Every formulation has a plain PyTorch version
+that copies the JAX kernel's arithmetic, and a CUDA kernel: "v3" and "value"
+(the same arithmetic, so one kernel), "ref", "r<q>", "panel", the round-1
+sweep, the paired-64 sweep and the normal-matrix inverse. Every public
+entry point here that computes torch products around the kernels
+(``spd_inverse_sweep_fused``, ``gj_solve_sweep``, ``spd_inverse_sweep``,
+``spd_inverse_128_schur``, ``normal_inverse_plain``) runs them in full FP32
+(:func:`~.linalg.fp32_products`), as do the solves that call them.
 """
 
 from __future__ import annotations
@@ -19,7 +29,7 @@ import torch
 
 from .. import _build
 from ..core.settings import pivot_rank
-from .linalg import cholesky_inverse
+from .linalg import cholesky_inverse, fp32_products
 
 NB = 128
 #: The panel formulation's panel width (the JAX kernel's pw).
@@ -137,28 +147,37 @@ def pivot_sweep_plain(D: torch.Tensor, variant: str = "v3") -> torch.Tensor:
     return pivot_sweep_v3_plain(D)  # "v3", "value" and "r1"
 
 
+def _blocks_cuda(wrapper, entry: str, D: torch.Tensor, *extra,
+                 variant: str | None = None) -> torch.Tensor:
+    """Launch a per-block sweep kernel on (B, nb, nb) float32 blocks read
+    through strides (unit column stride: a pivot block of a larger matrix
+    needs no copy); the output is a contiguous (B, nb, nb) tensor."""
+    B, nb = D.shape[0], D.shape[-1]
+    if D.dtype != torch.float32 or D.stride(-1) != 1:
+        raise ValueError(f"{wrapper.__name__}: the kernel takes float32 with "
+                         f"unit column stride (got {D.dtype}, strides "
+                         f"{D.stride()})")
+    out = torch.empty((B, nb, nb), dtype=torch.float32, device=D.device)
+    _build.require_cuda_f32(wrapper.__name__, out)
+    _build.launch(wrapper, entry, D.data_ptr(), D.stride(0), D.stride(1),
+                  out.data_ptr(), B, *extra, _build.stream_ptr(D),
+                  variant=variant)
+    return out
+
+
 def _pivot_sweep_cuda(D: torch.Tensor, variant: str) -> torch.Tensor:
-    B = D.shape[0]
     if D.shape[1:] != (NB, NB):
         raise ValueError(f"pivot kernel takes (B, {NB}, {NB}); got {tuple(D.shape)}")
-    if D.dtype != torch.float32 or D.stride(-1) != 1:
-        raise ValueError("pivot kernel takes float32 with unit column stride "
-                         f"(got {D.dtype}, strides {D.stride()})")
-    out = torch.empty((B, NB, NB), dtype=torch.float32, device=D.device)
-    _build.require_cuda_f32("spd_inverse_unrolled", out)
     q = pivot_rank(variant)
-    view = (D.data_ptr(), D.stride(0), D.stride(1), out.data_ptr(), B)
-    stream = _build.stream_ptr(D)
     if variant == "ref":
-        entry, args = "qps_pivot_sweep_ref", (*view, stream)
+        entry, extra = "qps_pivot_sweep_ref", ()
     elif variant == "panel":
-        entry, args = "qps_pivot_sweep_group", (*view, PANEL_WIDTH, 1, stream)
+        entry, extra = "qps_pivot_sweep_group", (PANEL_WIDTH, 1)
     elif q is not None and q > 1:
-        entry, args = "qps_pivot_sweep_group", (*view, q, 0, stream)
+        entry, extra = "qps_pivot_sweep_group", (q, 0)
     else:  # "v3", "value" and "r1": v3's arithmetic
-        entry, args = "qps_pivot_sweep_v3", (*view, stream)
-    _build.launch(spd_inverse_unrolled, entry, *args, variant=variant)
-    return out
+        entry, extra = "qps_pivot_sweep_v3", ()
+    return _blocks_cuda(spd_inverse_unrolled, entry, D, *extra, variant=variant)
 
 
 def spd_inverse_unrolled(D: torch.Tensor, *, variant: str = "v3") -> torch.Tensor:
@@ -199,6 +218,7 @@ def _check_sweep_shape(M: torch.Tensor) -> int:
     return n
 
 
+@fp32_products()
 def spd_inverse_sweep_fused(M: torch.Tensor) -> torch.Tensor:
     """Batched SPD inverse by the flat blocked Gauss-Jordan sweep.
 
@@ -225,6 +245,7 @@ def spd_inverse_sweep_fused(M: torch.Tensor) -> torch.Tensor:
     return W.neg_().reshape(M.shape)
 
 
+@fp32_products()
 def gj_solve_sweep(M: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """Batched M^{-1} R by blocked Gauss-Jordan, without forming M^{-1}.
 
@@ -250,3 +271,223 @@ def gj_solve_sweep(M: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
             T.baddbmm_(C, DinvT, alpha=-1.0)
             T[:, s, :] = DinvT
     return Y.reshape(R.shape)
+
+
+# ----------------------------------------- the package's other entry points
+
+
+def _check_lanes(lanes) -> None:
+    """``lanes`` is the TPU kernels' blocks per grid step, a Mosaic layout
+    knob: checked (a positive int), and no result depends on it here."""
+    if isinstance(lanes, bool) or not isinstance(lanes, int) or lanes < 1:
+        raise ValueError(f"lanes must be a positive int; got {lanes!r}")
+
+
+def sweep_inverse_block_plain(D: torch.Tensor, guard_zero: bool = False) -> torch.Tensor:
+    """Plain unscaled scalar sweep on (B, nb, nb): ``_sweep_inverse_block``
+    (the JAX package's spd_kernels.py:54-81, the normal-matrix kernel's pivot
+    inverse) or, with ``guard_zero``, the round-1 kernel
+    ``_pivot_sweep_kernel_2d`` (:84-131), which reads a zero pivot as 1.
+    Per step j, with the column c and row r read before it: dinv = 1/d,
+    W -= (c dinv) r (the product rounded, then subtracted), then column j =
+    c dinv, row j = r dinv and (j, j) = -dinv, in that order; the inverse is
+    -W. Unlike "ref" (:func:`pivot_sweep_ref_plain`), column j is written
+    out, not folded into the update through r - e_j."""
+    nb = D.shape[-1]
+    W = D.clone()
+    for j in range(nb):
+        c = W[..., :, j:j + 1].clone()
+        r = W[..., j:j + 1, :].clone()
+        d = r[..., :, j:j + 1]
+        if guard_zero:
+            d = torch.where(d == 0, torch.ones_like(d), d)
+        dinv = 1.0 / d
+        a = c * dinv
+        W -= a * r
+        W[..., :, j:j + 1] = a
+        W[..., j:j + 1, :] = r * dinv
+        W[..., j, j] = -dinv[..., 0, 0]
+    return -W
+
+
+def spd_inverse_nb(D: torch.Tensor, *, lanes: int = 8) -> torch.Tensor:
+    """Batched (B, 128, 128) SPD inverse by the round-1 unscaled sweep with
+    its zero-pivot guard (the JAX package's ``pallas_spd_inverse_nb``,
+    spd_kernels.py:134, kernel ``_pivot_sweep_kernel_2d`` :84).
+
+    On a CUDA tensor (float32, unit column stride; a strided view is read in
+    place) this launches csrc/pivot_sweep_2d.cu and counts it in
+    ``spd_inverse_nb.launches``; on a CPU tensor it runs
+    :func:`sweep_inverse_block_plain` with ``guard_zero``. Any B >= 1: like
+    the JAX wrapper it has no Cholesky rule for small batches. ``lanes`` is
+    checked and changes no bit (:func:`_check_lanes`).
+    """
+    if D.ndim != 3 or D.shape[1:] != (NB, NB):
+        raise ValueError(f"blocks must be ({NB}, {NB}); got {tuple(D.shape)}")
+    _check_lanes(lanes)
+    if not _build.launches_kernel("spd_inverse_nb", D):
+        return sweep_inverse_block_plain(D, guard_zero=True)
+    return _blocks_cuda(spd_inverse_nb, "qps_pivot_sweep_2d", D)
+
+
+spd_inverse_nb.launches = 0
+
+
+@fp32_products()
+def spd_inverse_sweep(M: torch.Tensor, pivot_inverse=None) -> torch.Tensor:
+    """Batched SPD inverse by the flat blocked sweep (the JAX package's
+    ``spd_inverse_sweep``, spd_kernels.py:157-181).
+
+    Per 128-block level k of a working copy W of M (n % 128 == 0): Dinv =
+    ``pivot_inverse`` of W's diagonal block (default :func:`spd_inverse_nb`,
+    read through a strided view), C Dinv from the block column C, W -= (C
+    Dinv) R (the product, then the subtraction, R the block row before the
+    level), then the block column, row and diagonal become C Dinv, Dinv R
+    and -Dinv; the inverse is -W. The products are ``torch.bmm`` in full
+    FP32, as the JAX package leaves them to XLA; W is updated in place.
+    """
+    n = _check_sweep_shape(M)
+    if pivot_inverse is None:
+        pivot_inverse = spd_inverse_nb
+    W = M.reshape(-1, n, n).clone(memory_format=torch.contiguous_format)
+    for k in range(n // NB):
+        s = slice(k * NB, (k + 1) * NB)
+        Dinv = pivot_inverse(W[:, s, s])
+        R = W[:, s, :].clone()
+        CDinv = torch.bmm(W[:, :, s], Dinv)
+        W -= torch.bmm(CDinv, R)
+        W[:, :, s] = CDinv
+        W[:, s, :] = torch.bmm(Dinv, R)
+        W[:, s, s] = -Dinv
+    return W.neg_().reshape(M.shape)
+
+
+HB = 64  # the paired sweep's block size
+
+
+def pivot_sweep_v3p_plain(D: torch.Tensor) -> torch.Tensor:
+    """Plain paired-64 sweep (``_pivot_sweep_v3p_kernel``, the JAX package's
+    spd_kernels.py:407-446) on (B, 64, 64): v3's Jacobi scaling and folded
+    fixes, but the pivot column is divided by the pivot, a = (W[:, j] -
+    e_j) / W[j, j] (:440-441), where v3 multiplies by 1/W[j, j]. The TPU
+    kernel packs two blocks into one 128-lane tile; each block's arithmetic
+    is its own, so the plain version takes the blocks one by one."""
+    nb = D.shape[-1]
+    W, s_col, s_row = _jacobi(D)  # updated in place below
+    eye = torch.eye(nb, dtype=D.dtype, device=D.device)
+    for j in range(nb):
+        r = W[..., j:j + 1, :].clone()            # (B, 1, nb) pivot row
+        a = (W[..., :, j:j + 1] - eye[:, j:j + 1]) / r[..., :, j:j + 1]
+        W -= a * (r - eye[j:j + 1, :])
+    return (2.0 * eye - W) * s_col * s_row
+
+
+def spd_inverse_64p(D: torch.Tensor, *, lanes: int = 8) -> torch.Tensor:
+    """Batched (B, 64, 64) SPD inverse by the paired-64 sweep (the JAX
+    package's ``pallas_spd_inverse_64p``, spd_kernels.py:449).
+
+    B must be even, as in the JAX package, and at least 4: the JAX wrapper's
+    lane loop needs two pairs and fails at B = 2 with ZeroDivisionError,
+    where this raises ValueError. On a CUDA tensor (float32, unit column
+    stride, strided views read in place) this launches
+    csrc/pivot_sweep_v3p.cu and counts it in ``spd_inverse_64p.launches``;
+    on a CPU tensor it runs :func:`pivot_sweep_v3p_plain`. ``lanes`` is
+    checked and changes no bit.
+    """
+    if D.ndim != 3 or D.shape[1:] != (HB, HB):
+        raise ValueError(f"blocks must be ({HB}, {HB}); got {tuple(D.shape)}")
+    B = D.shape[0]
+    if B % 2:
+        raise ValueError("batch must be even for pairing")
+    if B < 4:
+        raise ValueError(f"the paired sweep needs at least two pairs of "
+                         f"blocks; got B={B}")
+    _check_lanes(lanes)
+    if not _build.launches_kernel("spd_inverse_64p", D):
+        return pivot_sweep_v3p_plain(D)
+    return _blocks_cuda(spd_inverse_64p, "qps_pivot_sweep_v3p", D)
+
+
+spd_inverse_64p.launches = 0
+
+
+@fp32_products()
+def spd_inverse_128_schur(D: torch.Tensor, *, lanes: int = 8) -> torch.Tensor:
+    """Batched (B, 128, 128) SPD inverse by one 2x2 block Schur step over
+    two paired-64 sweeps (the JAX package's ``spd_inverse_128_schur``,
+    spd_kernels.py:483-523). With D = [[A, B], [B', C]]:
+
+        inv11 = A^-1,  W = inv11 B,  S = C - B' W,  invS = S^-1,
+        X12 = -W invS,  X11 = inv11 - X12 W',
+        D^-1 = [[X11, X12], [X12', invS]]
+
+    the two inverses by :func:`spd_inverse_64p`, the products ``torch.bmm``
+    in full FP32. An odd B falls back to ``spd_inverse_unrolled(variant=
+    "v3")`` (:499-500), whose own rule inverts B < 4 by Cholesky.
+    """
+    if D.ndim != 3 or D.shape[1:] != (NB, NB):
+        raise ValueError(f"blocks must be ({NB}, {NB}); got {tuple(D.shape)}")
+    _check_lanes(lanes)
+    if D.shape[0] % 2:
+        return spd_inverse_unrolled(D, variant="v3")
+    A, Bm, C = D[:, :HB, :HB], D[:, :HB, HB:], D[:, HB:, HB:]
+    inv11 = spd_inverse_64p(A, lanes=lanes)
+    W1 = torch.bmm(inv11, Bm)
+    S = C - torch.bmm(Bm.transpose(1, 2), W1)
+    invS = spd_inverse_64p(S, lanes=lanes)
+    X12 = -torch.bmm(W1, invS)
+    X11 = inv11 - torch.bmm(X12, W1.transpose(1, 2))
+    top = torch.cat([X11, X12], dim=-1)
+    bot = torch.cat([X12.transpose(1, 2), invS], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+@fp32_products()
+def normal_inverse_plain(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor,
+                         sigma: float) -> torch.Tensor:
+    """Plain fused normal-matrix inverse (``_normal_inverse_kernel``, the JAX
+    package's spd_kernels.py:709-743): per lane M = (P + sigma I) + rho_b
+    (A'A), in that order (A'A in full FP32), then the flat blocked sweep
+    with the unguarded block pivot (:func:`sweep_inverse_block_plain`)."""
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    AtA = torch.matmul(A.transpose(-1, -2), A)
+    M = (P + sigma * eye) + rho.to(P.dtype)[:, None, None] * AtA
+    return spd_inverse_sweep(M, pivot_inverse=sweep_inverse_block_plain)
+
+
+def normal_inverse(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, *,
+                   sigma: float) -> torch.Tensor:
+    """(P + sigma I + rho_b A'A)^-1 per lane (the JAX package's
+    ``pallas_normal_inverse``, spd_kernels.py:746): P (B, n, n), A (B, m,
+    n), rho (B,), one penalty per lane; n and m multiples of 128.
+
+    On CUDA tensors (contiguous float32) this launches
+    csrc/normal_inverse.cu's fixed sequence (the gram, then per 128-block
+    level the pivot sweep, the level products and the level update:
+    1 + 3 n/128 kernels, hand-written products throughout) and counts one
+    launch per call in ``normal_inverse.launches``; on CPU tensors it runs
+    :func:`normal_inverse_plain`.
+    """
+    B, n, m = P.shape[0], P.shape[-1], A.shape[-2]
+    if n % NB or m % NB:
+        raise ValueError(f"n, m must be multiples of {NB}; got {(n, m)}")
+    if (P.ndim != 3 or P.shape[1] != n or tuple(A.shape) != (B, m, n)
+            or tuple(rho.shape) != (B,)):
+        raise ValueError(f"normal_inverse takes P (B, n, n), A (B, m, n) and "
+                         f"rho (B,); got {tuple(P.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(rho.shape)}")
+    if not _build.launches_kernel("normal_inverse", P):
+        return normal_inverse_plain(P, A, rho, sigma)
+    kw = dict(dtype=torch.float32, device=P.device)
+    out, ws = torch.empty((B, n, n), **kw), torch.empty((B, n, n), **kw)
+    CD, DR = torch.empty((B, n, NB), **kw), torch.empty((B, NB, n), **kw)
+    Dinv = torch.empty((B, NB, NB), **kw)
+    bufs = (P, A, rho, out, ws, CD, DR, Dinv)
+    _build.require_cuda_f32("normal_inverse", *bufs)
+    _build.launch(normal_inverse, "qps_normal_inverse",
+                  *(t.data_ptr() for t in bufs), B, n, m, float(sigma),
+                  _build.stream_ptr(P))
+    return out
+
+
+normal_inverse.launches = 0

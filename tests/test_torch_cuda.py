@@ -633,3 +633,106 @@ def test_factor_knob_solves_on_card(dev, knob):
     ref = pt.solve(qp.to("cpu"), st)
     assert (sol.info.status.cpu() >= 2).all() and (ref.info.status >= 2).all()
     assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3
+
+
+def _gram_blocks(dev, b, nb, g):
+    """Pivot-like SPD blocks Dm'Dm/nb + 0.05 I (the pivot shootout's)."""
+    Dm = torch.randn((b, nb, nb), generator=g, device=dev)
+    return Dm.transpose(1, 2) @ Dm / nb + 0.05 * torch.eye(nb, device=dev)
+
+
+def test_round1_and_paired_sweeps_match_plain_on_card(dev):
+    """The round-1 sweep (row 6) and the paired-64 sweep (row 11) against
+    their plain versions at B=64, on gram blocks, spread-diagonal blocks and
+    a strided view; one launch counted per call; the zero-pivot guard as its
+    plain version."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    for D in (_gram_blocks(dev, 64, 128, g), _spread_blocks(dev, 64, g)):
+        spd_kernels.spd_inverse_nb.launches = 0
+        out = spd_kernels.spd_inverse_nb(D)
+        assert spd_kernels.spd_inverse_nb.launches == 1
+        assert _close(out, spd_kernels.sweep_inverse_block_plain(D, guard_zero=True))
+        for D64 in (D[:, :64, :64], D[:, 64:, 64:].contiguous()):
+            spd_kernels.spd_inverse_64p.launches = 0
+            out = spd_kernels.spd_inverse_64p(D64)
+            assert spd_kernels.spd_inverse_64p.launches == 1
+            assert _close(out, spd_kernels.pivot_sweep_v3p_plain(D64))
+    Dz = _gram_blocks(dev, 8, 128, g)
+    Dz[:, 5, :] = 0.0
+    Dz[:, :, 5] = 0.0
+    out = spd_kernels.spd_inverse_nb(Dz)
+    assert torch.isfinite(out).all() and (out[:, 5, 5] == 1.0).all()
+    assert _close(out, spd_kernels.sweep_inverse_block_plain(Dz, guard_zero=True))
+
+
+def test_sweep_and_schur_inverses_on_card(dev):
+    """spd_inverse_sweep at n=512 (4 row-6 launches) and the Schur inverse at
+    B=64 (2 paired launches) against f64 inverses of the same matrices, and
+    the Schur inverse's odd-B fallback to v3's kernel."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    qp, _ = _fleet(dev, 27, n=512, m=256)
+    rho = torch.full((B, 256), 0.4, device=dev)
+    Mn = qp.P + 1e-4 * torch.eye(512, device=dev) + (
+        qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
+    spd_kernels.spd_inverse_nb.launches = 0
+    inv = spd_kernels.spd_inverse_sweep(Mn)
+    assert spd_kernels.spd_inverse_nb.launches == 4
+    ref = torch.linalg.inv(Mn.double())
+    assert float((inv.double() - ref).abs().max() / ref.abs().max()) <= 1e-4
+    D = _gram_blocks(dev, 64, 128, g)
+    spd_kernels.spd_inverse_64p.launches = 0
+    out = spd_kernels.spd_inverse_128_schur(D)
+    assert spd_kernels.spd_inverse_64p.launches == 2
+    ref = torch.linalg.inv(D.double())
+    assert float((out.double() - ref).abs().max() / ref.abs().max()) <= 1e-5
+    odd = D[:63]
+    assert torch.equal(spd_kernels.spd_inverse_128_schur(odd),
+                       spd_kernels.spd_inverse_unrolled(odd, variant="v3"))
+
+
+def test_normal_inverse_on_card(dev):
+    """The fused normal-matrix inverse at n=256, m=128 with per-lane rho
+    against its plain version (TOL), against f64 (JAX's limits: residual
+    5e-5, relative 1e-5), one launch counted per call."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    n, m = 256, 128
+    W = torch.randn((B, n, n), generator=g, device=dev)
+    P = W @ W.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev)
+    A = 0.1 * torch.randn((B, m, n), generator=g, device=dev)
+    rho = torch.logspace(-1, 1, B, device=dev)
+    spd_kernels.normal_inverse.launches = 0
+    out = spd_kernels.normal_inverse(P, A, rho, sigma=1e-6)
+    assert spd_kernels.normal_inverse.launches == 1
+    assert _close(out, spd_kernels.normal_inverse_plain(P, A, rho, 1e-6))
+    M = (P.double() + 1e-6 * torch.eye(n, device=dev, dtype=torch.float64)
+         + rho.double()[:, None, None] * A.double().transpose(1, 2) @ A.double())
+    eye = torch.eye(n, device=dev, dtype=torch.float64)
+    assert float((out.double() @ M - eye).abs().max()) <= 5e-5
+    ref = torch.linalg.inv(M)
+    assert float((out.double() - ref).abs().max() / ref.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("family", ["admm", "prox"])
+def test_tf32_on_leaves_the_solve_unchanged(dev, family):
+    """bench.py's defaults route (the M^-1 factor through the sweep's
+    torch.bmm products, the torch or M^-1 chunk) with TF32 on globally gives
+    the x of TF32 off, bit for bit; the caller's flag is left as it was."""
+    if family == "admm":
+        prob, _ = _fleet(dev, 29, n=512, m=256)
+        run = lambda: pt.solve(prob, pt.Settings(  # noqa: E731
+            max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4))
+    else:
+        prob, _ = _prox_fleet(dev, 29, n=256)
+        run = lambda: pt.solve_proxqp(prob, pt.ProxQPSettings(  # noqa: E731
+            max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4))
+    matmul = torch.backends.cuda.matmul
+    try:
+        matmul.allow_tf32 = False
+        off = run()
+        matmul.allow_tf32 = True
+        on = run()
+        assert matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = False
+    assert torch.equal(on.x, off.x)
+    assert torch.equal(on.info.iterations, off.info.iterations)
