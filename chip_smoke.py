@@ -120,18 +120,38 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     lanes; 10d phase 7a's defaults solve on 64 lanes with
     ``allow_tf32 = True`` globally, whose x must equal the TF32-off x bit
     for bit (the solve scopes its products to FP32).
+11. The large sparse path, BASELINE config 4 (``benchmarks/large_sparse.py``:
+    n = 1e5, m = 5e4, seed 0, 10 host Ruiz sweeps, float32):
+    11a the solve with ELL storage and the matrix-free CG backend at
+    large_sparse.py's settings (eps 1e-4, rho 0.1 adaptive, cg_eps 1e-6,
+    cg_rel_eps 1e-4, 300 iterations, check_interval 25) through
+    ``solve(..., scaling=)``: a counted run, then the best of 3 after a warm
+    call. It must end SOLVED, pass the OSQP criterion in f64 on the
+    unscaled problem (``utils/oracle.py: kkt_optimality``; res_prim <= 1e-4
+    + 1e-4 max(|Ax|, |z|), res_dual <= 1e-4 + 1e-4 max(|Px|, |A'y|, |q|)),
+    and launch row 13's ELL kernel exactly as often as the host loop says
+    (3 + 5 per outer iteration + 3 per CG step + 3 per check); it prints
+    the CG steps and host syncs. 11b the same with CSR storage (cuSPARSE;
+    no kernel of ours may launch). 11c row 13 alone on P, A and A' against
+    its plain version and the CSR product. 11d rows 14a, 14b and 15 on P at
+    n = 1e5 with the probes' defaults (route levels S = 8, W = 12544, and
+    every micro shape of ``routed_spmv_probe.py:181-183``; the row-routed
+    format): packers, kernels against their plain versions, the whole
+    matvecs against scipy in f64 (relative 1e-6), times, bounds, CSR.
 
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve,
-one profiled solve each of phases 7a and 7b, one each of 8a and 8e, and one
-of the fastest phase-9 stack (kernel time by name and the device's idle
-share). ``--time-chunks`` adds,
+one profiled solve each of phases 7a and 7b, one each of 8a and 8e, one
+of the fastest phase-9 stack and one of phase 11a (kernel time by name and
+the device's idle share). ``--sparse-only`` runs phases 1 and 11 alone and
+prints no ``ok`` line. ``--time-chunks`` adds,
 after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
 The last lines are the total wall time, the kernels JSON (the seven kernels,
 the eleven variants of rows 4c and 5c, the six pivot formulations and the
-bf16x3 level of rows 7-10 and 3b, and the three kernels of rows 6, 11 and
-12), the nvidia-smi line, and
+bf16x3 level of rows 7-10 and 3b, the three kernels of rows 6, 11 and
+12, and the SpMV kernels of rows 13, 14a, 14b and 15), the nvidia-smi line,
+and
 {"ok": true, "device": {...}}.
 """
 
@@ -266,6 +286,35 @@ ENTRY_KERNELS = {
 #: Phase 10a: benchmarks/pivot_inverse_probe.py's defaults (B=3072 blocks
 #: Dm'Dm/128 + 0.05 I) and its usability mark against an f64 inverse.
 B_PROBE, PROBE_MARK = 3072, 1e-5
+#: Phase 11: BASELINE config 4 as benchmarks/large_sparse.py runs it
+#: (:84-112 with its defaults), and the SpMV probes' defaults.
+SPARSE_N, SPARSE_EPS = 100_000, 1e-4
+SPARSE_SETTINGS = dict(max_iterations=300, eps_abs=SPARSE_EPS,
+                       eps_rel=SPARSE_EPS, rho=0.1, adaptive_rho=True,
+                       cg_eps=1e-6, cg_max_iterations=200, cg_rel_eps=1e-4,
+                       check_interval=25)
+ROUTE_S, ROUTE_W = 8, 12544
+#: routed_spmv_probe.py:181-183: (S, W, G) of the square micro kernel; the
+#: G=1024 tall one resolves the per-slot cost and stands for row 14a.
+MICRO_SHAPES = ((8, 128, 512), (32, 128, 512), (784, 128, 64),
+                (784, 128, 1024), (8, 256, 96), (8, 1024, 96), (8, 12544, 8),
+                (16, 6272, 8))
+MICRO_MAIN = (784, 128, 1024)
+#: The probes' own bar for a routed matvec against scipy in f64
+#: (row_routed_probe.py:317).
+SPMV_SCIPY_BAR = 1e-6
+#: Rows 13-15: each SpMV kernel (a kernels-JSON entry of its own) -> (its
+#: source, the TPU kernel it replaces). Row 13's launches are phase 11a's
+#: solve; 14a, 14b and 15 are entry points, counted in one call each.
+SPMV_KERNELS = {
+    "ell_matvec": ("csrc/ell_matvec.cu", "benchmarks/ell_kernel_probe.py:84"),
+    "routed_levels_t1": ("csrc/routed_spmv.cu",
+                         "benchmarks/routed_spmv_probe.py:189"),
+    "routed_levels": ("csrc/routed_spmv.cu",
+                      "benchmarks/routed_spmv_probe.py:299"),
+    "row_routed_rows": ("csrc/row_routed.cu",
+                        "benchmarks/row_routed_probe.py:204"),
+}
 T0 = time.perf_counter()
 
 
@@ -289,8 +338,10 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=5, setup=None):
-    """Median ms of fn() over reps, CUDA events around each call."""
+def cuda_ms(fn, reps=5, setup=None, inner=1):
+    """Median ms of fn() over reps, CUDA events around each call (around
+    ``inner`` back-to-back calls, divided by ``inner``, for kernels of a
+    few microseconds)."""
     import torch
 
     times = []
@@ -299,14 +350,15 @@ def cuda_ms(fn, reps=5, setup=None):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn(*args)
+        for _ in range(inner):
+            fn(*args)
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times[1:])
 
 
-def compare(name, kern, plain, failures):
+def compare(name, kern, plain, failures, phase="phase 2"):
     """max|kernel - plain| over matching outputs; a breach of LIMIT is
     appended to ``failures`` (checked once every kernel has been compared)."""
     import torch
@@ -317,7 +369,7 @@ def compare(name, kern, plain, failures):
     scale = max(max(float(p.abs().max()) for p in plain), 1.0)
     rel = err / scale
     finite = all(bool(torch.isfinite(k).all()) for k in kern)
-    log(f"[phase 2] {name}: max abs err {err:.3e}, relative {rel:.3e} "
+    log(f"[{phase}] {name}: max abs err {err:.3e}, relative {rel:.3e} "
         f"(limit {LIMIT:.0e}), finite={finite}")
     if not (finite and rel <= LIMIT):
         failures.append(f"{name}: kernel disagrees with its plain version "
@@ -965,7 +1017,7 @@ def time_chunks(torch):
 
 def counters():
     from quadraticprogramsolver_tpu_torch.ops import (
-        fused_admm, fused_factor, fused_proxqp, spd_kernels)
+        fused_admm, fused_factor, fused_proxqp, routed_spmv, spd_kernels, spmv)
 
     return {"slab_build": fused_factor.build_slab,
             "pivot_sweep_v3": spd_kernels.spd_inverse_unrolled,
@@ -976,7 +1028,10 @@ def counters():
             "prox_chunk_minv": fused_proxqp.fused_proxqp_chunk_minv,
             "pivot_sweep_2d": spd_kernels.spd_inverse_nb,
             "pivot_sweep_v3p": spd_kernels.spd_inverse_64p,
-            "normal_inverse": spd_kernels.normal_inverse}
+            "normal_inverse": spd_kernels.normal_inverse,
+            "ell_matvec": spmv.ell_matvec,
+            "routed_levels": routed_spmv.routed_levels_matvec,
+            "row_routed_rows": routed_spmv.row_routed_rows}
 
 
 def audit(qp, x, status, iters, label, required=True, prefix="phase 4"):
@@ -1129,19 +1184,40 @@ def report_prox(prob, sol, dt, fdt, label):
             "status 3")
 
 
-def profile_solve(torch, solve, label):
-    """One profiled solve: device kernel time by name and the idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def traced(torch, fn):
+    """(profiler, wall ms) of one call of fn() traced by torch.profiler
+    after a warm-up call in the same profiling run: a run that follows
+    another one drops the first device events of its first step (the
+    factor's first kernels went missing from later profiles), so the
+    warm-up step takes that loss."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    solve()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()  # warm-up -> active; leaving the block ends the trace
         t0 = time.perf_counter()
-        solve()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return prof, wall
+
+
+def on_device(e):
+    """A device event of a trace: a kernel or a copy, not the schedule's
+    ProfilerStep annotation (which the trace files under the device)."""
+    from torch.autograd import DeviceType
+
+    return (e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep"))
+
+
+def profile_solve(torch, solve, label):
+    """One profiled solve: device kernel time by name and the idle share."""
+    solve()
+    prof, wall = traced(torch, solve)
 
     def dev_ms(e):
         v = getattr(e, "self_device_time_total", None)
@@ -1150,7 +1226,7 @@ def profile_solve(torch, solve, label):
     # Device-side events only (kernels, copies): the host ops that launched
     # them carry the same time again.
     rows = sorted(((dev_ms(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_ms(e) > 0),
+                   if on_device(e) and dev_ms(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"[{label}] profiled solve: wall {wall:.2f} ms, device kernels "
@@ -1660,17 +1736,10 @@ NORMAL_INVERSE_KERNELS = ("normal_gram_kernel", "normal_level_products_kernel",
 def device_kernels(torch, fn):
     """The device kernels that one call of fn ran, counted by name, as
     torch.profiler traced them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _ = traced(torch, fn)
     names = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if on_device(e):
             names[e.name] = names.get(e.name, 0) + 1
     return names
 
@@ -1834,6 +1903,337 @@ def phase_entry_points(torch, pkg, cnt, extra):
     return launches
 
 
+def sparse_problem(pkg):
+    """Config 4 as benchmarks/large_sparse.py builds it: the generated
+    problem, its 10 host Ruiz sweeps, and the scaled problem in ELL and in
+    CSR storage (float32 on the card)."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.models.scaling import (
+        equilibrate_sparse_host)
+
+    t0 = time.perf_counter()
+    data = pkg.generate_large_sparse_qp(SPARSE_N, seed=0)
+    t1 = time.perf_counter()
+    Ps, qs, As, ls, us, scal = equilibrate_sparse_host(
+        data.P, data.q, data.A, data.l, data.u, 10, device=DEVICE)
+    t2 = time.perf_counter()
+    ell, csr = (pkg.make_sparse_qp(Ps, qs, As, ls, us, dtype=np.float32,
+                                   storage=storage, device=DEVICE)
+                for storage in ("ell", "bcoo"))
+    import torch
+
+    torch.cuda.synchronize()
+    log(f"[phase 11] config 4: n={data.n} m={data.m} nnz(P)={data.P.nnz} "
+        f"nnz(A)={data.A.nnz}; generated in {t1 - t0:.2f} s, Ruiz (10 "
+        f"sweeps) {t2 - t1:.2f} s, ELL + CSR built on the card in "
+        f"{time.perf_counter() - t2:.2f} s; ELL widths P {ell.P_vals.shape[1]}"
+        f", A {ell.A_vals.shape[1]}, A' {ell.At_vals.shape[1]}")
+    return data, scal, ell, csr
+
+
+def sparse_solve(torch, pkg, cnt, qp, scal, st, label):
+    """One counted solve, then the best of 3 (the counted run warms up).
+    Returns (solution, seconds, ELL launches, CG steps, host syncs)."""
+    from quadraticprogramsolver_tpu_torch.models import admm, kkt
+
+    pkg.solve(qp, st, scaling=scal)  # warm-up (cuSPARSE, allocator)
+    torch.cuda.synchronize()
+    reset(cnt)
+    kkt._pcg.steps = kkt._pcg.syncs = admm._solve_core.syncs = 0
+    sol = pkg.solve(qp, st, scaling=scal)
+    torch.cuda.synchronize()
+    launches = cnt["ell_matvec"].launches
+    steps, cg_syncs, check_syncs = (kkt._pcg.steps, kkt._pcg.syncs,
+                                    admm._solve_core.syncs)
+    syncs = cg_syncs + check_syncs
+    dt = best_seconds(torch, lambda: pkg.solve(qp, st, scaling=scal), 3)
+    iters = int(sol.info.iterations)
+    log(f"[{label}] status {int(sol.info.status)}, outer iterations {iters}, "
+        f"CG steps {steps} ({steps / max(iters, 1):.2f} per outer "
+        f"iteration), host syncs {syncs} ({cg_syncs} in CG, {check_syncs} at "
+        f"checks); solve {dt * 1e3:.2f} ms (best "
+        f"of 3), {dt * 1e3 / max(iters, 1):.3f} ms per outer iteration; "
+        f"ELL launches {launches}")
+    return sol, dt, launches, steps, syncs
+
+
+def osqp_f64(data, sol, label):
+    """The OSQP criterion in f64 on the unscaled problem, at SPARSE_EPS:
+    (passed, numbers)."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.utils.oracle import kkt_optimality
+
+    x, z, y = (t.double().cpu().numpy() for t in (sol.x, sol.z, sol.y))
+    rep = kkt_optimality(data.P, data.q, data.A, data.l, data.u, x, z, y)
+
+    def inf(v):
+        return float(np.abs(v).max())
+
+    lim_p = SPARSE_EPS + SPARSE_EPS * max(inf(data.A @ x), inf(z))
+    lim_d = SPARSE_EPS + SPARSE_EPS * max(inf(data.P @ x), inf(data.A.T @ y),
+                                          inf(data.q))
+    ok = (bool(np.isfinite(x).all() and np.isfinite(y).all())
+          and rep.res_prim <= lim_p and rep.res_dual <= lim_d)
+    log(f"[{label}] f64 on the unscaled problem: res_prim {rep.res_prim:.3e} "
+        f"(limit {lim_p:.3e}), res_dual {rep.res_dual:.3e} (limit "
+        f"{lim_d:.3e}), comp {rep.res_comp:.3e}, |Ax - z| {rep.res_z:.3e}: "
+        f"{'pass' if ok else 'FAIL'}")
+    return ok, {"res_prim": rep.res_prim, "lim_prim": lim_p,
+                "res_dual": rep.res_dual, "lim_dual": lim_d,
+                "res_comp": rep.res_comp, "res_z": rep.res_z}
+
+
+def spmv_times(kern, plain, lib, slots, nnz, nbytes, flops):
+    """(ms, plain ms, library ms, (bound ms, by)) of one SpMV kernel, each
+    the median of 5 groups of back-to-back calls."""
+    ms = cuda_ms(kern, inner=20)
+    return (ms, cuda_ms(plain, inner=5), None if lib is None else
+            cuda_ms(lib, inner=20), bound(nbytes, flops))
+
+
+def spmv_entry(name, launches, err, times, extra):
+    src, rep = SPMV_KERNELS[name]
+    ms, pms, lms, (bms, by) = times
+    return {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+            "replaces": rep, "stack": "phase 11", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lms, **extra}
+
+
+def phase_sparse(torch, pkg, cnt, profile):
+    """Phase 11: config 4 on the card (11a ELL + CG, 11b CSR), row 13 alone
+    (11c), rows 14a, 14b and 15 on P (11d). Returns their kernels-JSON
+    entries."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.core.sparse_problem import _csr, _to_csr
+    from quadraticprogramsolver_tpu_torch.ops import routed_spmv as rs, spmv
+
+    failures = []
+    data, scal, ell, csr = sparse_problem(pkg)
+    st = pkg.Settings(**SPARSE_SETTINGS)
+    p = pkg.plan(ell, st)
+    require((p.backend, p.chunk, p.factor, p.cache, p.padded)
+            == ("cg", "torch", "jacobi_diag", "diag", None),
+            f"phase 11: unexpected plan {p}")
+
+    # 11a: ELL storage, row 13 in every product.
+    sol, dt, launches, steps, syncs = sparse_solve(
+        torch, pkg, cnt, ell, scal, st, "phase 11a ELL")
+    status, iters = int(sol.info.status), int(sol.info.iterations)
+    checks = iters // st.check_interval
+    expected = 3 + 5 * iters + 3 * steps + 3 * checks
+    log(f"[phase 11a] ELL launches {launches}, the host loop's count 3 + 5 x "
+        f"{iters} + 3 x {steps} + 3 x {checks} = {expected}")
+    ok, f64 = osqp_f64(data, sol, "phase 11a")
+    require(status == 3, f"phase 11a: status {status}, not SOLVED")
+    require(ok, "phase 11a: the f64 OSQP criterion failed on the unscaled "
+            "problem")
+    require(0 < launches == expected, f"phase 11a: {launches} ELL launches, "
+            f"the host loop says {expected}")
+    solve_a = {"ms": dt * 1e3, "status": status, "iterations": iters,
+               "cg_steps": steps, "host_syncs": syncs, "f64": f64}
+    if profile:
+        profile_solve(torch, lambda: pkg.solve(ell, st, scaling=scal),
+                      "phase 11a profile")
+    del sol
+
+    # 11b: CSR storage (cuSPARSE): no kernel of ours.
+    sol, dt_c, launches_c, steps_c, syncs_c = sparse_solve(
+        torch, pkg, cnt, csr, scal, st, "phase 11b CSR")
+    status_c = int(sol.info.status)
+    ok_c, f64_c = osqp_f64(data, sol, "phase 11b")
+    require(launches_c == 0, f"phase 11b: CSR storage launched the ELL "
+            f"kernel {launches_c} times")
+    require(status_c in (2, 3) and ok_c, f"phase 11b: status {status_c}, "
+            f"f64 criterion {'passed' if ok_c else 'failed'}")
+    solve_b = {"ms": dt_c * 1e3, "status": status_c,
+               "iterations": int(sol.info.iterations), "cg_steps": steps_c,
+               "host_syncs": syncs_c, "f64": f64_c}
+    log(f"[phase 11] solve ELL {dt * 1e3:.2f} ms against CSR "
+        f"{dt_c * 1e3:.2f} ms ({dt_c / dt:.2f}x)")
+    del sol
+
+    # 11c: row 13 alone on the solve's P, A and A'.
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    mats, worst = {}, 0.0
+    for name, vals, cols, M in (
+            ("P", ell.P_vals, ell.P_cols, csr.P_csr),
+            ("A", ell.A_vals, ell.A_cols, csr.A_csr),
+            ("At", ell.At_vals, ell.At_cols, csr.At_csr)):
+        v = torch.randn(M.shape[1], generator=g, device=DEVICE)
+        rows, k = vals.shape
+        nnz = M.values().numel()
+        err = compare(f"ell_matvec {name}", spmv.ell_matvec(vals, cols, v),
+                      spmv.ell_matvec_plain(vals, cols, v), failures,
+                      "phase 11c")
+        worst = max(worst, err)
+        out_in = v.nbytes + rows * 4
+        t = spmv_times(lambda: spmv.ell_matvec(vals, cols, v),
+                       lambda: spmv.ell_matvec_plain(vals, cols, v),
+                       lambda: M @ v, rows * k, nnz,
+                       vals.nbytes + cols.nbytes + out_in, 2 * rows * k)
+        nnz_bound = (nnz * 8 + out_in) / PEAK_BYTES_S * 1e3
+        mats[name] = {"shape": [rows, k], "nnz": nnz, "ms": t[0],
+                      "plain_ms": t[1], "library_ms": t[2],
+                      "bound_ms": t[3][0], "nnz_bound_ms": nnz_bound}
+        log(f"[phase 11c] ell_matvec {name} ({rows} x {k}, nnz {nnz}, fill "
+            f"{nnz / (rows * k):.2f}): kernel {t[0]:.4f} ms, plain "
+            f"{t[1]:.4f} ms, CSR @ {t[2]:.4f} ms; bound {t[3][0]:.4f} ms "
+            f"(ELL bytes as stored), {nnz_bound:.4f} ms (nnz only)")
+        if name == "P":
+            times_p = t
+    entries = [spmv_entry("ell_matvec", launches, worst, times_p,
+                          {"stack": "phase 11a", "matrices": mats,
+                           "solve_ell": solve_a, "solve_csr": solve_b})]
+
+    # 11d: the probes' routed matvecs on P (unscaled, as the probes pack it).
+    Pc = data.P.tocsr()
+    nnz = Pc.nnz
+    x_np = np.random.default_rng(0).standard_normal(SPARSE_N).astype(np.float32)
+    y_ref = Pc @ x_np.astype(np.float64)
+    scale = float(np.abs(y_ref).max())
+    x = torch.tensor(x_np, device=DEVICE)
+    Pt = _to_csr(Pc, np.float32, DEVICE)
+    lib_ms = cuda_ms(lambda: Pt @ x, inner=20)
+    log(f"[phase 11d] P: {SPARSE_N} x {SPARSE_N}, nnz {nnz}; CSR P @ x "
+        f"{lib_ms:.4f} ms")
+
+    def against_scipy(label, y):
+        rel = float(np.abs(y.double().cpu().numpy() - y_ref).max()) / scale
+        log(f"[phase 11d] {label}: max |y - scipy f64| / max|y| = {rel:.2e} "
+            f"(bar {SPMV_SCIPY_BAR:.0e})")
+        if not rel <= SPMV_SCIPY_BAR:
+            failures.append(f"phase 11d {label}: {rel:.2e} from scipy")
+        return rel
+
+    # Row 14a: the square micro kernel (one level) on every probe shape.
+    micro = {}
+    for S, W, G in MICRO_SHAPES:
+        X = torch.randn((S, W), generator=g, device=DEVICE)
+        idx = torch.randint(0, W, (G, S, W), generator=g, device=DEVICE,
+                            dtype=torch.int32)
+        V = torch.randn((G, S, W), generator=g, device=DEVICE)
+        slots = G * S * W
+        tag = f"S={S} W={W} G={G}"
+        err = compare(f"routed_levels_t1 {tag}",
+                      rs.routed_levels_matvec(X, idx, V),
+                      rs.routed_levels_matvec_plain(X, idx, V), failures,
+                      "phase 11d")
+        # The same function as one CSR product: row g*W + l holds V[g, s, l]
+        # at column s*W + idx[g, s, l] of X's rows laid end to end.
+        col = (torch.arange(S, device=DEVICE)[None, :, None] * W + idx)
+        M = _csr(torch.arange(0, G * W * S + 1, S, device=DEVICE),
+                 col.permute(0, 2, 1).reshape(-1).long(),
+                 V.permute(0, 2, 1).reshape(-1), (G * W, S * W))
+        del col
+        Xf = X.reshape(-1)
+        t = spmv_times(lambda: rs.routed_levels_matvec(X, idx, V),
+                       lambda: rs.routed_levels_matvec_plain(X, idx, V),
+                       lambda: M @ Xf, slots, slots,
+                       idx.nbytes + V.nbytes + X.nbytes + G * W * 4,
+                       2 * slots)
+        micro[tag] = {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                      "bound_ms": t[3][0], "ns_per_slot": t[0] * 1e6 / slots,
+                      "max_abs_err": err}
+        log(f"[phase 11d] 14a {tag}: kernel {t[0]:.4f} ms "
+            f"({t[0] * 1e6 / slots:.4f} ns/slot), plain {t[1]:.4f} ms, CSR "
+            f"@ {t[2]:.4f} ms, bound {t[3][0]:.4f} ms")
+        if (S, W, G) == MICRO_MAIN:
+            _, n14a = counted_call(
+                torch, cnt, lambda: rs.routed_levels_matvec(X, idx, V),
+                "routed_levels", "phase 11d 14a")
+            entries.append(spmv_entry("routed_levels_t1", n14a, err, t, {
+                "shape": {"S": S, "W": W, "G": G}, "micro": micro}))
+        del X, idx, V, M, Xf
+    torch.cuda.empty_cache()
+
+    # Row 14b: route levels at S = 8, W = 12544.
+    t0 = time.perf_counter()
+    RL = rs.route_levels(Pc, ROUTE_S, ROUTE_W, DEVICE)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    G, T, S, W = RL.idxJ.shape
+    slots = G * T * S * W
+    t0 = time.perf_counter()
+    n_tiles, _ = rs.chunk_tile_census(Pc, ROUTE_S)
+    log(f"[phase 11d] 14b route levels S={S} W={W}: T={T}, groups={G}, "
+        f"slots {slots} ({slots / 1e6:.2f} M), fill {nnz / slots:.3f}, "
+        f"idxJ + V {(RL.idxJ.nbytes + RL.V.nbytes) / 1e6:.1f} MB, packed in "
+        f"{pack_s:.2f} s; the 128-wide census: {n_tiles} tiles, "
+        f"{n_tiles / nnz:.2f} a nnz ({time.perf_counter() - t0:.2f} s)")
+    X = torch.nn.functional.pad(x, (0, S * W - SPARSE_N)).reshape(W, S).T
+    X = X.contiguous()
+    err = compare("routed_levels", rs.routed_levels_matvec(X, RL.idxJ, RL.V),
+                  rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V), failures,
+                  "phase 11d")
+    y, n14b = counted_call(torch, cnt, lambda: rs.routed_matvec(RL, x),
+                           "routed_levels", "phase 11d 14b routed_matvec")
+    rel = against_scipy("routed_matvec", y)
+    t = spmv_times(lambda: rs.routed_levels_matvec(X, RL.idxJ, RL.V),
+                   lambda: rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V),
+                   lambda: Pt @ x, slots, nnz,
+                   RL.idxJ.nbytes + RL.V.nbytes + X.nbytes + G * W * 4,
+                   2 * slots)
+    mv_ms = cuda_ms(lambda: rs.routed_matvec(RL, x), inner=20)
+    log(f"[phase 11d] 14b: kernel {t[0]:.4f} ms ({t[0] * 1e6 / slots:.4f} "
+        f"ns/slot, {t[0] * 1e6 / nnz:.4f} ns/nnz), whole matvec "
+        f"{mv_ms:.4f} ms, plain {t[1]:.4f} ms, CSR P @ x {t[2]:.4f} ms, "
+        f"bound {t[3][0]:.4f} ms (streamed bytes)")
+    entries.append(spmv_entry("routed_levels", n14b, err, t, {
+        "library_call": "CSR P @ x", "matvec_ms": mv_ms,
+        "rel_err_scipy": rel, "T": T, "slots": slots, "fill": nnz / slots,
+        "pack_s": pack_s, "ns_per_slot": t[0] * 1e6 / slots,
+        "ns_per_nnz": t[0] * 1e6 / nnz,
+        "census_tiles_per_nnz": n_tiles / nnz}))
+    del RL, X, y
+    torch.cuda.empty_cache()
+
+    # Row 15: row routed, then the one-hot block sum (one FP32 product).
+    t0 = time.perf_counter()
+    RR = rs.row_routed(Pc, DEVICE)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    R, Wd = RR.idx.shape
+    slots = R * Wd
+    log(f"[phase 11d] 15 row routed: R={R} rows (L_max={RR.L}, "
+        f"{RR.n_win} windows), slots {slots} ({slots / nnz:.1f}x nnz), "
+        f"idx + V {(RR.idx.nbytes + RR.V.nbytes) / 1e6:.0f} MB, Ssum "
+        f"{tuple(RR.Ssum.shape)} {RR.Ssum.nbytes / 1e9:.2f} GB, packed in "
+        f"{pack_s:.2f} s")
+    Xw = torch.nn.functional.pad(x, (0, RR.n_win * Wd - SPARSE_N))
+    Xw = Xw.reshape(RR.n_win, Wd)
+    k = rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L)
+    pl = rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L)
+    err = compare("row_routed_rows", k, pl, failures, "phase 11d")
+    log(f"[phase 11d] row_routed_rows bit for bit its plain version: "
+        f"{torch.equal(k, pl)}")
+    del k, pl
+    y, n15 = counted_call(torch, cnt, lambda: rs.row_routed_matvec(RR, x),
+                          "row_routed_rows", "phase 11d 15 row_routed_matvec")
+    rel = against_scipy("row_routed_matvec", y)
+    t = spmv_times(lambda: rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L),
+                   lambda: rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L),
+                   lambda: Pt @ x, slots, nnz,
+                   RR.idx.nbytes + RR.V.nbytes + Xw.nbytes + slots * 4, slots)
+    mv_ms = cuda_ms(lambda: rs.row_routed_matvec(RR, x), inner=5)
+    log(f"[phase 11d] 15: kernel {t[0]:.4f} ms ({t[0] * 1e6 / slots:.4f} "
+        f"ns/slot, {t[0] * 1e6 / nnz:.4f} ns/nnz), whole matvec with the "
+        f"block sum {mv_ms:.4f} ms, plain {t[1]:.4f} ms, CSR P @ x "
+        f"{t[2]:.4f} ms, bound {t[3][0]:.4f} ms (streamed bytes)")
+    entries.append(spmv_entry("row_routed_rows", n15, err, t, {
+        "library_call": "CSR P @ x", "matvec_ms": mv_ms,
+        "rel_err_scipy": rel, "R": R, "L_max": RR.L, "slots": slots,
+        "fill": nnz / slots, "pack_s": pack_s,
+        "ns_per_slot": t[0] * 1e6 / slots, "ns_per_nnz": t[0] * 1e6 / nnz}))
+    del RR, Xw, y
+    torch.cuda.empty_cache()
+    require(not failures, "; ".join(failures))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1864,6 +2264,14 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[phase 1]   {line.strip()}")
+
+    if "--sparse-only" in sys.argv[1:]:
+        entries = phase_sparse(torch, pkg, counters(),
+                               "--profile" in sys.argv[1:])
+        log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"kernels": entries}))
+        print(card)
+        return 0
 
     # Phase 2: every kernel against its plain version.
     extra = {}  # further numbers of the ENTRY_KERNELS, by kernel
@@ -1929,6 +2337,10 @@ def main() -> int:
     # scope of a solve.
     entry_launches = phase_entry_points(torch, pkg, cnt, extra)
 
+    # Phase 11: the large sparse path (BASELINE config 4) and the SpMV
+    # kernels of rows 13-15.
+    sparse_entries = phase_sparse(torch, pkg, cnt, "--profile" in sys.argv[1:])
+
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
         by_path = {k: v.get(name) for k, v in paths.items()}
@@ -1982,6 +2394,7 @@ def main() -> int:
                         "launches": entry_launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
                         "bound_by": by, "library_ms": lms, **extra[name]})
+    kernels += sparse_entries
     log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

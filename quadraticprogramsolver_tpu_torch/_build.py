@@ -43,6 +43,9 @@ _SIGNATURES = {
     "qps_prox_chunk": (_P,) * 16 + (_I,) * 7 + (_P,),
     "qps_admm_chunk_minv": (_P,) * 18 + (_I,) * 6 + (_F, _F, _P),
     "qps_prox_chunk_minv": (_P,) * 17 + (_I,) * 7 + (_F, _P),
+    "qps_ell_matvec": (_P,) * 4 + (_I, _I, _P),
+    "qps_routed_levels": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "qps_row_routed": (_P,) * 4 + (_L, _I, _I, _P),
 }
 
 
@@ -203,6 +206,22 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *operands) -> None:
+    """Raise unless every (tensor, dtype) operand is a contiguous CUDA
+    tensor of that dtype, all on one device (the SpMV kernels' rule: they
+    read scalars, so no alignment is asked)."""
+    dev = operands[0][0].device
+    for i, (t, want) in enumerate(operands):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: operand {i} is on {t.device}, expected "
+                             f"the CUDA device {dev}")
+        if t.dtype != want:
+            raise ValueError(f"{name}: operand {i} is {t.dtype}, the kernel "
+                             f"takes {str(want).removeprefix('torch.')}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operand {i} is not contiguous")
 
 
 def require_cuda_f32(name: str, *tensors, bf16=frozenset(),

@@ -67,6 +67,20 @@ class QP:
     def matvec_At(self, v: torch.Tensor) -> torch.Tensor:
         return torch.matmul(v.unsqueeze(-2), self.A).squeeze(-2)
 
+    def diag_P(self) -> torch.Tensor:
+        return torch.diagonal(self.P, dim1=-2, dim2=-1)
+
+    def diag_AtA(self) -> torch.Tensor:
+        return (self.A * self.A).sum(-2)
+
+    def diag_AtWA(self, w: torch.Tensor) -> torch.Tensor:
+        """diag(A' diag(w) A) for per-row penalty weights w (*B, m)."""
+        return ((self.A * self.A) * w[..., :, None]).sum(-2)
+
+    @property
+    def is_dense(self) -> bool:
+        return True
+
     def objective(self, x: torch.Tensor) -> torch.Tensor:
         """0.5 x'Px + q'x, batched over leading axes."""
         return 0.5 * (x * self.matvec_P(x)).sum(-1) + (self.q * x).sum(-1)

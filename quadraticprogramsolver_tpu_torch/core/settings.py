@@ -327,5 +327,5 @@ def _unimplemented(s: Settings):
         yield "scaling_iters", "Ruiz scaling"
     if s.record_history:
         yield "record_history", "residual history"
-    if s.kkt_backend not in (KKTBackendKind.AUTO, KKTBackendKind.CHOLESKY):
+    if s.kkt_backend in (KKTBackendKind.KKT_LDL, KKTBackendKind.KKT_MINRES):
         yield "kkt_backend", f"the {s.kkt_backend.value} backend"

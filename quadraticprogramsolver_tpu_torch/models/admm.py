@@ -17,7 +17,15 @@ The JAX package's ``while_loop`` becomes a host loop over check intervals:
 each pass runs one chunk of ``check_interval`` iterations (one kernel launch
 on the fused path), one convergence check on the device, and ONE
 device-to-host sync that reads "any lane still running" together with "any
-lane's rho tripped". Lanes that finished are frozen by masking.
+lane's rho tripped" (``_solve_core.syncs`` counts them). Lanes that finished
+are frozen by masking. The KKT backend (models/kkt.py) is CHOLESKY for dense
+problems or CG, the matrix-free path of a :class:`~..core.sparse_problem.
+SparseQP`; CG's inner loop reads its own flag once per step (``kkt._pcg``).
+
+``solve(..., scaling=)`` takes a problem pre-scaled by Ruiz equilibration
+(models/scaling.py: ``equilibrate_sparse_host``): warm starts and the
+solution are in the original space, and termination runs on unscaled
+residuals (``term_scale``) while rho adapts on the scaled ones.
 """
 
 from __future__ import annotations
@@ -27,7 +35,8 @@ import dataclasses
 import torch
 
 from ..core.problem import QP, pad_qp
-from ..core.settings import RHO_MAX, RHO_MIN, Settings, chunk_precision
+from ..core.settings import (RHO_MAX, RHO_MIN, KKTBackendKind, Settings,
+                             chunk_precision)
 from ..core.state import SolveInfo, Solution, SolverState, Status
 from ..ops.linalg import fp32_products, inf_norm, kernel_dtype_ok
 from . import kkt as kkt_mod
@@ -38,8 +47,8 @@ def _as_tensor(v, qp: QP):
     return torch.as_tensor(v, dtype=qp.dtype, device=qp.device).contiguous()
 
 
-def _init_state(qp: QP, settings: Settings, x0=None, z0=None, y0=None,
-                rho0=None) -> SolverState:
+def _init_state(qp: QP, settings: Settings, backend, x0=None, z0=None,
+                y0=None, rho0=None) -> SolverState:
     batch = qp.batch_shape
     kw = dict(dtype=qp.dtype, device=qp.device)
     x = torch.zeros(batch + (qp.n,), **kw) if x0 is None else _as_tensor(x0, qp)
@@ -47,7 +56,7 @@ def _init_state(qp: QP, settings: Settings, x0=None, z0=None, y0=None,
     y = torch.zeros(batch + (qp.m,), **kw) if y0 is None else _as_tensor(y0, qp)
     rho = (torch.full(batch, settings.rho, **kw) if rho0 is None
            else _as_tensor(rho0, qp).expand(batch).clone())
-    cache = kkt_mod.cholesky_init(qp, rho, settings.sigma_for(qp.dtype), settings)
+    cache = backend.init(qp, rho, settings.sigma_for(qp.dtype), settings)
     products = None
     if settings.check_infeasibility:
         # Products at the start iterate, the base of the first check's
@@ -66,19 +75,23 @@ def _init_state(qp: QP, settings: Settings, x0=None, z0=None, y0=None,
 def _fused_chunk_ok(qp: QP, settings: Settings) -> bool:
     return (
         settings.fused_chunk
+        and qp.is_dense
         and kernel_dtype_ok(qp.dtype, qp.device)
         and len(qp.batch_shape) == 1
         and qp.n % 128 == 0 and qp.n > 0
         and qp.m % 128 == 0 and qp.m > 0
+        and kkt_mod.resolve_backend(settings.kkt_backend, qp)
+        is KKTBackendKind.CHOLESKY
     )
 
 
-def _run_chunk(qp: QP, settings: Settings, state: SolverState):
+def _run_chunk(qp: QP, settings: Settings, backend, state: SolverState):
     """check_interval masked ADMM iterations.
 
-    Returns (x, z, y, xp, zp, chunk_prods); chunk_prods is (Ax, ATy) from
-    the fused kernel, or None on the torch path (the check computes them
-    there).
+    Returns (x, z, y, xp, zp, cache, chunk_prods): cache is the backend's
+    cache after the chunk (CG's carries its warm start xx), chunk_prods is
+    (Ax, ATy) from the fused kernel, or None on the torch path (the check
+    computes them there).
     """
     rho_row = kkt_mod.rho_rows(qp, state.rho, settings).expand(
         qp.batch_shape + (qp.m,)).contiguous()
@@ -108,15 +121,14 @@ def _run_chunk(qp: QP, settings: Settings, state: SolverState):
                 state.y, rho_row, active, K=settings.check_interval,
                 alpha=settings.alpha, sigma=settings.sigma_for(qp.dtype),
                 refine=settings.kkt_refinement_steps, lanes=lanes)
-        return x, z, y, xp, zp, (Ax, ATy)
+        return x, z, y, xp, zp, state.kkt_cache, (Ax, ATy)
 
     alpha, alpha1 = settings.alpha, 1.0 - settings.alpha
     active = (state.status == Status.RUNNING)[..., None]
-    x, z, y = state.x, state.z, state.y
+    x, z, y, cache = state.x, state.z, state.y, state.kkt_cache
     xp, zp = x, z
     for _ in range(settings.check_interval):
-        xx, zz = kkt_mod.cholesky_solve(state.kkt_cache, qp, x, z, y,
-                                        state.rho, settings)
+        xx, zz, cache = backend.solve(cache, qp, x, z, y, state.rho, settings)
         xp, zp = x, z
         x_new = alpha * xx + alpha1 * xp
         z_new = torch.minimum(
@@ -126,7 +138,7 @@ def _run_chunk(qp: QP, settings: Settings, state: SolverState):
         x = torch.where(active, x_new, xp)
         z = torch.where(active, z_new, zp)
         y = torch.where(active, y_new, y)
-    return x, z, y, xp, zp, None
+    return x, z, y, xp, zp, cache, None
 
 
 def _infeasibility_certificates(qp: QP, settings: Settings, dx, dy,
@@ -160,12 +172,19 @@ def _infeasibility_certificates(qp: QP, settings: Settings, dx, dy,
 
 
 def _check_convergence(qp: QP, settings: Settings, state: SolverState,
-                       x, z, y, xp, zp, chunk_prods=None) -> SolverState:
+                       x, z, y, xp, zp, term_scale=None,
+                       chunk_prods=None) -> SolverState:
     """Residuals, adaptive-rho candidate and termination flags.
 
     Flag precedence as in the JAX package: the fixed-point flag (2) wins over
     primal/dual (3) when both pass in one check; a certificate (4/5) wins
     over the fixed point but not over 3.
+
+    With ``term_scale`` (a ScalingData of a Ruiz-scaled problem, P' = cDPD,
+    A' = EAD, x = Dx', y = Ey'/c) the termination tests run on the unscaled
+    residuals E^{-1}(A'x' - z') and D^{-1}(P'x' + q' + A''y')/c, while rho
+    adapts on the scaled ones (JAX admm.py:418-472). The certificates stay
+    in the scaled space: infeasibility is invariant under diagonal scaling.
     """
     dt = qp.dtype
     if chunk_prods is None:
@@ -174,17 +193,44 @@ def _check_convergence(qp: QP, settings: Settings, state: SolverState,
         Ax, ATy = chunk_prods
     Px = qp.matvec_P(x)
 
-    res_prim = inf_norm(Ax - z)
-    res_dual = inf_norm(Px + qp.q + ATy)
-    max_prim = torch.maximum(inf_norm(Ax), inf_norm(z))
-    max_dual = torch.maximum(torch.maximum(inf_norm(Px), inf_norm(ATy)),
-                             inf_norm(qp.q))
+    if term_scale is None:
+        def unsc_p(v):
+            return v
+        unsc_d = unsc_x = unsc_p
+    else:
+        e_inv = 1.0 / term_scale.e
+        dc_inv = 1.0 / (term_scale.d * term_scale.c[..., None])
+
+        def unsc_p(v):  # row-space (primal) vectors
+            return v * e_inv
+
+        def unsc_d(v):  # variable-space (dual) vectors
+            return v * dc_inv
+
+        def unsc_x(v):  # primal iterates and their deltas
+            return v * term_scale.d
+
+    res_prim = inf_norm(unsc_p(Ax - z))
+    res_dual = inf_norm(unsc_d(Px + qp.q + ATy))
+    max_prim = torch.maximum(inf_norm(unsc_p(Ax)), inf_norm(unsc_p(z)))
+    max_dual = torch.maximum(
+        torch.maximum(inf_norm(unsc_d(Px)), inf_norm(unsc_d(ATy))),
+        inf_norm(unsc_d(qp.q)))
     active = state.status == Status.RUNNING
 
     rho_cand = state.rho_cand
     if settings.adaptive_rho:
-        num = res_prim * max_dual
-        den = res_dual * max_prim
+        # rho adapts on the residuals of the space the iteration runs in.
+        if term_scale is None:
+            rp_s, rd_s, mp_s, md_s = res_prim, res_dual, max_prim, max_dual
+        else:
+            rp_s = inf_norm(Ax - z)
+            rd_s = inf_norm(Px + qp.q + ATy)
+            mp_s = torch.maximum(inf_norm(Ax), inf_norm(z))
+            md_s = torch.maximum(torch.maximum(inf_norm(Px), inf_norm(ATy)),
+                                 inf_norm(qp.q))
+        num = rp_s * md_s
+        den = rd_s * mp_s
         ratio = torch.sqrt(num / torch.where(den == 0, torch.ones_like(den), den))
         cand = torch.clamp(state.rho * ratio, RHO_MIN, RHO_MAX)
         ok = cand.isfinite() & (den != 0) & (cand > 0)
@@ -196,9 +242,10 @@ def _check_convergence(qp: QP, settings: Settings, state: SolverState,
     # Fixed-point threshold with a dtype-aware floor of 8 ulps of the
     # iterate scale (invisible in f64, the honest floor in f32).
     ulp = 8 * torch.finfo(dt).eps
-    eps_x = settings.eps_admm + ulp * torch.clamp(inf_norm(x), min=1.0)
-    eps_z = settings.eps_admm + ulp * torch.clamp(inf_norm(z), min=1.0)
-    admm_fp = (inf_norm(x - xp) <= eps_x) & (inf_norm(z - zp) <= eps_z)
+    eps_x = settings.eps_admm + ulp * torch.clamp(inf_norm(unsc_x(x)), min=1.0)
+    eps_z = settings.eps_admm + ulp * torch.clamp(inf_norm(unsc_p(z)), min=1.0)
+    admm_fp = ((inf_norm(unsc_x(x - xp)) <= eps_x)
+               & (inf_norm(unsc_p(z - zp)) <= eps_z))
 
     status = state.status
     status = status.masked_fill(active & solved, int(Status.SOLVED))
@@ -246,25 +293,33 @@ def _rho_trips(settings: Settings, state: SolverState):
                      | (state.rho_cand > f * state.rho))
 
 
-def _maybe_refactor(qp: QP, settings: Settings, state: SolverState,
+def _maybe_refactor(qp: QP, settings: Settings, backend, state: SolverState,
                     tripped, any_tripped: bool) -> SolverState:
-    """Adopt tripped lanes' rho candidates and rebuild the factor.
+    """Adopt tripped lanes' rho candidates and refresh the KKT cache.
 
     The JAX package's ``lax.cond(any(tripped))`` is the host ``if`` on
-    ``any_tripped`` (read in the loop's one sync). Lanes that did not trip
-    keep their rho, so rebuilding the whole batch leaves their factor
-    unchanged.
+    ``any_tripped`` (read in the loop's one sync); a backend with a cheap
+    refactor (CG's diagonal refresh) refreshes every chunk, as in JAX. Lanes
+    that did not trip keep their rho, so refreshing the whole batch leaves
+    their cache unchanged.
     """
-    if not any_tripped:
+    if not (any_tripped or backend.cheap_refactor):
         return state
     rho = torch.where(tripped, state.rho_cand, state.rho)
-    cache = kkt_mod.cholesky_init(qp, rho, settings.sigma_for(qp.dtype),
-                                  settings)
+    cache = backend.refactor(state.kkt_cache, qp, rho,
+                             settings.sigma_for(qp.dtype), settings)
     return dataclasses.replace(state, rho=rho, kkt_cache=cache)
 
 
-def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0) -> Solution:
-    state = _init_state(qp, settings, x0, z0, y0, rho0)
+def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0,
+                term_scale=None) -> Solution:
+    if settings.sigma_free_rhs and kkt_mod.resolve_backend(
+            settings.kkt_backend, qp) is not KKTBackendKind.CHOLESKY:
+        raise ValueError(
+            "sigma_free_rhs is a dense CHOLESKY-backend optimization; "
+            "other backends build the RHS per-solve anyway")
+    backend = kkt_mod.get_backend(settings.kkt_backend, qp)
+    state = _init_state(qp, settings, backend, x0, z0, y0, rho0)
     max_iter = settings.num_checks * settings.check_interval
     while state.iteration < max_iter:
         tripped = _rho_trips(settings, state)
@@ -272,12 +327,17 @@ def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0) -> Solution:
         if tripped is not None:
             flags.append(tripped.any())
         flags = torch.stack(flags).tolist()  # the check's one host sync
+        _solve_core.syncs += 1
         if not flags[0]:
             break
         if tripped is not None:
-            state = _maybe_refactor(qp, settings, state, tripped, flags[1])
-        x, z, y, xp, zp, prods = _run_chunk(qp, settings, state)
-        state = _check_convergence(qp, settings, state, x, z, y, xp, zp, prods)
+            state = _maybe_refactor(qp, settings, backend, state, tripped,
+                                    flags[1])
+        x, z, y, xp, zp, cache, prods = _run_chunk(qp, settings, backend,
+                                                   state)
+        state = dataclasses.replace(state, kkt_cache=cache)
+        state = _check_convergence(qp, settings, state, x, z, y, xp, zp,
+                                   term_scale, prods)
 
     exhausted = state.status == Status.RUNNING
     status = state.status.masked_fill(exhausted, int(Status.MAX_ITERATIONS))
@@ -294,24 +354,52 @@ def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0) -> Solution:
     return Solution(x=x, z=state.z, y=y, info=info)
 
 
+_solve_core.syncs = 0
+
+
+def _solve_impl(qp, settings: Settings, x0, z0, y0, rho0,
+                scaling=None) -> Solution:
+    if scaling is None:
+        return _solve_core(qp, settings, x0, z0, y0, rho0)
+    from .scaling import scale_iterates, unscale_iterates
+
+    scaling = scaling.to(qp.dtype, qp.device)
+    xs, zs, ys = scale_iterates(
+        scaling, *(None if v is None else _as_tensor(v, qp)
+                   for v in (x0, z0, y0)))
+    sol = _solve_core(qp, settings, xs, zs, ys, rho0, term_scale=scaling)
+    x, z, y = unscale_iterates(scaling, sol.x, sol.z, sol.y)
+    # The in-loop residuals are already unscaled (term_scale); the scaled
+    # problem's objective is c times the original's.
+    info = dataclasses.replace(sol.info,
+                               objective=sol.info.objective / scaling.c)
+    return Solution(x=x, z=z, y=y, info=info)
+
+
 @fp32_products()
-def solve(qp: QP, settings: Settings = Settings(), x0=None, z0=None, y0=None,
-          rho0=None) -> Solution:
+def solve(qp, settings: Settings = Settings(), x0=None, z0=None, y0=None,
+          rho0=None, scaling=None) -> Solution:
     """Solve a (batched) box-constrained QP on the device its tensors are on.
 
+    ``qp`` is a dense batched :class:`QP` or one large
+    :class:`~..core.sparse_problem.SparseQP` (the matrix-free CG path).
     ``x0``/``z0``/``y0`` warm-start the iterates and ``rho0`` (scalar or
-    per-lane) the penalty. A fleet that the fused chunk wants in
-    128-multiples is padded first (the inert padding of
-    :func:`~..core.problem.pad_qp`), solved, and sliced back. With
-    ``settings.require_fused`` any requested kernel that would not run is
-    an error (models/plan.py). Torch's products run in full FP32 inside
-    (:func:`~..ops.linalg.fp32_products`).
+    per-lane) the penalty. ``scaling``: the ScalingData of a problem
+    pre-scaled by Ruiz equilibration (``equilibrate_sparse_host`` then
+    ``make_sparse_qp``); warm starts and the solution are in the original
+    space and termination runs on unscaled residuals. A dense fleet that
+    the fused chunk wants in 128-multiples is padded first (the inert
+    padding of :func:`~..core.problem.pad_qp`; not with ``scaling``),
+    solved, and sliced back. With ``settings.require_fused`` any requested
+    kernel that would not run is an error (models/plan.py). Torch's
+    products run in full FP32 inside (:func:`~..ops.linalg.fp32_products`).
     """
-    qp = QP(*(t.contiguous() for t in qp.tensors()))  # what the kernels take
-    p = plan_fn(qp, settings)  # also rejects backends other than CHOLESKY
+    if qp.is_dense:
+        qp = QP(*(t.contiguous() for t in qp.tensors()))  # what the kernels take
+    p = plan_fn(qp, settings)
     if settings.require_fused:
         check_require_fused(p, "ADMM")
-    if p.padded is not None:
+    if p.padded is not None and scaling is None:
         n_pad, m_pad = p.padded
 
         def vpad(v, w):
@@ -324,7 +412,7 @@ def solve(qp: QP, settings: Settings = Settings(), x0=None, z0=None, y0=None,
                           vpad(z0, m_pad), vpad(y0, m_pad), rho0)
         return Solution(x=sol.x[..., : qp.n], z=sol.z[..., : qp.m],
                         y=sol.y[..., : qp.m], info=sol.info)
-    return _solve_core(qp, settings, x0, z0, y0, rho0)
+    return _solve_impl(qp, settings, x0, z0, y0, rho0, scaling)
 
 
 #: PyTorch runs eagerly; the alias keeps the JAX package's call sites.

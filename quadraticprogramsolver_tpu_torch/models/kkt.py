@@ -1,21 +1,29 @@
-"""Dense CHOLESKY KKT backend (counterpart of the JAX package's models/kkt.py).
+"""KKT backends (counterpart of the JAX package's models/kkt.py): the dense
+CHOLESKY backend and the matrix-free CG backend, behind one registry.
 
 Every iteration solves the reduced KKT system with M = P + sigma*I +
 A' diag(rho) A (SPD):
 
-    xx = M^{-1} (sigma*x - q + A'(rho*z - y)),      zz = A xx,
+    xx = M^{-1} (sigma*x - q + A'(rho*z - y)),      zz = A xx.
 
-or, in sigma-free form (Settings.sigma_free_rhs), xx = G(rho*z - y) - g with
-the cached G = M^{-1}A' and g = M^{-1}q: a copy {G, g}, the factor's slab
-{S, g} (Settings.slab_cache) or G's bf16 halves {Ghi, Glo, g}
-(Settings.split_cache). Off the fused slab factor, M^{-1}
-and {G, g} come from ``spd_inverse``/``spd_solve`` (ops/linalg.py: the
-blocked Gauss-Jordan sweep around the pivot kernel on its shapes, Cholesky
-elsewhere). Only the CHOLESKY backend is ported; AUTO resolves to it or
-raises.
+CHOLESKY caches M^{-1}, or, in sigma-free form (Settings.sigma_free_rhs),
+G = M^{-1}A' and g = M^{-1}q with xx = G(rho*z - y) - g: a copy {G, g}, the
+factor's slab {S, g} (Settings.slab_cache) or G's bf16 halves {Ghi, Glo, g}
+(Settings.split_cache). Off the fused slab factor, M^{-1} and {G, g} come
+from ``spd_inverse``/``spd_solve`` (ops/linalg.py: the blocked Gauss-Jordan
+sweep around the pivot kernel on its shapes, Cholesky elsewhere).
+
+CG never forms M: Jacobi-preconditioned conjugate gradients on the operator
+v -> Pv + sigma v + A'(rho (Av)), warm-started from the previous iteration's
+xx (the cache carries it), the large sparse path's backend. AUTO resolves to
+CHOLESKY for dense problems with n + m <= MAX_DIRECT_KKT_DIM and to CG
+otherwise. KKT_LDL and KKT_MINRES are not ported (Settings rejects them).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 
@@ -26,14 +34,17 @@ from ..ops.linalg import (add_scaled_identity, bf16_split, kernel_dtype_ok,
 
 
 def resolve_backend(kind: KKTBackendKind, qp) -> KKTBackendKind:
-    """AUTO -> CHOLESKY for dense problems under the direct-size threshold."""
-    if kind is KKTBackendKind.CHOLESKY:
+    """The JAX package's static selection: sparse problems always take the
+    matrix-free CG path; dense problems go direct (CHOLESKY) below the size
+    threshold. CHOLESKY and KKT_LDL on a sparse problem raise ValueError."""
+    if kind is not KKTBackendKind.AUTO:
+        if (kind in (KKTBackendKind.CHOLESKY, KKTBackendKind.KKT_LDL)
+                and not qp.is_dense):
+            raise ValueError(f"{kind} requires a dense QP; use CG for SparseQP")
         return kind
-    if kind is KKTBackendKind.AUTO and qp.n + qp.m <= MAX_DIRECT_KKT_DIM:
+    if qp.is_dense and qp.n + qp.m <= MAX_DIRECT_KKT_DIM:
         return KKTBackendKind.CHOLESKY
-    raise NotImplementedError(
-        f"KKT backend {kind.value} (n + m = {qp.n + qp.m}) resolves to a "
-        "backend the PyTorch port does not have yet (only CHOLESKY)")
+    return KKTBackendKind.CG
 
 
 def row_weights(qp, settings: Settings):
@@ -69,6 +80,7 @@ def _fused_factor_ok(qp: QP, settings: Settings) -> bool:
     return (
         settings.fused_factor
         and settings.sigma_free_rhs
+        and qp.is_dense
         and kernel_dtype_ok(qp.dtype, qp.device)
         and len(qp.batch_shape) == 1
         and qp.n % 128 == 0 and qp.n > 0
@@ -123,7 +135,17 @@ def cholesky_init(qp: QP, rho, sigma, settings: Settings) -> dict:
     return {"M_inv": spd_inverse(M)}
 
 
+def cholesky_refactor(cache, qp: QP, rho, sigma, settings: Settings) -> dict:
+    return cholesky_init(qp, rho, sigma, settings)
+
+
+def _normal_rhs(qp, x, z, y, rho_row, sigma):
+    """sigma*x - q + A'(rho_row*z - y): the reduced-KKT right-hand side."""
+    return sigma * x - qp.q + qp.matvec_At(rho_row * z - y)
+
+
 def _apply_normal(qp, rho_row, sigma, v):
+    """Matrix-free M @ v = P v + sigma v + A'(rho_row * (A v))."""
     return qp.matvec_P(v) + sigma * v + qp.matvec_At(rho_row * qp.matvec_A(v))
 
 
@@ -135,10 +157,143 @@ def cholesky_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
         # (Settings requires fused_chunk for them, and the fused factor's
         # gate implies the chunk's), so this path always holds a copy of G.
         xx = matvec(cache["G"], rho_row * z - y) - cache["g"]
-        return xx, qp.matvec_A(xx)
-    b = sigma * x - qp.q + qp.matvec_At(rho_row * z - y)
+        return xx, qp.matvec_A(xx), cache
+    b = _normal_rhs(qp, x, z, y, rho_row, sigma)
     M_inv = cache["M_inv"]
     xx = matvec(M_inv, b)
     for _ in range(settings.kkt_refinement_steps):
         xx = xx + matvec(M_inv, b - _apply_normal(qp, rho_row, sigma, xx))
-    return xx, qp.matvec_A(xx)
+    return xx, qp.matvec_A(xx), cache
+
+
+# --------------------------------------------------------------------------
+# Matrix-free PCG backend (iterative path)
+# --------------------------------------------------------------------------
+
+def _jacobi_diag_inv(qp, rho, sigma, settings: Settings):
+    w = row_weights(qp, settings)
+    if w is None:
+        d = qp.diag_P() + sigma + rho[..., None] * qp.diag_AtA()
+    else:
+        d = qp.diag_P() + sigma + rho[..., None] * qp.diag_AtWA(w)
+    return torch.where(d > 0, 1.0 / d, torch.ones_like(d))
+
+
+def cg_init(qp, rho, sigma, settings: Settings) -> dict:
+    return {
+        "diag_inv": _jacobi_diag_inv(qp, rho, sigma, settings),
+        # Warm start from the previous iteration's solution: the solve
+        # returns its xx in the cache, which the ADMM loop carries.
+        "xx": torch.zeros(qp.batch_shape + (qp.n,), dtype=qp.dtype,
+                          device=qp.device),
+    }
+
+
+def cg_refactor(cache, qp, rho, sigma, settings: Settings) -> dict:
+    return {"diag_inv": _jacobi_diag_inv(qp, rho, sigma, settings),
+            "xx": cache["xx"]}
+
+
+def cg_solve(cache, qp, x, z, y, rho, settings: Settings):
+    sigma = settings.sigma_for(qp.dtype)
+    rho_row = rho_rows(qp, rho, settings)
+    b = _normal_rhs(qp, x, z, y, rho_row, sigma)
+    xx = _pcg(lambda v: _apply_normal(qp, rho_row, sigma, v), b, cache["xx"],
+              cache["diag_inv"], abs_tol=settings.cg_eps,
+              max_iterations=settings.cg_max_iterations,
+              rel_tol=settings.cg_rel_eps)
+    return xx, qp.matvec_A(xx), {**cache, "xx": xx}
+
+
+def _pcg(apply_M, b, x0, diag_inv, abs_tol: float, max_iterations: int,
+         rel_tol: float = 0.0):
+    """Batched Jacobi-preconditioned CG with per-lane convergence masking
+    (the JAX package's ``_pcg``, models/kkt.py:519-566).
+
+    The tolerance floors at 10 ulps of ||b|| so float32 lanes terminate
+    instead of stalling at a float64-era absolute tolerance; ``rel_tol`` > 0
+    also stops at rel_tol * ||r0|| (the inexact-ADMM forcing term: with the
+    warm-started x0, ||r0|| contracts as the outer iteration converges).
+
+    JAX's ``lax.while_loop`` becomes a host loop whose condition reads
+    "every lane done" back from the device once per step (``_pcg.syncs``
+    counts these reads, ``_pcg.steps`` the steps). A done lane takes
+    alpha = beta = 0, so its x stays unchanged bit for bit.
+    """
+    dtype = b.dtype
+    eps = torch.finfo(dtype).eps
+    b_norm = torch.linalg.vector_norm(b, dim=-1)
+    tol2 = torch.clamp(10 * eps * b_norm, min=abs_tol) ** 2
+
+    r = b - apply_M(x0)
+    if rel_tol > 0.0:
+        r0n2 = (r * r).sum(-1)
+        rel = torch.as_tensor(rel_tol, dtype=dtype, device=b.device)
+        tol2 = torch.maximum(tol2, rel ** 2 * r0n2)
+    zk = diag_inv * r
+    p = zk
+    rz = (r * zk).sum(-1)
+    done = (r * r).sum(-1) <= tol2
+    x = x0
+    it = 0
+    while it < max_iterations:
+        _pcg.syncs += 1
+        if bool(done.all()):
+            break
+        Ap = apply_M(p)
+        pAp = (p * Ap).sum(-1)
+        alpha = torch.where(done | (pAp <= 0), 0.0,
+                            rz / torch.where(pAp == 0, 1.0, pAp))
+        x = x + alpha[..., None] * p
+        r = r - alpha[..., None] * Ap
+        zk = diag_inv * r
+        rz1 = (r * zk).sum(-1)
+        beta = torch.where(done | (rz == 0), 0.0,
+                           rz1 / torch.where(rz == 0, 1.0, rz))
+        p = zk + beta[..., None] * p
+        done = done | ((r * r).sum(-1) <= tol2)
+        rz = rz1
+        it += 1
+    _pcg.steps += it
+    return x
+
+
+_pcg.steps = 0
+_pcg.syncs = 0
+
+
+# --------------------------------------------------------------------------
+# Registry
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    init: Any
+    refactor: Any
+    solve: Any
+    #: True when refactor is O(n) (iterative backends): the solver then
+    #: calls it every chunk instead of only when a lane's rho tripped.
+    cheap_refactor: bool = False
+
+
+BACKENDS = {
+    KKTBackendKind.CHOLESKY: Backend(cholesky_init, cholesky_refactor,
+                                     cholesky_solve),
+    KKTBackendKind.CG: Backend(cg_init, cg_refactor, cg_solve,
+                               cheap_refactor=True),
+}
+
+
+def get_backend(kind: KKTBackendKind, qp) -> Backend:
+    kind = resolve_backend(kind, qp)
+    if kind not in BACKENDS:
+        raise NotImplementedError(f"KKT backend {kind} is not implemented by "
+                                  "the PyTorch port yet (see ROADMAP.md)")
+    b = BACKENDS[kind]
+    # The functions as this module holds them at the solve's start, so a
+    # counter put on one (chip_smoke.py counts cholesky_init's builds) sees
+    # every call.
+    here = globals()
+    return dataclasses.replace(b, init=here[b.init.__name__],
+                               refactor=here[b.refactor.__name__],
+                               solve=here[b.solve.__name__])

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from ..core.settings import Settings
+from ..core.settings import KKTBackendKind, Settings
 from ..ops.linalg import kernel_dtype_ok, resolve_precision, sweep_ok
 from . import kkt as kkt_mod
 
@@ -30,18 +30,21 @@ from . import kkt as kkt_mod
 class SolvePlan:
     """Static description of the kernel paths one solve will execute."""
 
-    #: Resolved KKT backend ("cholesky"; "prox_alm" for the prox family).
+    #: Resolved KKT backend ("cholesky" or "cg"; "prox_alm" for the prox
+    #: family).
     backend: str
-    #: Chunk implementation: "fused_kernel" or "torch".
+    #: Chunk implementation: "fused_kernel" or "torch" (the JAX plan's
+    #: "xla").
     chunk: str
     #: Factor implementation: "fused_slab" (the slab kernels); "gj_sweep" or
     #: "sweep_inverse" (ops/linalg.py's Gauss-Jordan sweep around the pivot
     #: kernel, sigma-free or M^{-1} form); "torch_cholesky_solve" or
-    #: "torch_inverse" (Cholesky, off the sweep's shapes); or "prepared" (a
-    #: prox solve with a prepared factor).
+    #: "torch_inverse" (Cholesky, off the sweep's shapes); "jacobi_diag"
+    #: (the CG backend); or "prepared" (a prox solve with a prepared factor).
     factor: str
     #: KKT cache layout: "G_g", "slab" (Settings.slab_cache), "split_bf16"
-    #: (Settings.split_cache) or "M_inv" (ADMM); "Ga_Gc_g" or "M_inv" (prox).
+    #: (Settings.split_cache), "M_inv" or "diag" (CG) (ADMM); "Ga_Gc_g" or
+    #: "M_inv" (prox).
     cache: str
     #: (n_pad, m_pad) when the solve pads to 128-multiples ((n_pad, me_pad,
     #: mi_pad) for the prox family); else None.
@@ -108,7 +111,7 @@ def plan(qp, settings: Settings) -> SolvePlan:
 
     # --- auto-pad decision (models/admm.solve preamble) ---
     padded = None
-    if (settings.fused_chunk and dtype_reason is None
+    if (settings.fused_chunk and qp.is_dense and dtype_reason is None
             and len(qp.batch_shape) == 1
             and m > 0 and (n % 128 or m % 128)):
         n_pad = -(-n // 128) * 128
@@ -139,7 +142,13 @@ def plan(qp, settings: Settings) -> SolvePlan:
 
     chunk, lanes, dot_precision = "torch", 1, "highest"
     if settings.fused_chunk:
-        why = shape_reasons("fused chunk")
+        if not qp.is_dense:
+            why = ["fused chunk requires a dense QP"]
+        else:
+            why = shape_reasons("fused chunk")
+            if kind is not KKTBackendKind.CHOLESKY:
+                why.append(f"fused chunk requires the CHOLESKY backend "
+                           f"(resolved {kind.value})")
         if why:
             reasons.extend(why)
         else:
@@ -148,6 +157,12 @@ def plan(qp, settings: Settings) -> SolvePlan:
                 qp.batch_shape, settings.sigma_free_rhs, qp.dtype, settings,
                 reasons)
 
+    if kind is not KKTBackendKind.CHOLESKY:
+        # CG (the JAX plan adds no factor reasons off CHOLESKY).
+        return SolvePlan(backend=kind.value, chunk=chunk,
+                         factor="jacobi_diag", cache="diag", padded=padded,
+                         fallback_reasons=tuple(reasons), lanes=lanes,
+                         dot_precision=dot_precision)
     if settings.fused_factor:
         why = shape_reasons("fused_factor")
         if not settings.sigma_free_rhs:

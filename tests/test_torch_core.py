@@ -22,6 +22,15 @@ from quadraticprogramsolver_tpu_torch.utils import interop
 
 PORT_DIR = pathlib.Path(pt.__file__).parent
 
+# The suite runs under pytest-xdist: several worker processes on a few
+# cores, each of which collects (imports) this module before running any
+# test. torch's OpenMP pool of one thread a core in every worker then
+# oversubscribes the cores and its threads spin: one f64 solve test of
+# test_torch_admm.py took 6 s alone and 330 s as one of six concurrent
+# copies, 6 s with one torch thread each (8 CPU cores). So every
+# process that collects the port's tests runs torch on one thread.
+torch.set_num_threads(1)
+
 
 def _value(v):
     return getattr(v, "value", v)
@@ -63,12 +72,14 @@ REJECTED = [
 #: now does what it does in the JAX package (the same ValueError, or none).
 PORTED = {"slab_cache", "split_cache", "chunk_lanes", "chunk_dot_precision",
           "first_chunk_dot_precision", "pivot_variant"}
+#: Values of a knob that the port has implemented since (the CG backend).
+PORTED_VALUES = {("kkt_backend", pt.KKTBackendKind.CG)}
 
 
 @pytest.mark.parametrize("field,value", REJECTED,
                          ids=[f"{f}={v}" for f, v in REJECTED])
 def test_unimplemented_knob_raises(field, value):
-    if field not in PORTED:
+    if field not in PORTED and (field, value) not in PORTED_VALUES:
         with pytest.raises(NotImplementedError, match=field):
             pt.Settings(**{field: value})
         return
@@ -248,6 +259,11 @@ def test_port_never_imports_jax():
                      r"quadraticprogramsolver_tpu\b(?!_torch))", re.M)
     files = sorted(PORT_DIR.rglob("*.py"))
     assert len(files) >= 15
+    # The sparse path's modules are among them.
+    assert {PORT_DIR / f for f in (
+        "core/sparse_problem.py", "ops/spmv.py", "ops/routed_spmv.py",
+        "models/scaling.py", "problems/generator.py",
+        "utils/oracle.py")} <= set(files)
     for f in files:
         m = bad.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"

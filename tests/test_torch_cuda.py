@@ -736,3 +736,115 @@ def test_tf32_on_leaves_the_solve_unchanged(dev, family):
         matmul.allow_tf32 = False
     assert torch.equal(on.x, off.x)
     assert torch.equal(on.info.iterations, off.info.iterations)
+
+
+def _config(dev, n):
+    """BASELINE config 4's generator at n (float32 ELL on the card), its
+    unscaled P in CSR, and a vector."""
+    d = pt.generate_large_sparse_qp(n, seed=0)
+    q = pt.make_sparse_qp(d.P, d.q, d.A, d.l, d.u, device=dev)
+    return d, q
+
+
+@pytest.mark.parametrize("n", [3000, 100_000])
+def test_spmv_kernels_match_plain_on_card(dev, n):
+    """Rows 13, 14 and 15 against their plain versions (TOL) at a small
+    size and at config 4 (n = 1e5), one launch counted per call; the routed
+    matvecs against scipy in f64 (the probes' 1e-6)."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.ops import routed_spmv as rs
+    from quadraticprogramsolver_tpu_torch.ops import spmv
+
+    d, q = _config(dev, n)
+    g = torch.Generator(device=dev).manual_seed(30)
+    for vals, cols in ((q.P_vals, q.P_cols), (q.A_vals, q.A_cols),
+                       (q.At_vals, q.At_cols)):
+        v = torch.randn(n, generator=g, device=dev)[: int(cols.max()) + 1]
+        before = spmv.ell_matvec.launches
+        out = spmv.ell_matvec(vals, cols, v)
+        assert spmv.ell_matvec.launches == before + 1
+        assert _close(out, spmv.ell_matvec_plain(vals, cols, v))
+    Pc = d.P.tocsr()
+    x_np = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    ref = Pc @ x_np.astype(np.float64)
+    x = torch.tensor(x_np, device=dev)
+
+    def scipy_close(y):
+        return float(np.abs(y.double().cpu().numpy() - ref).max()
+                     / np.abs(ref).max()) <= 1e-6
+
+    RL = rs.route_levels(Pc, 8, rs.probe_width(n), dev)
+    X = torch.nn.functional.pad(x, (0, RL.S * RL.W - n)).reshape(RL.W, RL.S)
+    X = X.T.contiguous()
+    before = rs.routed_levels_matvec.launches
+    assert _close(rs.routed_levels_matvec(X, RL.idxJ, RL.V),
+                  rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V))
+    assert scipy_close(rs.routed_matvec(RL, x))
+    assert rs.routed_levels_matvec.launches == before + 2
+    RR = rs.row_routed(Pc, dev)
+    Xw = torch.nn.functional.pad(x, (0, RR.n_win * 128 - n)).reshape(RR.n_win, 128)
+    assert torch.equal(rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L),
+                       rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L))
+    assert scipy_close(rs.row_routed_matvec(RR, x))
+    # The square micro kernel (one level), at two of the probe's shapes.
+    for S, W, G in ((8, 256, 96), (784, 128, 64)):
+        X = torch.randn((S, W), generator=g, device=dev)
+        idx = torch.randint(0, W, (G, S, W), generator=g, device=dev,
+                            dtype=torch.int32)
+        V = torch.randn((G, S, W), generator=g, device=dev)
+        assert _close(rs.routed_levels_matvec(X, idx, V),
+                      rs.routed_levels_matvec_plain(X, idx, V))
+
+
+def test_spmv_kernels_refuse_what_they_do_not_take(dev):
+    from quadraticprogramsolver_tpu_torch.ops import routed_spmv as rs
+    from quadraticprogramsolver_tpu_torch.ops import spmv
+
+    _, q = _config(dev, 500)
+    v = torch.randn(500, device=dev)
+    vals, cols = q.P_vals, q.P_cols
+    for bad in ((vals.double(), cols, v), (vals, cols.long(), v),
+                (vals, cols, v.double()), (vals.T, cols.T, v),
+                (vals, cols[:-1], v)):
+        with pytest.raises(ValueError):
+            spmv.ell_matvec(*bad)
+    X = torch.randn((8, 128), device=dev)
+    idx = torch.randint(0, 128, (4, 8, 128), device=dev, dtype=torch.int32)
+    V = torch.randn((4, 8, 128), device=dev)
+    for bad in ((X.double(), idx, V), (X, idx.long(), V), (X, idx, V.double()),
+                (X[:4], idx, V)):
+        with pytest.raises(ValueError):
+            rs.routed_levels_matvec(*bad)
+    Xw = torch.randn((4, 128), device=dev)
+    r_idx = torch.randint(0, 128, (8, 128), device=dev, dtype=torch.int32)
+    r_V = torch.randn((8, 128), device=dev)
+    for bad in ((Xw.double(), r_idx, r_V, 2), (Xw, r_idx.long(), r_V, 2),
+                (Xw, r_idx, r_V, 1)):
+        with pytest.raises(ValueError):
+            rs.row_routed_rows(*bad)
+
+
+def test_sparse_solve_on_card(dev):
+    """A small config-4 instance (n = 2000, ELL, float32) at
+    benchmarks/large_sparse.py's settings reaches SOLVED through row 13's
+    kernel; CSR storage launches no kernel of ours; a float64 ELL solve on
+    the card raises (the kernel takes float32)."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.ops import spmv
+
+    d = pt.generate_large_sparse_qp(2000, seed=1)
+    args = (d.P, d.q, d.A, d.l, d.u)
+    st = pt.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.1,
+                     cg_eps=1e-6, cg_max_iterations=200, cg_rel_eps=1e-4)
+    before = spmv.ell_matvec.launches
+    sol = pt.solve(pt.make_sparse_qp(*args, device=dev), st)
+    assert int(sol.info.status) == 3
+    assert spmv.ell_matvec.launches > before
+    before = spmv.ell_matvec.launches
+    csr = pt.solve(pt.make_sparse_qp(*args, storage="bcoo", device=dev), st)
+    assert int(csr.info.status) >= 2 and spmv.ell_matvec.launches == before
+    assert float((csr.x - sol.x).abs().max()) <= 1e-2
+    with pytest.raises(ValueError, match="float32"):
+        pt.solve(pt.make_sparse_qp(*args, dtype=np.float64, device=dev), st)

@@ -12,6 +12,7 @@ from quadraticprogramsolver_tpu.ops.fused_admm import fused_admm_chunk as jax_ch
 
 import quadraticprogramsolver_tpu_torch as pt
 from quadraticprogramsolver_tpu_torch.models import admm as pt_admm
+from quadraticprogramsolver_tpu_torch.models import kkt as pt_kkt
 from quadraticprogramsolver_tpu_torch.ops.fused_admm import (
     fused_admm_chunk, fused_admm_chunk_plain)
 from quadraticprogramsolver_tpu_torch.utils.interop import qp_from_numpy
@@ -66,15 +67,16 @@ def test_fused_and_torch_chunks_agree_in_the_solver():
     plain = pt.Settings(**kw)
     assert pt_admm._fused_chunk_ok(qp, fused)
     assert not pt_admm._fused_chunk_ok(qp, plain)
-    state = pt_admm._init_state(qp, plain, torch.from_numpy(x).double(),
+    backend = pt_kkt.get_backend(plain.kkt_backend, qp)
+    state = pt_admm._init_state(qp, plain, backend, torch.from_numpy(x).double(),
                                 torch.from_numpy(z).double(),
                                 torch.from_numpy(y).double())
     state.status = torch.where(torch.from_numpy(active), 0, 3).int()
-    a = pt_admm._run_chunk(qp, fused, state)
-    b = pt_admm._run_chunk(qp, plain, state)
+    a = pt_admm._run_chunk(qp, fused, backend, state)
+    b = pt_admm._run_chunk(qp, plain, backend, state)
     for u, v in zip(a[:5], b[:5]):
         assert float((u - v).abs().max()) <= 1e-12 * (float(v.abs().max()) + 1)
-    Ax, ATy = a[5]
+    Ax, ATy = a[6]
     assert float((Ax - qp.matvec_A(a[0])).abs().max()) <= 1e-12 * float(Ax.abs().max())
     assert float((ATy - qp.matvec_At(a[2])).abs().max()) <= 1e-12 * float(ATy.abs().max())
 

@@ -27,6 +27,7 @@ from quadraticprogramsolver_tpu.problems.generator import ProblemClass
 
 import quadraticprogramsolver_tpu_torch as pt
 from quadraticprogramsolver_tpu_torch.models import admm as pt_admm
+from quadraticprogramsolver_tpu_torch.models import kkt as pt_kkt
 from quadraticprogramsolver_tpu_torch.ops.fused_admm import (
     fused_admm_chunk_minv, fused_admm_chunk_minv_plain)
 from quadraticprogramsolver_tpu_torch.ops.fused_proxqp import (
@@ -283,13 +284,14 @@ def test_fused_and_torch_minv_chunks_agree_in_the_solver():
     assert not pt_admm._fused_chunk_ok(qp, plain)
     rng = np.random.default_rng(5)
     x0, z0, y0 = (torch.from_numpy(rng.standard_normal((B, w))) for w in (N, M, M))
-    state = pt_admm._init_state(qp, plain, x0, z0, y0)
+    backend = pt_kkt.get_backend(plain.kkt_backend, qp)
+    state = pt_admm._init_state(qp, plain, backend, x0, z0, y0)
     state.status = torch.from_numpy(np.where(ACTIVE, 0, 3)).int()
-    a = pt_admm._run_chunk(qp, fused, state)
-    b = pt_admm._run_chunk(qp, plain, state)
+    a = pt_admm._run_chunk(qp, fused, backend, state)
+    b = pt_admm._run_chunk(qp, plain, backend, state)
     for u, v in zip(a[:5], b[:5]):
         assert float((u - v).abs().max()) <= 1e-12 * (float(v.abs().max()) + 1)
-    Ax, ATy = a[5]
+    Ax, ATy = a[6]
     assert float((Ax - qp.matvec_A(a[0])).abs().max()) <= 1e-12 * float(Ax.abs().max())
     assert float((ATy - qp.matvec_At(a[2])).abs().max()) <= 1e-12 * float(ATy.abs().max())
 
