@@ -22,7 +22,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    cores), the H100 SXM's published peaks. The two M^{-1} chunks are also held, output by output,
    against their plain version run in f64 (the witness: the kernel's error
    within 3x the FP32 plain version's), the prox one at phase 6's penalties
-   and at phase 7c's rho0 = 0.1. Then each chunk variant of rows 4c/5c (an
+   and at phase 7c's rho0 = 0.1. Rows 2 and 4a's kernels run beside the
+   previous kernels they replace on the main path, kept as their witnesses
+   (``pivot_sweep_v3_prev``; ``admm_chunk``, the streaming chunk that every
+   other variant runs): the v3 pivot sweep bit for bit its previous kernel
+   on the slab's pivot blocks and on spread-diagonal blocks, the cluster
+   chunk (``admm_chunk_cluster``) bit for bit the streaming one on all seven
+   outputs from G and from the slab window at K=11 and K=1, each pair timed
+   in turns (old, new, new, old). Then each chunk variant of rows 4c/5c (an
    entry of its own in the kernels JSON): the sigma-free ADMM chunk at
    "high" and "default" (held by the f64 witness, whose plain version in
    f64 runs without rounding) and with the split G, the slab window, lanes
@@ -49,10 +56,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    inverse of the 128-blocks, and the fused normal-matrix inverse of the
    phase's n=512, m=256 fleet with per-lane rho (beside the library
    Cholesky inverse of a torch-built M and the port's M^{-1} route).
+2b. Rows 2 and 4a at the main path's B=4096 beside their previous kernels
+   (the pivot sweep on the fleet's last pivot blocks, the chunk at K=11 with
+   every lane active, also at B=512), bit for bit and timed in turns, with
+   the cluster chunk's clusters resident at once.
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
-   end with status 2 or 3, and every kernel's launch count must move.
+   end with status 2 or 3, every kernel's launch count must move, and the
+   chunk must run the kernel the dispatch rule names for its variant
+   (``ops/fused_admm.py: chunk_kernel``: the cluster chunk).
 4. Audit: 16 lanes (8 spread, 8 with the most iterations) re-solved in f64
    on the host by ``f64_oracle.py`` beside this script (numpy and scipy
    only); max |x - x_ref|_inf must be <= 1e-4.
@@ -139,7 +152,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     format): packers, kernels against their plain versions, the whole
     matvecs against scipy in f64 (relative 1e-6), times, bounds, CSR.
 
-``python3 chip_smoke.py --profile`` adds one profiled static-rho prox solve,
+``python3 chip_smoke.py --profile`` adds one profiled static-rho solve of
+phase 3 (the ADMM headline), one profiled static-rho prox solve,
 one profiled solve each of phases 7a and 7b, one each of 8a and 8e, one
 of the fastest phase-9 stack and one of phase 11a (kernel time by name and
 the device's idle share). ``--sparse-only`` runs phases 1 and 11 alone and
@@ -148,7 +162,7 @@ after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
 The last lines are the total wall time, the kernels JSON (the seven kernels,
-the eleven variants of rows 4c and 5c, the six pivot formulations and the
+the cluster chunk and the previous v3 kernel, the eleven variants of rows 4c and 5c, the six pivot formulations and the
 bf16x3 level of rows 7-10 and 3b, the three kernels of rows 6, 11 and
 12, and the SpMV kernels of rows 13, 14a, 14b and 15), the nvidia-smi line,
 and
@@ -220,10 +234,14 @@ KERNELS = {
                    "quadraticprogramsolver_tpu/ops/fused_factor.py:80"),
     "pivot_sweep_v3": ("csrc/pivot_sweep.cu",
                        "quadraticprogramsolver_tpu/ops/spd_kernels.py:265"),
+    "pivot_sweep_v3_prev": ("csrc/pivot_sweep.cu",
+                            "quadraticprogramsolver_tpu/ops/spd_kernels.py:265"),
     "slab_level": ("csrc/slab_level.cu",
                    "quadraticprogramsolver_tpu/ops/fused_factor.py:131"),
     "admm_chunk": ("csrc/admm_chunk.cu",
                    "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
+    "admm_chunk_cluster": ("csrc/admm_chunk_cluster.cu",
+                           "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
     "prox_chunk": ("csrc/prox_chunk.cu",
                    "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
     "admm_chunk_minv": ("csrc/admm_chunk.cu",
@@ -232,6 +250,13 @@ KERNELS = {
                         "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
 }
 
+
+#: The previous kernels kept beside their redesigns as bit-for-bit witnesses
+#: and timing baselines (no solver launches them): witness -> its redesign.
+WITNESSES = {"pivot_sweep_v3_prev": "pivot_sweep_v3",
+             "admm_chunk": "admm_chunk_cluster"}
+#: Phase 2b: the redesigns and their witnesses at the main path's B.
+B_REDESIGN = B_MAIN
 
 #: Rows 4c and 5c: each chunk variant (a kernels-JSON entry of its own) ->
 #: (its chunk, the phase-8 stack whose launches it reports, the token of its
@@ -726,11 +751,30 @@ def phase_kernels(torch, extra):
     D = Sp[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
     Dk = spd_kernels.spd_inverse_unrolled(D)
     Dp = spd_kernels.pivot_sweep_v3_plain(D)
-    out["pivot_sweep_v3"] = (
-        compare("pivot_sweep_v3", Dk, Dp, failures),
-        cuda_ms(lambda: spd_kernels.spd_inverse_unrolled(D)),
-        cuda_ms(lambda: spd_kernels.pivot_sweep_v3_plain(D)),
-        cuda_ms(lambda: torch.linalg.inv(D)), pivot_bound(B_KERNEL))
+    Dprev = spd_kernels.pivot_sweep_v3_prev(D)
+    # Row 2's kernel bit for bit its previous kernel, on the slab's pivot
+    # blocks (read through the slab's strides) and on spread-diagonal blocks.
+    for kind, Db in (("slab", D), ("spread", spread_blocks(torch, B_KERNEL, g))):
+        same = torch.equal(spd_kernels.spd_inverse_unrolled(Db),
+                           spd_kernels.pivot_sweep_v3_prev(Db))
+        log(f"[phase 2] pivot_sweep_v3 ({kind} blocks): bit for bit equal to "
+            f"pivot_sweep_v3_prev: {same}")
+        if not same:
+            failures.append(f"pivot_sweep_v3 ({kind} blocks): not the "
+                            "previous kernel's bits")
+    ms_prev, ms_new = in_turns(lambda: spd_kernels.pivot_sweep_v3_prev(D),
+                               lambda: spd_kernels.spd_inverse_unrolled(D))
+    plain_ms = cuda_ms(lambda: spd_kernels.pivot_sweep_v3_plain(D))
+    lib_ms = cuda_ms(lambda: torch.linalg.inv(D))
+    out["pivot_sweep_v3"] = (compare("pivot_sweep_v3", Dk, Dp, failures),
+                             ms_new, plain_ms, lib_ms, pivot_bound(B_KERNEL))
+    out["pivot_sweep_v3_prev"] = (compare("pivot_sweep_v3_prev", Dprev, Dp,
+                                          failures),
+                                  ms_prev, plain_ms, lib_ms,
+                                  pivot_bound(B_KERNEL))
+    log(f"[phase 2] pivot_sweep_v3 {ms_new:.4f} ms against "
+        f"pivot_sweep_v3_prev {ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x; "
+        f"B={B_KERNEL}, in turns)")
 
     S1, S2 = Sp.clone(), Sp.clone()
     fused_factor.slab_level(S1, Dp, j, w_out)
@@ -767,23 +811,47 @@ def phase_kernels(torch, extra):
     n_act = int(active.sum())
     cargs = (G, qp.A, gv, qp.l, qp.u, x, z, y, rho_row, active)
     kw = dict(K=K_CHUNK, alpha=1.6)
-    ck = fused_admm.fused_admm_chunk(*cargs, **kw)
+    # Row 4a: the streaming kernel (every variant's) and the cluster kernel.
+    stream, cluster = (fused_admm.fused_admm_chunk_streaming,
+                       fused_admm.fused_admm_chunk_cluster)
+    ck = stream(*cargs, **kw)
     cp = fused_admm.fused_admm_chunk_plain(*cargs, **kw)
     err = compare("admm_chunk", ck, cp, failures)
     frozen = ~active
-    if not (torch.equal(ck[0][frozen], x[frozen])
-            and torch.equal(ck[3][frozen], x[frozen])
-            and torch.equal(ck[4][frozen], z[frozen])):
-        failures.append("admm_chunk: a frozen lane did not pass through")
+    cc = cluster(*cargs, **kw)
+    err_c = compare("admm_chunk_cluster", cc, cp, failures)
+    for nm, o in (("admm_chunk", ck), ("admm_chunk_cluster", cc)):
+        if not (torch.equal(o[0][frozen], x[frozen])
+                and torch.equal(o[3][frozen], x[frozen])
+                and torch.equal(o[4][frozen], z[frozen])):
+            failures.append(f"{nm}: a frozen lane did not pass through")
+    # Bit for bit, all seven outputs: from G and from the slab window, at
+    # K = 11 and K = 1.
+    for src, slab in (("G", False), ("slab", True)):
+        for k in (K_CHUNK, 1):
+            a = cluster(S if slab else G, *cargs[1:], K=k, alpha=1.6, slab=slab)
+            b = ck if (k == K_CHUNK and not slab) else stream(*cargs, K=k, alpha=1.6)
+            same = all(torch.equal(u_, v_) for u_, v_ in zip(a, b))
+            log(f"[phase 2] admm_chunk_cluster ({src}, K={k}): seven outputs "
+                f"bit for bit the streaming kernel's: {same}")
+            if not same:
+                failures.append(f"admm_chunk_cluster ({src}, K={k}): not the "
+                                "streaming kernel's bits")
     # G for the active lanes, A for every lane (the check products), the
     # vectors in (g, x, l, u, rho, z, y) and out (x, xp, A'y, z, y, zp, Ax).
     admm_bytes = 4 * (n_act * N * M + B_KERNEL * M * N
                       + B_KERNEL * (2 * N + 5 * M) + B_KERNEL * (3 * N + 4 * M))
     admm_flops = 4 * N * M * (n_act * K_CHUNK + B_KERNEL)
-    out["admm_chunk"] = (err,
-                         cuda_ms(lambda: fused_admm.fused_admm_chunk(*cargs, **kw)),
-                         cuda_ms(lambda: fused_admm.fused_admm_chunk_plain(*cargs, **kw)),
-                         None, bound(admm_bytes, admm_flops))
+    ms_s, ms_c = in_turns(lambda: stream(*cargs, **kw),
+                          lambda: cluster(*cargs, **kw))
+    admm_plain_ms = cuda_ms(lambda: fused_admm.fused_admm_chunk_plain(*cargs, **kw))
+    out["admm_chunk"] = (err, ms_s, admm_plain_ms, None,
+                         bound(admm_bytes, admm_flops))
+    out["admm_chunk_cluster"] = (err_c, ms_c, admm_plain_ms, None,
+                                 bound(admm_bytes, admm_flops))
+    log(f"[phase 2] admm_chunk_cluster {ms_c:.4f} ms against the streaming "
+        f"admm_chunk {ms_s:.4f} ms ({ms_s / ms_c:.2f}x; B={B_KERNEL}, "
+        f"K={K_CHUNK}, in turns)")
     # Row 4c, the sigma-free variants. The iterate products of "high" are
     # three bf16 passes; the check products stay FP32 there and run at one
     # bf16 pass at "default". The bytes do not change: G read once (f32, or
@@ -957,11 +1025,104 @@ def phase_kernels(torch, extra):
     return out
 
 
+def in_turns(old, new):
+    """(old ms, new ms): each timed twice in turns (old, new, new, old),
+    the median of its two medians of 5."""
+    t_old, t_new = [cuda_ms(old)], [cuda_ms(new)]
+    t_new.append(cuda_ms(new))
+    t_old.append(cuda_ms(old))
+    return statistics.median(t_old), statistics.median(t_new)
+
+
+def admm_chunk_bound(B, n_act, K):
+    """The sigma-free chunk's bound: G for the active lanes, A for every
+    lane (the check products), the vectors in (g, x, l, u, rho, z, y) and out
+    (x, xp, A'y, z, y, zp, Ax); 4nm FLOPs a lane and iteration, and 4nm a
+    lane for the check products."""
+    nbytes = 4 * (n_act * N * M + B * M * N + B * (2 * N + 5 * M)
+                  + B * (3 * N + 4 * M))
+    return bound(nbytes, 4 * N * M * (n_act * K + B))
+
+
+def phase_redesigns(torch):
+    """Phase 2b: rows 2 and 4a at the main path's B=4096 beside their
+    previous kernels: the pivot sweep on the fleet's last pivot blocks (read
+    through the slab's strides) and the sigma-free chunk (K=11, every lane
+    active) from its factor, each bit for bit its witness and timed in
+    turns, at B=512 and B=4096; the cluster chunk's clusters resident at
+    once (cudaOccupancyMaxActiveClusters). Returns each kernel's numbers for
+    the kernels JSON."""
+    from quadraticprogramsolver_tpu_torch.ops import (
+        fused_admm, fused_factor, spd_kernels)
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+
+    B, failures, res = B_REDESIGN, [], {}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    qp = device_random_qp_fleet(B, N, M, generator=g)
+    rho = torch.full((B, M), 0.4, device=DEVICE)
+    Sp = fused_factor.build_slab(qp.P, qp.A, qp.q, rho, 1e-6)
+    j = N // 128 - 1
+    w_out = fused_factor.slab_k(M) + j * 128
+    D = Sp[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
+    new, prev = spd_kernels.spd_inverse_unrolled, spd_kernels.pivot_sweep_v3_prev
+    same = torch.equal(new(D), prev(D))
+    ms_prev, ms_new = in_turns(lambda: prev(D), lambda: new(D))
+    bms, by = pivot_bound(B)
+    log(f"[phase 2b] B={B} pivot_sweep_v3 {ms_new:.4f} ms, pivot_sweep_v3_prev "
+        f"{ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x), bound {bms:.4f} ms "
+        f"({by}); bit for bit: {same}")
+    if not same:
+        failures.append(f"phase 2b: pivot_sweep_v3 at B={B} not the previous "
+                        "kernel's bits")
+    res["pivot_sweep_v3"] = {"b4096": {"ms": ms_new, "bound_ms": bms}}
+    res["pivot_sweep_v3_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bms}}
+    del Sp, D
+
+    S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
+    G, gv = S[..., :M].contiguous(), S[..., M].contiguous()
+    del S
+    x, z, y = (torch.randn((B, w), generator=g, device=DEVICE)
+               for w in (N, M, M))
+    act = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    cargs = (G, qp.A, gv, qp.l, qp.u, x, z, y, rho, act)
+    kw = dict(K=K_CHUNK, alpha=1.6)
+    stream, cluster = (fused_admm.fused_admm_chunk_streaming,
+                       fused_admm.fused_admm_chunk_cluster)
+    ref = stream(*cargs, **kw)
+    resident = fused_admm.cluster_occupancy(N, M)
+    log(f"[phase 2b] cluster chunk at n={N}, m={M}: {resident} clusters of "
+        f"{fused_admm.CLUSTER} CTAs resident at once, shared memory a CTA "
+        f"{fused_admm.cluster_smem_bytes(N, M)} bytes")
+    for b in (B_KERNEL, B):
+        sub = tuple(a[:b] for a in cargs)
+        bms, by = admm_chunk_bound(b, b, K_CHUNK)
+        ms_s, ms_c = in_turns(lambda: stream(*sub, **kw),
+                              lambda: cluster(*sub, **kw))
+        same = all(torch.equal(u_, v_[:b])
+                   for u_, v_ in zip(cluster(*sub, **kw), ref))
+        if not same:
+            failures.append(f"phase 2b: the cluster chunk (B={b}) is not the "
+                            "streaming kernel's bits")
+        log(f"[phase 2b] B={b} sigma-free chunk (K={K_CHUNK}, every lane "
+            f"active): cluster {ms_c:.4f} ms, streaming {ms_s:.4f} ms "
+            f"({ms_s / ms_c:.2f}x); bound {bms:.4f} ms ({by}); bit for bit: "
+            f"{same}")
+        tag = f"b{b}" if b != B_KERNEL else "b512_all_active"
+        res.setdefault("admm_chunk", {})[tag] = {"ms": ms_s, "bound_ms": bms}
+        res.setdefault("admm_chunk_cluster", {})[tag] = {"ms": ms_c,
+                                                         "bound_ms": bms}
+    res["admm_chunk_cluster"]["clusters_resident"] = resident
+    require(not failures, "; ".join(failures))
+    return res
+
+
 def time_chunks(torch):
     """``--time-chunks``: the sigma-free chunks and their variants at the
     main path's shapes (B=4096, every lane active; ADMM n=512, m=256, K=11
     from its slab; prox n=512, me = mi = 128, K=25), kernel ms (median of
-    5, CUDA events)."""
+    5, CUDA events); the ADMM variants through the solver's dispatch (the
+    cluster chunk at none of them)."""
     from quadraticprogramsolver_tpu_torch.ops import (
         fused_admm, fused_factor, fused_proxqp, linalg)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
@@ -983,8 +1144,11 @@ def time_chunks(torch):
                for w in (N, M, M))
     act = torch.ones(B_MAIN, dtype=torch.bool, device=DEVICE)
     vecs = (qp.l, qp.u, x, z, y, rho, act)
+    show("admm_chunk_cluster", lambda: fused_admm.fused_admm_chunk_cluster(
+        G, qp.A, gv, *vecs, K=K_CHUNK, alpha=1.6))
+    show("admm_chunk (streaming)", lambda: fused_admm.fused_admm_chunk_streaming(
+        G, qp.A, gv, *vecs, K=K_CHUNK, alpha=1.6))
     for name, G_, kw in (
-            ("admm_chunk", G, {}),
             ("admm_chunk_high", G, dict(dot_precision="high")),
             ("admm_chunk_default", G, dict(dot_precision="default")),
             ("admm_chunk_split", Ghi, dict(dot_precision="high", Glo=Glo)),
@@ -1116,6 +1280,24 @@ def report_solve(qp, sol, dt, fdt, label):
     require(solved == B, f"{label}: {B - solved} lanes did not end with "
             "status 2 or 3")
     return x, status, iters
+
+
+def chunk_kernels(cnt, label):
+    """The sigma-free chunk launches of a run split by kernel (the cluster
+    kernel's keys end in ",cluster"); the phase-3 variant's kernel, as the
+    dispatch rule names it, must have launched."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_admm
+
+    variants = dict(cnt["admm_chunk"].variants)
+    n_cluster = sum(v for k, v in variants.items() if k.endswith(",cluster"))
+    split = {"admm_chunk": cnt["admm_chunk"].launches - n_cluster,
+             "admm_chunk_cluster": n_cluster}
+    want = ("admm_chunk_cluster" if fused_admm.chunk_kernel(
+        N, M, 1, "highest", "G") == "cluster" else "admm_chunk")
+    log(f"[{label}] chunk launches by kernel: {split} (variants {variants}); "
+        f"the rule sends {N}/{M} highest lanes 1 to {want}")
+    require(split[want] > 0, f"{label}: {want} never launched")
+    return split
 
 
 def reset(cnt):
@@ -2276,6 +2458,8 @@ def main() -> int:
     # Phase 2: every kernel against its plain version.
     extra = {}  # further numbers of the ENTRY_KERNELS, by kernel
     kstats = phase_kernels(torch, extra)
+    for name, numbers in phase_redesigns(torch).items():
+        extra.setdefault(name, {}).update(numbers)
     if "--time-chunks" in sys.argv[1:]:
         time_chunks(torch)
     base = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
@@ -2294,7 +2478,10 @@ def main() -> int:
     sol = pkg.solve(qp, static)
     torch.cuda.synchronize()
     launches = read(cnt, ADMM_PATH, "phase 3 main-path solve")
+    launches.update(chunk_kernels(cnt, "phase 3 main-path solve"))
     del sol
+    if "--profile" in sys.argv[1:]:
+        profile_solve(torch, lambda: pkg.solve(qp, static), "phase 3 profile")
     for settings, label in ((static, "phase 3 static rho"),
                             (adaptive, "phase 3 adaptive rho")):
         sol, dt = run_main(torch, lambda: pkg.solve(qp, settings))
@@ -2349,12 +2536,15 @@ def main() -> int:
         e = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
              "replaces": rep,
              # Its own path's count: the ADMM path's for the factor kernels,
-             # each chunk's own family and form otherwise.
-             "launches": paths[own][name],
+             # each chunk's own family and form otherwise (0 for a kept
+             # previous kernel, which no solver launches).
+             "launches": paths[own].get(name, 0),
              "launches_by_path": {k: v for k, v in by_path.items()
                                   if v is not None},
              "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-             "bound_by": by, "library_ms": lms}
+             "bound_by": by, "library_ms": lms, **extra.get(name, {})}
+        if name in WITNESSES:
+            e["witness_of"] = WITNESSES[name]
         if name == "slab_build":
             err2, ms2, pms2, _, (bms2, by2) = kstats["slab_build_two_block"]
             e["two_block"] = {"max_abs_err": err2, "ms": ms2, "plain_ms": pms2,

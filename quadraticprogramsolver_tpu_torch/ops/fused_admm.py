@@ -15,6 +15,14 @@ On a CUDA tensor each wrapper launches its kernel in csrc/admm_chunk.cu; on
 a CPU tensor it runs its plain version, which rounds to bf16 only float32
 operands (float64 runs in full, as the JAX package's f64 solve does) and
 runs any lane grouping as lanes=1 (the kernels give the same bits).
+
+A sigma-free launch at "highest", lanes 1, from a contiguous G or the slab
+window whose lane fits a cluster (:func:`chunk_kernel`) runs the cluster
+kernel, csrc/admm_chunk_cluster.cu, which holds each lane's G and A in the
+registers of a cluster of :data:`CLUSTER` CTAs for all K iterations; every
+other variant streams them (admm_chunk.cu). Both give the same bits.
+:func:`fused_admm_chunk_streaming` and :func:`fused_admm_chunk_cluster`
+launch one kernel whatever the rule says (each other's witness on the card).
 """
 
 from __future__ import annotations
@@ -99,6 +107,91 @@ def _plain_chunk(kkt_solve, A, l, u, x, z, y, rho_row, active, *, K, alpha,
     return x, z, y, xp, zp, Ax, ATy
 
 
+#: CTAs of the cluster that holds one lane in the cluster chunk (8, the
+#: portable cluster size).
+CLUSTER = 8
+#: Shared memory one CTA can have on the H100 (227 KB).
+SMEM_PER_CTA = 232448
+
+
+def cluster_smem_bytes(n: int, m: int) -> int:
+    """Shared memory one CTA of the cluster chunk needs at (n, m): the next
+    lane's n/8 rows of G and m/8 rows of A and this lane's n/8 columns of A,
+    t and xx twice, the x and y gathers twice, its own vector rows, A'y's
+    partial sums and four mbarriers (csrc/admm_chunk_cluster.cu:
+    cluster_floats)."""
+    nr, mr = n // CLUSTER, m // CLUSTER
+    groups = 256 // (n // 4)
+    return 4 * (16 + 3 * nr * m + 4 * (m + n) + 3 * nr + 7 * mr + groups * nr)
+
+
+def chunk_kernel(n: int, m: int, lanes: int, dot_precision: str, source: str,
+                 smem_per_cta: int = SMEM_PER_CTA) -> str:
+    """The kernel a sigma-free chunk launch runs: "cluster" (one lane per
+    cluster of :data:`CLUSTER` CTAs, G and A held in registers, the next
+    lane's rows loaded into shared memory meanwhile) at ``dot_precision``
+    "highest", ``lanes`` 1 and ``source`` "G" (contiguous) or "slab" (the
+    window), when n and m are multiples of 128 up to 512 whose G and A
+    rows fit the cluster's registers ((n/128)(m/128) <= 8) and each CTA's
+    shared memory fits ``smem_per_cta`` bytes; else "stream" (admm_chunk.cu,
+    the matrices read from device memory every iteration)."""
+    nb, mb = n // 128, m // 128  # a thread holds 8 nb mb matrix floats
+    if (dot_precision == "highest" and source in ("G", "slab") and lanes == 1
+            and n % 128 == 0 and m % 128 == 0 and 0 < nb <= 4 and 0 < mb <= 4
+            and nb * mb <= 8 and cluster_smem_bytes(n, m) <= smem_per_cta):
+        return "cluster"
+    return "stream"
+
+
+def chunk_variant(n: int, m: int, lanes: int, dot_precision: str,
+                  source: str) -> str:
+    """The key a sigma-free launch counts under in
+    ``fused_admm_chunk.variants``: "precision,source,lanesL", with
+    ",cluster" when :func:`chunk_kernel` sends it to the cluster kernel."""
+    key = f"{dot_precision},{source},lanes{lanes}"
+    if chunk_kernel(n, m, lanes, dot_precision, source) == "cluster":
+        key += ",cluster"
+    return key
+
+
+def _launch_sigma_free(wrapper, kernel, G, A, g, l, u, x, z, y, rho_row,
+                       active, *, K, alpha, lanes, dot_precision, slab, Glo,
+                       variant=None):
+    """Check a sigma-free chunk's operands and launch ``kernel`` ("stream"
+    or "cluster"), counted on ``wrapper``; returns the seven outputs."""
+    B, n = x.shape
+    m = l.shape[-1]
+    _check_sigma_free(G, Glo, B, m, lanes, dot_precision, slab)
+    if K < 1:
+        raise ValueError(f"{wrapper.__name__}: K must be >= 1; got {K}")
+    split = Glo is not None
+    outs = [torch.empty_like(v) for v in (x, z, y, x, z, z, x)]
+    operands = {"G": (G, (B, n, m)), "A": (A, (B, m, n)), "g": (g, (B, n)),
+                "l": (l, (B, m)), "u": (u, (B, m)), "x": (x, (B, n)),
+                "z": (z, (B, m)), "y": (y, (B, m)),
+                "rho_row": (rho_row, (B, m))}
+    if split:
+        operands["Glo"] = (Glo, (B, n, m))
+    act = _build.check_chunk(
+        wrapper.__name__, operands, {"n": n, "m": m}, outs, active,
+        bf16=("G", "Glo") if split else (), windows=("G",) if slab else ())
+    vecs = (A.data_ptr(), g.data_ptr(), l.data_ptr(), u.data_ptr(),
+            rho_row.data_ptr(), x.data_ptr(), z.data_ptr(), y.data_ptr(),
+            act.data_ptr(), *(o.data_ptr() for o in outs))
+    if kernel == "cluster":
+        _build.launch(wrapper, "qps_admm_chunk_cluster", G.data_ptr(), *vecs,
+                      B, n, m, G.shape[-1], K, float(alpha),
+                      _build.stream_ptr(x), variant=variant)
+    else:
+        _build.launch(
+            wrapper, "qps_admm_chunk",
+            None if split else G.data_ptr(), G.data_ptr() if split else None,
+            Glo.data_ptr() if split else None, *vecs, B, n, m, G.shape[-1], K,
+            lanes, PRECISIONS[dot_precision], float(alpha),
+            _build.stream_ptr(x), variant=variant)
+    return tuple(outs)
+
+
 def fused_admm_chunk(G, A, g, l, u, x, z, y, rho_row, active, *,
                      K: int, alpha: float, lanes: int = 1,
                      dot_precision: str = "highest", slab: bool = False,
@@ -116,44 +209,85 @@ def fused_admm_chunk(G, A, g, l, u, x, z, y, rho_row, active, *,
     the last iteration; frozen lanes pass through with prev = current; Ax
     and A'y are the check products of the returned x and y, computed for
     frozen lanes too.
+
+    On a CUDA tensor the launch runs the kernel :func:`chunk_kernel` names
+    and counts under its :func:`chunk_variant` key, e.g. "high,slab,lanes2"
+    or "highest,G,lanes1,cluster".
     """
     if not _build.launches_kernel("fused_admm_chunk", x):
         return fused_admm_chunk_plain(G, A, g, l, u, x, z, y, rho_row, active,
                                       K=K, alpha=alpha, lanes=lanes,
                                       dot_precision=dot_precision, slab=slab,
                                       Glo=Glo)
-    B, n = x.shape
-    m = l.shape[-1]
-    _check_sigma_free(G, Glo, B, m, lanes, dot_precision, slab)
-    if K < 1:
-        raise ValueError(f"fused_admm_chunk: K must be >= 1; got {K}")
-    split = Glo is not None
-    outs = [torch.empty_like(v) for v in (x, z, y, x, z, z, x)]
-    operands = {"G": (G, (B, n, m)), "A": (A, (B, m, n)), "g": (g, (B, n)),
-                "l": (l, (B, m)), "u": (u, (B, m)), "x": (x, (B, n)),
-                "z": (z, (B, m)), "y": (y, (B, m)),
-                "rho_row": (rho_row, (B, m))}
-    if split:
-        operands["Glo"] = (Glo, (B, n, m))
-    act = _build.check_chunk(
-        "fused_admm_chunk", operands, {"n": n, "m": m}, outs, active,
-        bf16=("G", "Glo") if split else (), windows=("G",) if slab else ())
-    source = "split" if split else "slab" if slab else "G"
-    # Each launch also counts under its variant, e.g. "high,slab,lanes2".
-    _build.launch(
-        fused_admm_chunk, "qps_admm_chunk",
-        None if split else G.data_ptr(), G.data_ptr() if split else None,
-        Glo.data_ptr() if split else None, A.data_ptr(), g.data_ptr(),
-        l.data_ptr(), u.data_ptr(), rho_row.data_ptr(), x.data_ptr(),
-        z.data_ptr(), y.data_ptr(), act.data_ptr(),
-        *(o.data_ptr() for o in outs), B, n, m, G.shape[-1], K, lanes,
-        PRECISIONS[dot_precision], float(alpha), _build.stream_ptr(x),
-        variant=f"{dot_precision},{source},lanes{lanes}")
-    return tuple(outs)
+    n, m = x.shape[-1], l.shape[-1]
+    source = "split" if Glo is not None else "slab" if slab else "G"
+    return _launch_sigma_free(
+        fused_admm_chunk, chunk_kernel(n, m, lanes, dot_precision, source),
+        G, A, g, l, u, x, z, y, rho_row, active, K=K, alpha=alpha, lanes=lanes,
+        dot_precision=dot_precision, slab=slab, Glo=Glo,
+        variant=chunk_variant(n, m, lanes, dot_precision, source))
 
 
 fused_admm_chunk.launches = 0
 fused_admm_chunk.variants = collections.Counter()
+
+
+def fused_admm_chunk_streaming(G, A, g, l, u, x, z, y, rho_row, active, *,
+                               K: int, alpha: float, lanes: int = 1,
+                               dot_precision: str = "highest",
+                               slab: bool = False, Glo=None):
+    """:func:`fused_admm_chunk` through the streaming kernel (admm_chunk.cu)
+    in every variant, whatever :func:`chunk_kernel` says: the cluster
+    kernel's bit-for-bit witness and timing baseline on the card (no solver
+    calls it). Counts on its own ``launches``; on a CPU tensor the plain
+    version."""
+    if not _build.launches_kernel("fused_admm_chunk_streaming", x):
+        return fused_admm_chunk_plain(G, A, g, l, u, x, z, y, rho_row, active,
+                                      K=K, alpha=alpha, lanes=lanes,
+                                      dot_precision=dot_precision, slab=slab,
+                                      Glo=Glo)
+    return _launch_sigma_free(
+        fused_admm_chunk_streaming, "stream", G, A, g, l, u, x, z, y, rho_row,
+        active, K=K, alpha=alpha, lanes=lanes, dot_precision=dot_precision,
+        slab=slab, Glo=Glo)
+
+
+fused_admm_chunk_streaming.launches = 0
+
+
+def fused_admm_chunk_cluster(G, A, g, l, u, x, z, y, rho_row, active, *,
+                             K: int, alpha: float, slab: bool = False):
+    """:func:`fused_admm_chunk` at "highest", lanes 1, through the cluster
+    kernel (csrc/admm_chunk_cluster.cu), whatever the solver's rule would
+    pick. Raises ValueError where :func:`chunk_kernel` refuses the shape.
+    Counts on its own ``launches``; on a CPU tensor the plain version."""
+    n, m = x.shape[-1], l.shape[-1]
+    source = "slab" if slab else "G"
+    if chunk_kernel(n, m, 1, "highest", source) != "cluster":
+        raise ValueError(f"fused_admm_chunk_cluster: n={n}, m={m} do not fit "
+                         f"a cluster of {CLUSTER} CTAs")
+    if not _build.launches_kernel("fused_admm_chunk_cluster", x):
+        return fused_admm_chunk_plain(G, A, g, l, u, x, z, y, rho_row, active,
+                                      K=K, alpha=alpha, slab=slab)
+    return _launch_sigma_free(
+        fused_admm_chunk_cluster, "cluster", G, A, g, l, u, x, z, y, rho_row,
+        active, K=K, alpha=alpha, lanes=1, dot_precision="highest", slab=slab,
+        Glo=None)
+
+
+fused_admm_chunk_cluster.launches = 0
+
+
+def cluster_occupancy(n: int, m: int) -> int:
+    """How many clusters of the cluster chunk at (n, m) the current card
+    holds at once (cudaOccupancyMaxActiveClusters): the lanes in flight,
+    and the clusters a launch starts (each walks B / that many lanes)."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    _build.check(_build.load().lib.qps_admm_chunk_cluster_occupancy(
+        n, m, ctypes.byref(out)), "qps_admm_chunk_cluster_occupancy")
+    return out.value
 
 
 def fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y, rho_row, active,

@@ -12,8 +12,10 @@ Counterpart of ``quadraticprogramsolver_tpu/ops/spd_kernels.py``
 ``spd_inverse_sweep``, ``pallas_spd_inverse_64p``, ``spd_inverse_128_schur``,
 ``pallas_normal_inverse``). Every formulation has a plain PyTorch version
 that copies the JAX kernel's arithmetic, and a CUDA kernel: "v3" and "value"
-(the same arithmetic, so one kernel), "ref", "r<q>", "panel", the round-1
-sweep, the paired-64 sweep and the normal-matrix inverse. Every public
+(the same arithmetic, so one kernel; the port's first v3 kernel stays beside
+it as its bit-for-bit witness, :func:`pivot_sweep_v3_prev`), "ref", "r<q>",
+"panel", the round-1 sweep, the paired-64 sweep and the normal-matrix
+inverse. Every public
 entry point here that computes torch products around the kernels
 (``spd_inverse_sweep_fused``, ``gj_solve_sweep``, ``spd_inverse_sweep``,
 ``spd_inverse_128_schur``, ``normal_inverse_plain``) runs them in full FP32
@@ -208,6 +210,24 @@ def spd_inverse_unrolled(D: torch.Tensor, *, variant: str = "v3") -> torch.Tenso
 
 spd_inverse_unrolled.launches = 0
 spd_inverse_unrolled.variants = collections.Counter()
+
+
+def pivot_sweep_v3_prev(D: torch.Tensor) -> torch.Tensor:
+    """v3's sweep on (B, 128, 128) blocks through the port's first v3
+    kernel (csrc/pivot_sweep.cu: pivot_sweep_v3_prev_kernel), which the
+    solver's kernel must equal bit for bit: the witness and timing baseline
+    of :func:`spd_inverse_unrolled`'s "v3" on the card (no solver calls it).
+    On a CUDA tensor (float32, unit column stride, any B >= 1) it launches
+    that kernel and counts it in ``pivot_sweep_v3_prev.launches``; on a CPU
+    tensor it runs :func:`pivot_sweep_v3_plain`."""
+    if D.ndim != 3 or D.shape[1:] != (NB, NB):
+        raise ValueError(f"blocks must be ({NB}, {NB}); got {tuple(D.shape)}")
+    if not _build.launches_kernel("pivot_sweep_v3_prev", D):
+        return pivot_sweep_v3_plain(D)
+    return _blocks_cuda(pivot_sweep_v3_prev, "qps_pivot_sweep_v3_prev", D)
+
+
+pivot_sweep_v3_prev.launches = 0
 
 
 def _check_sweep_shape(M: torch.Tensor) -> int:

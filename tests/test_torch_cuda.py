@@ -53,6 +53,7 @@ def test_factor_kernels_match_plain(dev):
         D = Sp[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
         Dinv = spd_kernels.spd_inverse_unrolled(D)          # strided view
         assert _close(Dinv, spd_kernels.pivot_sweep_v3_plain(D))
+        assert torch.equal(Dinv, spd_kernels.pivot_sweep_v3_prev(D))
         S1 = Sp.clone()
         fused_factor.slab_level(S1, Dinv, j, w_out)
         fused_factor.slab_level_plain(Sp, Dinv, j, w_out)
@@ -71,15 +72,23 @@ def test_chunk_kernel_matches_plain(dev):
     y = torch.randn((B, M), generator=g, device=dev)
     active = torch.arange(B, device=dev) % 3 != 1
     args = (G, qp.A, gv, qp.l, qp.u, x, z, y, rho, active)
+    fused_admm.fused_admm_chunk.variants.clear()
     out = fused_admm.fused_admm_chunk(*args, K=7, alpha=1.6)
+    assert dict(fused_admm.fused_admm_chunk.variants) == {
+        "highest,G,lanes1,cluster": 1}
     ref = fused_admm.fused_admm_chunk_plain(*args, K=7, alpha=1.6)
     for o, r in zip(out, ref):
         assert _close(o, r)
     assert torch.equal(out[0][~active], x[~active])
     assert torch.equal(out[4][~active], z[~active])
+    stream = fused_admm.fused_admm_chunk_streaming(*args, K=7, alpha=1.6)
+    assert all(torch.equal(o, r) for o, r in zip(out, stream))
 
 
-def test_solve_runs_every_kernel(dev):
+def test_solve_runs_every_kernel(dev, monkeypatch):
+    """Phase 3's stack on a small fleet runs every kernel of its path (the
+    chunk through the cluster kernel), and the same solve with every chunk
+    on the streaming kernel gives the same x, statuses and iterations."""
     qp, _ = _fleet(dev, 2, b=8, n=200, m=100)
     st = pt.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
                      check_interval=11, kkt_refinement_steps=0,
@@ -89,8 +98,19 @@ def test_solve_runs_every_kernel(dev):
            fused_factor.slab_level, fused_admm.fused_admm_chunk)
     for f in fns:
         f.launches = 0
+    fused_admm.fused_admm_chunk.variants.clear()
     sol = pt.solve(qp, st)
     assert all(f.launches > 0 for f in fns)
+    assert set(fused_admm.fused_admm_chunk.variants) == {
+        "highest,G,lanes1,cluster"}
+    monkeypatch.setattr(fused_admm, "chunk_kernel", lambda *a, **k: "stream")
+    fused_admm.fused_admm_chunk.variants.clear()
+    streamed = pt.solve(qp, st)
+    assert set(fused_admm.fused_admm_chunk.variants) == {"highest,G,lanes1"}
+    monkeypatch.undo()
+    assert torch.equal(sol.x, streamed.x)
+    assert torch.equal(sol.info.status, streamed.info.status)
+    assert torch.equal(sol.info.iterations, streamed.info.iterations)
     ref = pt.solve(qp.to("cpu"), st)
     assert torch.equal(sol.info.status.cpu(), ref.info.status)
     assert (ref.info.status >= 2).all()
@@ -575,6 +595,7 @@ def test_pivot_formulations_match_plain_on_card(dev):
     for D in (S[:, j * 128:(j + 1) * 128, w_out:w_out + 128],
               _spread_blocks(dev, b, g)):
         v3 = inv(D)
+        assert torch.equal(v3, spd_kernels.pivot_sweep_v3_prev(D))
         for v in ("value", "r1"):
             assert torch.equal(inv(D, variant=v), v3), v
         for v in ("ref", "panel", *(f"r{q}" for q in (2, 4, 8, 16, 32, 64, 128))):
@@ -848,3 +869,106 @@ def test_sparse_solve_on_card(dev):
     assert float((csr.x - sol.x).abs().max()) <= 1e-2
     with pytest.raises(ValueError, match="float32"):
         pt.solve(pt.make_sparse_qp(*args, dtype=np.float64, device=dev), st)
+
+
+@pytest.mark.parametrize("b", [4, 5, 512])
+def test_pivot_v3_kernel_matches_previous_kernel(dev, b):
+    """Row 2's kernel (two 256-thread CTAs an SM, the block in registers)
+    against the port's first v3 kernel, bit for bit, and its plain version
+    (TOL): on contiguous well-conditioned blocks, the slab's last pivot
+    block read through its strides (d_row = the slab's pitch) and
+    spread-diagonal blocks."""
+    qp, g = _fleet(dev, 30, b=b)
+    rho = torch.full((b, M), 0.4, device=dev)
+    S = fused_factor.build_slab(qp.P, qp.A, qp.q, rho, 1e-6)
+    kp, j = fused_factor.slab_k(M), N // 128 - 1
+    w_out = kp + j * 128
+    slab_view = S[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
+    assert slab_view.stride(1) == S.shape[-1]
+    X = torch.randn((b, 128, 128), generator=g, device=dev, dtype=torch.float64)
+    wellc = (X @ X.transpose(1, 2) / 128 + torch.eye(128, device=dev,
+                                                     dtype=torch.float64)).float()
+    inv = spd_kernels.spd_inverse_unrolled
+    for D in (wellc, slab_view, _spread_blocks(dev, b, g)):
+        inv.variants.clear()
+        spd_kernels.pivot_sweep_v3_prev.launches = 0
+        new = inv(D)
+        prev = spd_kernels.pivot_sweep_v3_prev(D)
+        assert dict(inv.variants) == {"v3": 1}
+        assert spd_kernels.pivot_sweep_v3_prev.launches == 1
+        assert torch.equal(new, prev)
+        assert _close(new, spd_kernels.pivot_sweep_v3_plain(D))
+
+
+def _chunk_operands(dev, seed, b, n, m):
+    qp, g = _fleet(dev, seed, b=b, n=n, m=m)
+    rho = torch.full((b, m), 0.4, device=dev)
+    S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
+    G, gv = S[..., :m].contiguous(), S[..., m].contiguous()
+    x = torch.randn((b, n), generator=g, device=dev)
+    z = torch.randn((b, m), generator=g, device=dev)
+    y = torch.randn((b, m), generator=g, device=dev)
+    active = torch.arange(b, device=dev) % 4 != 3
+    return S, G, (qp.A, gv, qp.l, qp.u, x, z, y, rho, active)
+
+
+@pytest.mark.parametrize("K", [1, 11])
+@pytest.mark.parametrize("n,m", [(512, 256), (128, 128), (256, 384)])
+def test_cluster_chunk_matches_streaming_kernel(dev, n, m, K):
+    """Row 4a's cluster kernel (G and A held in a cluster's registers) against
+    the streaming kernel, bit for bit on all seven outputs, from a contiguous
+    G and from the slab window, every fourth lane frozen; and against the
+    plain version (TOL)."""
+    S, G, rest = _chunk_operands(dev, 31, 8, n, m)
+    x, z, active = rest[4], rest[5], rest[8]
+    kw = dict(K=K, alpha=1.6)
+    stream = fused_admm.fused_admm_chunk_streaming(G, *rest, **kw)
+    plain = fused_admm.fused_admm_chunk_plain(G, *rest, **kw)
+    assert all(_close(o, r) for o, r in zip(stream, plain))
+    for Gsrc, slab in ((G, False), (S, True)):
+        fused_admm.fused_admm_chunk_cluster.launches = 0
+        out = fused_admm.fused_admm_chunk_cluster(Gsrc, *rest, slab=slab, **kw)
+        assert fused_admm.fused_admm_chunk_cluster.launches == 1
+        for o, r in zip(out, stream):
+            assert torch.equal(o, r)
+        assert torch.equal(out[0][~active], x[~active])
+        assert torch.equal(out[3][~active], x[~active])
+        assert torch.equal(out[4][~active], z[~active])
+
+
+def test_chunk_dispatch_on_card(dev):
+    """The solver's chunk runs the cluster kernel only at "highest", lanes
+    1, from G or the slab window, within a cluster's shared memory: lanes
+    2, "high" and a lane over capacity count under the streaming keys."""
+    S, G, rest = _chunk_operands(dev, 32, 4, 256, 128)
+    run, counts = fused_admm.fused_admm_chunk, fused_admm.fused_admm_chunk.variants
+    counts.clear()
+    base = run(G, *rest, K=3, alpha=1.6)
+    run(S, *rest, K=3, alpha=1.6, slab=True)
+    lanes2 = run(G, *rest, K=3, alpha=1.6, lanes=2)
+    run(G, *rest, K=3, alpha=1.6, dot_precision="high")
+    assert dict(counts) == {"highest,G,lanes1,cluster": 1,
+                            "highest,slab,lanes1,cluster": 1,
+                            "highest,G,lanes2": 1, "high,G,lanes1": 1}
+    assert all(torch.equal(o, r) for o, r in zip(lanes2, base))
+    # Over the cluster's registers: random operands (the fleet's factor
+    # is not needed to hold one kernel against another).
+    n, m, b = 1024, 512, 2
+    assert fused_admm.chunk_kernel(n, m, 1, "highest", "G") == "stream"
+    g = torch.Generator(device=dev).manual_seed(33)
+    G = torch.randn((b, n, m), generator=g, device=dev) / n
+    rest = (torch.randn((b, m, n), generator=g, device=dev) / n,
+            *(torch.randn((b, w), generator=g, device=dev) for w in (n,)),
+            -torch.rand((b, m), generator=g, device=dev),
+            torch.rand((b, m), generator=g, device=dev),
+            *(torch.randn((b, w), generator=g, device=dev) for w in (n, m, m)),
+            torch.full((b, m), 0.4, device=dev),
+            torch.ones(b, dtype=torch.bool, device=dev))
+    counts.clear()
+    out = run(G, *rest, K=2, alpha=1.6)
+    assert dict(counts) == {"highest,G,lanes1": 1}
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_admm.fused_admm_chunk_cluster(G, *rest, K=2, alpha=1.6)
+    for o, r in zip(out, fused_admm.fused_admm_chunk_plain(G, *rest, K=2,
+                                                           alpha=1.6)):
+        assert _close(o, r)
