@@ -22,14 +22,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    cores), the H100 SXM's published peaks. The two M^{-1} chunks are also held, output by output,
    against their plain version run in f64 (the witness: the kernel's error
    within 3x the FP32 plain version's), the prox one at phase 6's penalties
-   and at phase 7c's rho0 = 0.1. Rows 2 and 4a's kernels run beside the
-   previous kernels they replace on the main path, kept as their witnesses
-   (``pivot_sweep_v3_prev``; ``admm_chunk``, the streaming chunk that every
-   other variant runs): the v3 pivot sweep bit for bit its previous kernel
-   on the slab's pivot blocks and on spread-diagonal blocks, the cluster
-   chunk (``admm_chunk_cluster``) bit for bit the streaming one on all seven
-   outputs from G and from the slab window at K=11 and K=1, each pair timed
-   in turns (old, new, new, old). Then each chunk variant of rows 4c/5c (an
+   and at phase 7c's rho0 = 0.1. Rows 2, 4a and 5a's kernels run beside the
+   previous kernels they replace on the main paths, kept as their witnesses
+   (``pivot_sweep_v3_prev``; ``admm_chunk`` and ``prox_chunk``, the
+   streaming chunks that every other variant runs): the v3 pivot sweep bit
+   for bit its previous kernel on the slab's pivot blocks and on
+   spread-diagonal blocks, the ADMM cluster chunk (``admm_chunk_cluster``)
+   bit for bit the streaming one on all seven outputs from G and from the
+   slab window at K=11 and K=1, the prox cluster chunk
+   (``prox_chunk_cluster``) bit for bit the streaming one on x, s, y and z
+   at K=25 and K=1, each pair timed in turns (old, new, new, old). Then each chunk variant of rows 4c/5c (an
    entry of its own in the kernels JSON): the sigma-free ADMM chunk at
    "high" and "default" (held by the f64 witness, whose plain version in
    f64 runs without rounding) and with the split G, the slab window, lanes
@@ -56,10 +58,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    inverse of the 128-blocks, and the fused normal-matrix inverse of the
    phase's n=512, m=256 fleet with per-lane rho (beside the library
    Cholesky inverse of a torch-built M and the port's M^{-1} route).
-2b. Rows 2 and 4a at the main path's B=4096 beside their previous kernels
-   (the pivot sweep on the fleet's last pivot blocks, the chunk at K=11 with
-   every lane active, also at B=512), bit for bit and timed in turns, with
-   the cluster chunk's clusters resident at once.
+2b. Rows 2, 4a and 5a at the main paths' B=4096 beside their previous
+   kernels (the pivot sweep on the fleet's last pivot blocks, the ADMM chunk
+   at K=11 and the prox chunk at K=25 with every lane active, also at
+   B=512), bit for bit and timed in turns, with each cluster chunk's
+   clusters resident at once.
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
@@ -76,7 +79,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the sigma-free fused knobs at static rho = 0.0125 and again at adaptive
    rho (rho0 = 0.1, which must refactor in the loop). Every lane must end
    with status 3, the slab, pivot, level and prox chunk kernels must all
-   launch, and 8 lanes (4 spread, the 4 other converged lanes with the most
+   launch, the chunk through the kernel the dispatch rule names
+   (``ops/fused_proxqp.py: chunk_kernel``: the cluster chunk), and 8 lanes (4 spread, the 4 other converged lanes with the most
    iterations) re-solved by the f64 oracle on the lowered box form must agree
    within 1e-4. Each run starts at eps 5e-5 and is repeated at 2e-5, then
    1e-5, while the audit fails; the eps used is printed.
@@ -107,7 +111,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``split_cache`` stack (8a with the bf16 G halves, no schedule); 8d the
    literal 500/250 fleet under ``slab_settings`` (bench.py's
    ``baseline_shape`` row); 8e the ``benchmarks/proxqp_fleet.py --headline``
-   stack on phase 6's fleet (lanes 2, "high", a "default" first chunk). 8f
+   stack on phase 6's fleet (lanes 2, "high", a "default" first chunk; its
+   chunks must stream). 8f
    and 8g run phase 7b's and 7c's stacks at lanes 2 beside lanes 1: the
    same statuses, iterations and x, bit for bit.
 9. The fused factor's knobs on phase 3's fleet and static-rho stack, one at
@@ -146,7 +151,19 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     (3 + 5 per outer iteration + 3 per CG step + 3 per check); it prints
     the CG steps and host syncs. 11b the same with CSR storage (cuSPARSE;
     no kernel of ours may launch). 11c row 13 alone on P, A and A' against
-    its plain version and the CSR product. 11d rows 14a, 14b and 15 on P at
+    its plain version and the kernel it replaced (``ell_matvec_prev``, its
+    witness; both within LIMIT), timed in turns beside it, the plain version
+    and the CSR product, each call on the next of several copies of the
+    matrix that together overflow the L2 (``l2_copies``), so that the times
+    read from device memory as the bound does (the times on one matrix,
+    warm in the L2, are printed too); every SpMV time in phase 11 is device
+    time (``device_ms``: CUDA events around 20 calls queued behind a
+    busy-wait kernel), since CUDA events around calls of a few microseconds
+    time the host's launches. Every counted run (phases 3 and 6-11) also
+    requires that no witness wrapper (``WITNESS_WRAPPERS``: the previous
+    kernels and the chunk wrappers that bypass the dispatch rule) launched;
+    the kernels JSON reports their counts from the main path's runs (phase
+    3, 6 or 11a). 11d rows 14a, 14b and 15 on P at
     n = 1e5 with the probes' defaults (route levels S = 8, W = 12544, and
     every micro shape of ``routed_spmv_probe.py:181-183``; the row-routed
     format): packers, kernels against their plain versions, the whole
@@ -162,10 +179,11 @@ after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
 The last lines are the total wall time, the kernels JSON (the seven kernels,
-the cluster chunk and the previous v3 kernel, the eleven variants of rows 4c and 5c, the six pivot formulations and the
-bf16x3 level of rows 7-10 and 3b, the three kernels of rows 6, 11 and
-12, and the SpMV kernels of rows 13, 14a, 14b and 15), the nvidia-smi line,
-and
+the two cluster chunks and the previous v3 kernel, the eleven variants of
+rows 4c and 5c, the six pivot formulations and the bf16x3 level of rows
+7-10 and 3b, the three kernels of rows 6, 11 and 12, and the SpMV kernels
+of rows 13, 14a, 14b and 15 with row 13's previous kernel), the nvidia-smi
+line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -244,6 +262,8 @@ KERNELS = {
                            "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
     "prox_chunk": ("csrc/prox_chunk.cu",
                    "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
+    "prox_chunk_cluster": ("csrc/prox_chunk_cluster.cu",
+                           "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
     "admm_chunk_minv": ("csrc/admm_chunk.cu",
                         "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
     "prox_chunk_minv": ("csrc/prox_chunk.cu",
@@ -254,7 +274,17 @@ KERNELS = {
 #: The previous kernels kept beside their redesigns as bit-for-bit witnesses
 #: and timing baselines (no solver launches them): witness -> its redesign.
 WITNESSES = {"pivot_sweep_v3_prev": "pivot_sweep_v3",
-             "admm_chunk": "admm_chunk_cluster"}
+             "admm_chunk": "admm_chunk_cluster",
+             "prox_chunk": "prox_chunk_cluster",
+             "ell_matvec_prev": "ell_matvec"}
+#: The counters (see counters()) of the wrappers that launch a kept previous
+#: kernel, or one chunk kernel whatever the dispatch rule says: witnesses
+#: and timing baselines only. Every path run reads them after its reset and
+#: fails unless they stayed 0.
+WITNESS_WRAPPERS = ("pivot_sweep_v3_prev", "ell_matvec_prev",
+                    "fused_admm_chunk_streaming", "fused_admm_chunk_cluster",
+                    "fused_proxqp_chunk_streaming",
+                    "fused_proxqp_chunk_cluster")
 #: Phase 2b: the redesigns and their witnesses at the main path's B.
 B_REDESIGN = B_MAIN
 
@@ -333,6 +363,8 @@ SPMV_SCIPY_BAR = 1e-6
 #: solve; 14a, 14b and 15 are entry points, counted in one call each.
 SPMV_KERNELS = {
     "ell_matvec": ("csrc/ell_matvec.cu", "benchmarks/ell_kernel_probe.py:84"),
+    "ell_matvec_prev": ("csrc/ell_matvec.cu",
+                        "benchmarks/ell_kernel_probe.py:84"),
     "routed_levels_t1": ("csrc/routed_spmv.cu",
                          "benchmarks/routed_spmv_probe.py:189"),
     "routed_levels": ("csrc/routed_spmv.cu",
@@ -908,22 +940,40 @@ def phase_kernels(torch, extra):
     y = torch.randn((B_KERNEL, ME), generator=g, device=DEVICE)
     z = torch.rand((B_KERNEL, MI), generator=g, device=DEVICE)
     pargs = (G, prob.A, prob.C, gv, prob.b, prob.d, x, s, y, z, rho, active)
-    pk = fused_proxqp.fused_proxqp_chunk(*pargs, K=K_PROX)
+    # Row 5a: the streaming kernel (every variant's) and the cluster kernel.
+    pstream, pcluster = (fused_proxqp.fused_proxqp_chunk_streaming,
+                         fused_proxqp.fused_proxqp_chunk_cluster)
+    pk = pstream(*pargs, K=K_PROX)
     pp = fused_proxqp.fused_proxqp_chunk_plain(*pargs, K=K_PROX)
     err = compare("prox_chunk", pk, pp, failures)
-    if not all(torch.equal(o[frozen], v[frozen])
-               for o, v in zip(pk, (x, s, y, z))):
-        failures.append("prox_chunk: a frozen lane did not pass through")
-    # G, A and C for the active lanes; the vectors in (g, x, b, y, d, s, z,
-    # rho, active) and out (x, y, s, z).
-    prox_bytes = 4 * (n_act * (N * mt + mt * N)
-                      + B_KERNEL * (2 * N + 2 * ME + 3 * MI + 2)
-                      + B_KERNEL * (N + ME + 2 * MI))
-    prox_flops = n_act * K_PROX * 4 * N * mt
-    out["prox_chunk"] = (
-        err, cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk(*pargs, K=K_PROX)),
-        cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_plain(*pargs, K=K_PROX)),
-        None, bound(prox_bytes, prox_flops))
+    pc = pcluster(*pargs, K=K_PROX)
+    err_pc = compare("prox_chunk_cluster", pc, pp, failures)
+    for nm, o in (("prox_chunk", pk), ("prox_chunk_cluster", pc)):
+        if not all(torch.equal(a[frozen], v[frozen])
+                   for a, v in zip(o, (x, s, y, z))):
+            failures.append(f"{nm}: a frozen lane did not pass through")
+    # Bit for bit, all four outputs, at K = 25 and K = 1.
+    for k in (K_PROX, 1):
+        a = pc if k == K_PROX else pcluster(*pargs, K=k)
+        b = pk if k == K_PROX else pstream(*pargs, K=k)
+        same = all(torch.equal(u_, v_) for u_, v_ in zip(a, b))
+        log(f"[phase 2] prox_chunk_cluster (K={k}): x, s, y, z bit for bit "
+            f"the streaming kernel's: {same}")
+        if not same:
+            failures.append(f"prox_chunk_cluster (K={k}): not the streaming "
+                            "kernel's bits")
+    prox_bytes, prox_flops = prox_chunk_work(B_KERNEL, n_act, K_PROX)
+    ms_ps, ms_pc = in_turns(lambda: pstream(*pargs, K=K_PROX),
+                            lambda: pcluster(*pargs, K=K_PROX))
+    prox_plain_ms = cuda_ms(
+        lambda: fused_proxqp.fused_proxqp_chunk_plain(*pargs, K=K_PROX))
+    out["prox_chunk"] = (err, ms_ps, prox_plain_ms, None,
+                         bound(prox_bytes, prox_flops))
+    out["prox_chunk_cluster"] = (err_pc, ms_pc, prox_plain_ms, None,
+                                 bound(prox_bytes, prox_flops))
+    log(f"[phase 2] prox_chunk_cluster {ms_pc:.4f} ms against the streaming "
+        f"prox_chunk {ms_ps:.4f} ms ({ms_ps / ms_pc:.2f}x; B={B_KERNEL}, "
+        f"K={K_PROX}, in turns)")
     # Row 5c: the prox variants ("high" runs G t, C x and A x as three bf16
     # passes, "default" as one).
     run, run_plain = fused_proxqp.fused_proxqp_chunk, fused_proxqp.fused_proxqp_chunk_plain
@@ -938,7 +988,7 @@ def phase_kernels(torch, extra):
     variant(out, failures, "prox_chunk_lanes2", run, run_plain, pargs,
             dict(K=K_PROX, dot_precision="high", lanes=2), prox_bytes,
             (0, 3 * prox_flops), same_as=high)
-    del G, gv, pargs, pk, pp, high
+    del G, gv, pargs, pk, pp, pc, high
 
     # The M^{-1}-form prox chunk: M = P + sigma*I + rho(A'A + C'C).
     sigma_p = 1e-2
@@ -1025,12 +1075,14 @@ def phase_kernels(torch, extra):
     return out
 
 
-def in_turns(old, new):
-    """(old ms, new ms): each timed twice in turns (old, new, new, old),
-    the median of its two medians of 5."""
-    t_old, t_new = [cuda_ms(old)], [cuda_ms(new)]
-    t_new.append(cuda_ms(new))
-    t_old.append(cuda_ms(old))
+def in_turns(old, new, timer=None):
+    """(old ms, new ms): each timed twice in turns (old, new, new, old) by
+    ``timer`` (cuda_ms, the median of 5, by default), the median of its
+    two times."""
+    timer = timer or cuda_ms
+    t_old, t_new = [timer(old)], [timer(new)]
+    t_new.append(timer(new))
+    t_old.append(timer(old))
     return statistics.median(t_old), statistics.median(t_new)
 
 
@@ -1044,18 +1096,32 @@ def admm_chunk_bound(B, n_act, K):
     return bound(nbytes, 4 * N * M * (n_act * K + B))
 
 
+def prox_chunk_work(B, n_act, K):
+    """The sigma-free prox chunk's least work: G, A and C read once for the
+    active lanes, the vectors in (g, x, b, y, d, s, z, rho, active) and out
+    (x, y, s, z); 4 n (me + mi) FLOPs a lane and iteration. Returns (bytes,
+    FP32 FLOPs)."""
+    mt = ME + MI
+    nbytes = 4 * (n_act * (N * mt + mt * N) + B * (2 * N + 2 * ME + 3 * MI + 2)
+                  + B * (N + ME + 2 * MI))
+    return nbytes, n_act * K * 4 * N * mt
+
+
 def phase_redesigns(torch):
-    """Phase 2b: rows 2 and 4a at the main path's B=4096 beside their
+    """Phase 2b: rows 2, 4a and 5a at the main path's B=4096 beside their
     previous kernels: the pivot sweep on the fleet's last pivot blocks (read
-    through the slab's strides) and the sigma-free chunk (K=11, every lane
-    active) from its factor, each bit for bit its witness and timed in
-    turns, at B=512 and B=4096; the cluster chunk's clusters resident at
-    once (cudaOccupancyMaxActiveClusters). Returns each kernel's numbers for
-    the kernels JSON."""
+    through the slab's strides), the sigma-free ADMM chunk (K=11) and the
+    sigma-free prox chunk (K=25, phase 6's shape) from their factors, every
+    lane active, each bit for bit its witness and timed in turns, at B=512
+    and B=4096; each cluster chunk's clusters resident at once
+    (cudaOccupancyMaxActiveClusters). Returns each kernel's numbers for the
+    kernels JSON."""
     from quadraticprogramsolver_tpu_torch.ops import (
-        fused_admm, fused_factor, spd_kernels)
+        fused_admm, fused_factor, fused_proxqp, spd_kernels)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
         device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
 
     B, failures, res = B_REDESIGN, [], {}
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
@@ -1113,6 +1179,47 @@ def phase_redesigns(torch):
         res.setdefault("admm_chunk_cluster", {})[tag] = {"ms": ms_c,
                                                          "bound_ms": bms}
     res["admm_chunk_cluster"]["clusters_resident"] = resident
+    del qp, G, gv, cargs, ref
+
+    prob = device_prox_fleet(B, N, ME, MI, generator=g)
+    r = 0.0125 * (1.0 + torch.rand(B, generator=g, device=DEVICE))
+    S = fused_factor.fused_factor_solve(
+        prob.P, (prob.A, prob.C), prob.q,
+        r[:, None].expand(B, ME + MI).contiguous(), sigma=0.0)
+    G, gv = S[..., :ME + MI].contiguous(), S[..., ME + MI].contiguous()
+    del S
+    it = (torch.randn((B, N), generator=g, device=DEVICE),
+          torch.rand((B, MI), generator=g, device=DEVICE),
+          torch.randn((B, ME), generator=g, device=DEVICE),
+          torch.rand((B, MI), generator=g, device=DEVICE))
+    pargs = (G, prob.A, prob.C, gv, prob.b, prob.d, *it, r, act)
+    stream, cluster = (fused_proxqp.fused_proxqp_chunk_streaming,
+                       fused_proxqp.fused_proxqp_chunk_cluster)
+    ref = stream(*pargs, K=K_PROX)
+    resident = fused_proxqp.cluster_occupancy(N, ME, MI)
+    log(f"[phase 2b] prox cluster chunk at n={N}, me={ME}, mi={MI}: "
+        f"{resident} clusters of {fused_proxqp.CLUSTER} CTAs resident at "
+        f"once, shared memory a CTA "
+        f"{fused_proxqp.cluster_smem_bytes(N, ME, MI)} bytes")
+    for b in (B_KERNEL, B):
+        sub = tuple(a[:b] for a in pargs)
+        bms, by = bound(*prox_chunk_work(b, b, K_PROX))
+        ms_s, ms_c = in_turns(lambda: stream(*sub, K=K_PROX),
+                              lambda: cluster(*sub, K=K_PROX))
+        same = all(torch.equal(u_, v_[:b])
+                   for u_, v_ in zip(cluster(*sub, K=K_PROX), ref))
+        if not same:
+            failures.append(f"phase 2b: the prox cluster chunk (B={b}) is "
+                            "not the streaming kernel's bits")
+        log(f"[phase 2b] B={b} sigma-free prox chunk (K={K_PROX}, every lane "
+            f"active): cluster {ms_c:.4f} ms, streaming {ms_s:.4f} ms "
+            f"({ms_s / ms_c:.2f}x); bound {bms:.4f} ms ({by}); bit for bit: "
+            f"{same}")
+        tag = f"b{b}" if b != B_KERNEL else "b512_all_active"
+        res.setdefault("prox_chunk", {})[tag] = {"ms": ms_s, "bound_ms": bms}
+        res.setdefault("prox_chunk_cluster", {})[tag] = {"ms": ms_c,
+                                                         "bound_ms": bms}
+    res["prox_chunk_cluster"]["clusters_resident"] = resident
     require(not failures, "; ".join(failures))
     return res
 
@@ -1121,8 +1228,8 @@ def time_chunks(torch):
     """``--time-chunks``: the sigma-free chunks and their variants at the
     main path's shapes (B=4096, every lane active; ADMM n=512, m=256, K=11
     from its slab; prox n=512, me = mi = 128, K=25), kernel ms (median of
-    5, CUDA events); the ADMM variants through the solver's dispatch (the
-    cluster chunk at none of them)."""
+    5, CUDA events); the variants through the solver's dispatch (the
+    cluster chunks at none of them)."""
     from quadraticprogramsolver_tpu_torch.ops import (
         fused_admm, fused_factor, fused_proxqp, linalg)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
@@ -1170,8 +1277,11 @@ def time_chunks(torch):
           torch.rand((B_MAIN, MI), generator=g, device=DEVICE),
           torch.randn((B_MAIN, ME), generator=g, device=DEVICE),
           torch.rand((B_MAIN, MI), generator=g, device=DEVICE))
-    for name, kw in (("prox_chunk", {}),
-                     ("prox_chunk_high", dict(dot_precision="high")),
+    show("prox_chunk_cluster", lambda: fused_proxqp.fused_proxqp_chunk_cluster(
+        G, prob.A, prob.C, gv, prob.b, prob.d, *it, r, act, K=K_PROX))
+    show("prox_chunk (streaming)", lambda: fused_proxqp.fused_proxqp_chunk_streaming(
+        G, prob.A, prob.C, gv, prob.b, prob.d, *it, r, act, K=K_PROX))
+    for name, kw in (("prox_chunk_high", dict(dot_precision="high")),
                      ("prox_chunk_default", dict(dot_precision="default")),
                      ("prox_chunk_lanes2", dict(dot_precision="high", lanes=2)),
                      ("prox_chunk lanes 2, highest", dict(lanes=2))):
@@ -1195,7 +1305,15 @@ def counters():
             "normal_inverse": spd_kernels.normal_inverse,
             "ell_matvec": spmv.ell_matvec,
             "routed_levels": routed_spmv.routed_levels_matvec,
-            "row_routed_rows": routed_spmv.row_routed_rows}
+            "row_routed_rows": routed_spmv.row_routed_rows,
+            # The witness wrappers (WITNESS_WRAPPERS): no solver calls them.
+            "pivot_sweep_v3_prev": spd_kernels.pivot_sweep_v3_prev,
+            "ell_matvec_prev": spmv.ell_matvec_prev,
+            "fused_admm_chunk_streaming": fused_admm.fused_admm_chunk_streaming,
+            "fused_admm_chunk_cluster": fused_admm.fused_admm_chunk_cluster,
+            "fused_proxqp_chunk_streaming":
+                fused_proxqp.fused_proxqp_chunk_streaming,
+            "fused_proxqp_chunk_cluster": fused_proxqp.fused_proxqp_chunk_cluster}
 
 
 def audit(qp, x, status, iters, label, required=True, prefix="phase 4"):
@@ -1282,20 +1400,17 @@ def report_solve(qp, sol, dt, fdt, label):
     return x, status, iters
 
 
-def chunk_kernels(cnt, label):
-    """The sigma-free chunk launches of a run split by kernel (the cluster
-    kernel's keys end in ",cluster"); the phase-3 variant's kernel, as the
-    dispatch rule names it, must have launched."""
-    from quadraticprogramsolver_tpu_torch.ops import fused_admm
-
-    variants = dict(cnt["admm_chunk"].variants)
+def chunk_kernels(cnt, name, rule, label):
+    """Chunk ``name``'s sigma-free launches of a run split by kernel (the
+    cluster kernel's keys end in ",cluster"); the kernel the dispatch rule
+    names for the run's variant (``rule``: "cluster" or "stream") must have
+    launched."""
+    variants = dict(cnt[name].variants)
     n_cluster = sum(v for k, v in variants.items() if k.endswith(",cluster"))
-    split = {"admm_chunk": cnt["admm_chunk"].launches - n_cluster,
-             "admm_chunk_cluster": n_cluster}
-    want = ("admm_chunk_cluster" if fused_admm.chunk_kernel(
-        N, M, 1, "highest", "G") == "cluster" else "admm_chunk")
-    log(f"[{label}] chunk launches by kernel: {split} (variants {variants}); "
-        f"the rule sends {N}/{M} highest lanes 1 to {want}")
+    split = {name: cnt[name].launches - n_cluster, f"{name}_cluster": n_cluster}
+    want = f"{name}_cluster" if rule == "cluster" else name
+    log(f"[{label}] {name} launches by kernel: {split} (variants {variants}); "
+        f"the rule sends highest lanes 1 to {want}")
     require(split[want] > 0, f"{label}: {want} never launched")
     return split
 
@@ -1307,13 +1422,19 @@ def reset(cnt):
             fn.variants.clear()
 
 
-def read(cnt, path, label):
-    """Launch counts of one path's run; every kernel of the path must move."""
+def read(cnt, path, label, witnesses=False):
+    """Launch counts of one path's run; every kernel of the path must move,
+    and no witness wrapper (WITNESS_WRAPPERS) may: a solver never calls one.
+    With ``witnesses`` their counts (0) join the returned ones."""
     launches = {k: cnt[k].launches for k in path}
-    log(f"[{label}] kernel launches: {launches}")
+    idle = {k: cnt[k].launches for k in WITNESS_WRAPPERS}
+    log(f"[{label}] kernel launches: {launches}; witness wrappers "
+        f"{sum(idle.values())}")
     require(all(v > 0 for v in launches.values()),
             f"{label}: a kernel of the path never launched: {launches}")
-    return launches
+    require(not any(idle.values()),
+            f"{label}: the solve launched a witness wrapper: {idle}")
+    return {**launches, **idle} if witnesses else launches
 
 
 def prox_audit(pkg, prob, sol, label):
@@ -1419,6 +1540,7 @@ def profile_solve(torch, solve, label):
 
 def phase_prox(torch, pkg, cnt, profile):
     """Phase 6: the prox-ALM fleet at static and at adaptive rho."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_proxqp
     from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
         device_prox_fleet)
 
@@ -1443,7 +1565,10 @@ def phase_prox(torch, pkg, cnt, profile):
             reset(cnt)
             sol = pkg.solve_proxqp(prob, settings)
             torch.cuda.synchronize()
-            counts = read(cnt, PROX_PATH, label)
+            counts = read(cnt, PROX_PATH, label, witnesses=True)
+            counts.update(chunk_kernels(
+                cnt, "prox_chunk", fused_proxqp.chunk_kernel(
+                    N, ME, MI, 1, "highest"), label))
             log(f"[{label}] peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
             if adaptive:
@@ -1752,6 +1877,8 @@ def phase_stacks(torch, pkg, cnt, profile):
         counts = read(cnt, PROX_PATH, label)
         variants = read_variants(cnt, "prox_chunk",
                                  ("default,lanes2", "high,lanes2"), label)
+        require(not any(k.endswith(",cluster") for k in variants),
+                f"{label}: the headline stack's chunks must stream: {variants}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         report_prox(prob, sol, None, None, f"{label} counted")
         dev = prox_audit(pkg, prob, sol, label)
@@ -2116,7 +2243,9 @@ def sparse_problem(pkg):
 
 def sparse_solve(torch, pkg, cnt, qp, scal, st, label):
     """One counted solve, then the best of 3 (the counted run warms up).
-    Returns (solution, seconds, ELL launches, CG steps, host syncs)."""
+    Returns (solution, seconds, launches, CG steps, host syncs): launches
+    of ell_matvec and of the witness wrappers (ell_matvec_prev among them),
+    which the counted run must leave at 0."""
     from quadraticprogramsolver_tpu_torch.models import admm, kkt
 
     pkg.solve(qp, st, scaling=scal)  # warm-up (cuSPARSE, allocator)
@@ -2125,7 +2254,8 @@ def sparse_solve(torch, pkg, cnt, qp, scal, st, label):
     kkt._pcg.steps = kkt._pcg.syncs = admm._solve_core.syncs = 0
     sol = pkg.solve(qp, st, scaling=scal)
     torch.cuda.synchronize()
-    launches = cnt["ell_matvec"].launches
+    launches = {"ell_matvec": cnt["ell_matvec"].launches,
+                **read(cnt, (), label, witnesses=True)}
     steps, cg_syncs, check_syncs = (kkt._pcg.steps, kkt._pcg.syncs,
                                     admm._solve_core.syncs)
     syncs = cg_syncs + check_syncs
@@ -2136,7 +2266,7 @@ def sparse_solve(torch, pkg, cnt, qp, scal, st, label):
         f"iteration), host syncs {syncs} ({cg_syncs} in CG, {check_syncs} at "
         f"checks); solve {dt * 1e3:.2f} ms (best "
         f"of 3), {dt * 1e3 / max(iters, 1):.3f} ms per outer iteration; "
-        f"ELL launches {launches}")
+        f"ELL launches {launches['ell_matvec']}")
     return sol, dt, launches, steps, syncs
 
 
@@ -2167,12 +2297,61 @@ def osqp_f64(data, sol, label):
                 "res_comp": rep.res_comp, "res_z": rep.res_z}
 
 
+def device_ms(fn, calls=20, reps=5):
+    """Device time of one call of fn: CUDA events around ``calls``
+    back-to-back calls queued behind a busy-wait kernel
+    (``torch.cuda._sleep``), so that the host has queued them all before the
+    first starts and the events time the device alone; around calls of a
+    few microseconds they would time the host's launches (~0.02 ms a call).
+    The median of ``reps`` groups after a warm-up group; a group whose
+    busy-wait ended before its last call was queued is repeated with a
+    longer one. ``fn`` may be a list of functions, called in turn (each on
+    its own copy of the operands, from ``l2_copies``)."""
+    import torch
+
+    fns = fn if isinstance(fn, list) else [fn]
+    cycles, times = 10_000_000, []
+    for _ in range(reps + 1):
+        while True:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            a.record()
+            for i in range(calls):
+                fns[i % len(fns)]()
+            b.record()
+            late = a.query()  # the device reached a: the host fell behind
+            torch.cuda.synchronize()
+            if not late:
+                break
+            cycles *= 2
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times[1:])
+
+
+def l2_copies(*tensors):
+    """Copies of ``tensors`` (dense or sparse CSR), enough that a call on
+    each in turn reads its operands from device memory and not from the L2:
+    together at least three times the L2's size, and at least 2."""
+    import torch
+
+    def nbytes(t):
+        if t.layout == torch.sparse_csr:
+            return sum(a.nbytes for a in (t.values(), t.crow_indices(),
+                                          t.col_indices()))
+        return t.nbytes
+
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    size = sum(nbytes(t) for t in tensors)
+    return [tuple(t.clone() for t in tensors)
+            for _ in range(max(2, -(-3 * l2 // size)))]
+
+
 def spmv_times(kern, plain, lib, slots, nnz, nbytes, flops):
     """(ms, plain ms, library ms, (bound ms, by)) of one SpMV kernel, each
-    the median of 5 groups of back-to-back calls."""
-    ms = cuda_ms(kern, inner=20)
-    return (ms, cuda_ms(plain, inner=5), None if lib is None else
-            cuda_ms(lib, inner=20), bound(nbytes, flops))
+    its device time (``device_ms``)."""
+    return (device_ms(kern), device_ms(plain, calls=5),
+            None if lib is None else device_ms(lib), bound(nbytes, flops))
 
 
 def spmv_entry(name, launches, err, times, extra):
@@ -2202,8 +2381,9 @@ def phase_sparse(torch, pkg, cnt, profile):
             f"phase 11: unexpected plan {p}")
 
     # 11a: ELL storage, row 13 in every product.
-    sol, dt, launches, steps, syncs = sparse_solve(
+    sol, dt, counts, steps, syncs = sparse_solve(
         torch, pkg, cnt, ell, scal, st, "phase 11a ELL")
+    launches, launches_prev = counts["ell_matvec"], counts["ell_matvec_prev"]
     status, iters = int(sol.info.status), int(sol.info.iterations)
     checks = iters // st.check_interval
     expected = 3 + 5 * iters + 3 * steps + 3 * checks
@@ -2223,8 +2403,9 @@ def phase_sparse(torch, pkg, cnt, profile):
     del sol
 
     # 11b: CSR storage (cuSPARSE): no kernel of ours.
-    sol, dt_c, launches_c, steps_c, syncs_c = sparse_solve(
+    sol, dt_c, counts_c, steps_c, syncs_c = sparse_solve(
         torch, pkg, cnt, csr, scal, st, "phase 11b CSR")
+    launches_c = counts_c["ell_matvec"]
     status_c = int(sol.info.status)
     ok_c, f64_c = osqp_f64(data, sol, "phase 11b")
     require(launches_c == 0, f"phase 11b: CSR storage launched the ELL "
@@ -2238,9 +2419,10 @@ def phase_sparse(torch, pkg, cnt, profile):
         f"{dt_c * 1e3:.2f} ms ({dt_c / dt:.2f}x)")
     del sol
 
-    # 11c: row 13 alone on the solve's P, A and A'.
+    # 11c: row 13 alone on the solve's P, A and A', beside the kernel it
+    # replaced (its witness, within LIMIT), its plain version and CSR @.
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
-    mats, worst = {}, 0.0
+    mats, worst, worst_prev = {}, 0.0, 0.0
     for name, vals, cols, M in (
             ("P", ell.P_vals, ell.P_cols, csr.P_csr),
             ("A", ell.A_vals, ell.A_cols, csr.A_csr),
@@ -2248,28 +2430,67 @@ def phase_sparse(torch, pkg, cnt, profile):
         v = torch.randn(M.shape[1], generator=g, device=DEVICE)
         rows, k = vals.shape
         nnz = M.values().numel()
-        err = compare(f"ell_matvec {name}", spmv.ell_matvec(vals, cols, v),
-                      spmv.ell_matvec_plain(vals, cols, v), failures,
+        y_new = spmv.ell_matvec(vals, cols, v)
+        y_prev = spmv.ell_matvec_prev(vals, cols, v)
+        y_plain = spmv.ell_matvec_plain(vals, cols, v)
+        err = compare(f"ell_matvec {name}", y_new, y_plain, failures,
                       "phase 11c")
+        worst_prev = max(worst_prev, compare(
+            f"ell_matvec_prev {name}", y_prev, y_plain, failures, "phase 11c"))
+        compare(f"ell_matvec {name} against ell_matvec_prev", y_new, y_prev,
+                failures, "phase 11c")
         worst = max(worst, err)
         out_in = v.nbytes + rows * 4
-        t = spmv_times(lambda: spmv.ell_matvec(vals, cols, v),
-                       lambda: spmv.ell_matvec_plain(vals, cols, v),
-                       lambda: M @ v, rows * k, nnz,
-                       vals.nbytes + cols.nbytes + out_in, 2 * rows * k)
+        nbytes = vals.nbytes + cols.nbytes + out_in
+        # Device times read from device memory, as the bound assumes: each
+        # call takes the next of several copies of the matrix, which
+        # together overflow the L2 (v, 0.4 MB, stays in it, as in a solve).
+        # "warm" times repeat the calls on one matrix, warm in the L2.
+        ells, csrs = l2_copies(vals, cols), l2_copies(M)
+        ms_prev, ms_new = in_turns(
+            [lambda a=a: spmv.ell_matvec_prev(*a, v) for a in ells],
+            [lambda a=a: spmv.ell_matvec(*a, v) for a in ells], device_ms)
+        t = (ms_new,
+             device_ms([lambda a=a: spmv.ell_matvec_plain(*a, v)
+                        for a in ells], calls=5),
+             device_ms([lambda a=a: a[0] @ v for a in csrs]),
+             bound(nbytes, 2 * rows * k))
+        warm = {"ell_matvec": device_ms(lambda: spmv.ell_matvec(vals, cols, v)),
+                "ell_matvec_prev": device_ms(
+                    lambda: spmv.ell_matvec_prev(vals, cols, v)),
+                "csr": device_ms(lambda: M @ v)}
+        del ells, csrs
+        # A call's cost as the solve's host loop sees it: CUDA events around
+        # 20 back-to-back calls (the host's launch cost fills the gaps).
+        call_ms = {"ell_matvec": cuda_ms(lambda: spmv.ell_matvec(vals, cols, v),
+                                         inner=20),
+                   "csr": cuda_ms(lambda: M @ v, inner=20)}
         nnz_bound = (nnz * 8 + out_in) / PEAK_BYTES_S * 1e3
         mats[name] = {"shape": [rows, k], "nnz": nnz, "ms": t[0],
-                      "plain_ms": t[1], "library_ms": t[2],
-                      "bound_ms": t[3][0], "nnz_bound_ms": nnz_bound}
+                      "prev_ms": ms_prev, "plain_ms": t[1], "library_ms": t[2],
+                      "bound_ms": t[3][0], "nnz_bound_ms": nnz_bound,
+                      "warm_ms": warm, "call_ms": call_ms}
         log(f"[phase 11c] ell_matvec {name} ({rows} x {k}, nnz {nnz}, fill "
-            f"{nnz / (rows * k):.2f}): kernel {t[0]:.4f} ms, plain "
-            f"{t[1]:.4f} ms, CSR @ {t[2]:.4f} ms; bound {t[3][0]:.4f} ms "
-            f"(ELL bytes as stored), {nnz_bound:.4f} ms (nnz only)")
+            f"{nnz / (rows * k):.2f}), device times from device memory: "
+            f"kernel {t[0]:.4f} ms, ell_matvec_prev {ms_prev:.4f} ms "
+            f"({ms_prev / t[0]:.2f}x, in turns), plain {t[1]:.4f} ms, CSR @ "
+            f"{t[2]:.4f} ms; bound {t[3][0]:.4f} ms (ELL bytes as stored, "
+            f"{t[3][0] / t[0]:.2f} of it reached), {nnz_bound:.4f} ms (nnz "
+            f"only); warm in the L2: kernel {warm['ell_matvec']:.4f} ms, "
+            f"ell_matvec_prev {warm['ell_matvec_prev']:.4f} ms, CSR @ "
+            f"{warm['csr']:.4f} ms; a call with the host's cost: kernel "
+            f"{call_ms['ell_matvec']:.4f} ms, CSR @ {call_ms['csr']:.4f} ms")
         if name == "P":
-            times_p = t
+            times_p, times_prev = t, (ms_prev, *t[1:])
     entries = [spmv_entry("ell_matvec", launches, worst, times_p,
                           {"stack": "phase 11a", "matrices": mats,
-                           "solve_ell": solve_a, "solve_csr": solve_b})]
+                           "warm_ms": mats["P"]["warm_ms"]["ell_matvec"],
+                           "solve_ell": solve_a, "solve_csr": solve_b}),
+               spmv_entry("ell_matvec_prev", launches_prev, worst_prev,
+                          times_prev,
+                          {"witness_of": WITNESSES["ell_matvec_prev"],
+                           "warm_ms": mats["P"]["warm_ms"]["ell_matvec_prev"],
+                           "stack": "phase 11a"})]
 
     # 11d: the probes' routed matvecs on P (unscaled, as the probes pack it).
     Pc = data.P.tocsr()
@@ -2279,7 +2500,7 @@ def phase_sparse(torch, pkg, cnt, profile):
     scale = float(np.abs(y_ref).max())
     x = torch.tensor(x_np, device=DEVICE)
     Pt = _to_csr(Pc, np.float32, DEVICE)
-    lib_ms = cuda_ms(lambda: Pt @ x, inner=20)
+    lib_ms = device_ms(lambda: Pt @ x)
     log(f"[phase 11d] P: {SPARSE_N} x {SPARSE_N}, nnz {nnz}; CSR P @ x "
         f"{lib_ms:.4f} ms")
 
@@ -2359,7 +2580,7 @@ def phase_sparse(torch, pkg, cnt, profile):
                    lambda: Pt @ x, slots, nnz,
                    RL.idxJ.nbytes + RL.V.nbytes + X.nbytes + G * W * 4,
                    2 * slots)
-    mv_ms = cuda_ms(lambda: rs.routed_matvec(RL, x), inner=20)
+    mv_ms = device_ms(lambda: rs.routed_matvec(RL, x))
     log(f"[phase 11d] 14b: kernel {t[0]:.4f} ms ({t[0] * 1e6 / slots:.4f} "
         f"ns/slot, {t[0] * 1e6 / nnz:.4f} ns/nnz), whole matvec "
         f"{mv_ms:.4f} ms, plain {t[1]:.4f} ms, CSR P @ x {t[2]:.4f} ms, "
@@ -2400,7 +2621,7 @@ def phase_sparse(torch, pkg, cnt, profile):
                    lambda: rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L),
                    lambda: Pt @ x, slots, nnz,
                    RR.idx.nbytes + RR.V.nbytes + Xw.nbytes + slots * 4, slots)
-    mv_ms = cuda_ms(lambda: rs.row_routed_matvec(RR, x), inner=5)
+    mv_ms = device_ms(lambda: rs.row_routed_matvec(RR, x), calls=5)
     log(f"[phase 11d] 15: kernel {t[0]:.4f} ms ({t[0] * 1e6 / slots:.4f} "
         f"ns/slot, {t[0] * 1e6 / nnz:.4f} ns/nnz), whole matvec with the "
         f"block sum {mv_ms:.4f} ms, plain {t[1]:.4f} ms, CSR P @ x "
@@ -2431,6 +2652,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import quadraticprogramsolver_tpu_torch as pkg
     from quadraticprogramsolver_tpu_torch import _build
+    from quadraticprogramsolver_tpu_torch.ops import fused_admm
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
         device_random_qp_fleet)
 
@@ -2477,8 +2699,10 @@ def main() -> int:
     reset(cnt)
     sol = pkg.solve(qp, static)
     torch.cuda.synchronize()
-    launches = read(cnt, ADMM_PATH, "phase 3 main-path solve")
-    launches.update(chunk_kernels(cnt, "phase 3 main-path solve"))
+    launches = read(cnt, ADMM_PATH, "phase 3 main-path solve", witnesses=True)
+    launches.update(chunk_kernels(
+        cnt, "admm_chunk", fused_admm.chunk_kernel(N, M, 1, "highest", "G"),
+        "phase 3 main-path solve"))
     del sol
     if "--profile" in sys.argv[1:]:
         profile_solve(torch, lambda: pkg.solve(qp, static), "phase 3 profile")
@@ -2531,7 +2755,8 @@ def main() -> int:
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
         by_path = {k: v.get(name) for k, v in paths.items()}
-        own = {"prox_chunk": "prox", "admm_chunk_minv": "admm_minv",
+        own = {"prox_chunk": "prox", "prox_chunk_cluster": "prox",
+               "admm_chunk_minv": "admm_minv",
                "prox_chunk_minv": "prox_minv"}.get(name, "admm")
         e = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
              "replaces": rep,

@@ -56,16 +56,13 @@
 // <= 8 and both <= 512 (the register budget); ops/fused_admm.py:
 // chunk_kernel sends every other shape to the streaming kernel.
 
-#include "common.cuh"
+#include "cluster.cuh"
 
 using qps::i64;
+using namespace qps::cluster;
 
 namespace {
-constexpr int C = 8;                 // CTAs a cluster (a lane)
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;  // 16: nr = 16 (n/128), mr = 16 (m/128)
 constexpr int STREAM_THREADS = 256;  // admm_chunk.cu's THREADS (cols_dot's order)
-constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a CTA can have
 
 // cols_dot's row groups at the streaming kernel's thread count (n <= 512,
 // so n/4 < 256 and every column is summed in groups).
@@ -79,121 +76,12 @@ __host__ __device__ constexpr int cluster_floats(int n, int m) {
          aty_groups(n) * (n / C);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The address of the same shared-memory word in CTA `rank` of the cluster.
-__device__ __forceinline__ unsigned mapa(unsigned a, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-// Arms the barrier's current phase: one arrival, `bytes` still to come.
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra.uni DONE;\n"
-      "bra.uni WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// Stores v[0..W) at the cluster address `a` and counts their bytes on the
-// receiver's mbarrier `bar` (a cluster address too): one 8- or 16-byte
-// store for W = 2 or 4 (a aligned to it), else W 4-byte stores.
-template <int W>
-__device__ __forceinline__ void send(unsigned a, const float (&v)[W], unsigned bar) {
-  if constexpr (W == 4) {
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
-        "[%5];\n" ::"r"(a),
-        "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])), "r"(__float_as_uint(v[2])),
-        "r"(__float_as_uint(v[3])), "r"(bar)
-        : "memory");
-  } else if constexpr (W == 2) {
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
-        ::"r"(a), "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])), "r"(bar)
-        : "memory");
-  } else {
-#pragma unroll
-    for (int q = 0; q < W; ++q)
-      asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
-                   ::"r"(a + 4 * q), "r"(__float_as_uint(v[q])), "r"(bar)
-                   : "memory");
-  }
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-
-// Copies rows x cols floats (cols % 4 == 0) from global (row pitch ld) to
-// shared memory (row pitch cols) with 16-byte cp.async, all threads (the
-// caller commits the group).
-__device__ __forceinline__ void load_rows(float* dst, const float* src, i64 ld,
-                                          int rows, int cols) {
-  const int c4n = cols / 4;
-  for (int e = threadIdx.x; e < rows * c4n; e += THREADS) {
-    const int r = e / c4n, c4 = e - r * c4n;
-    cp_async16(dst + (i64)r * cols + 4 * c4, src + (i64)r * ld + 4 * c4);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits for every cp.async group of this thread but the `n` newest.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // al * v + al1 * prev as the streaming kernel's compiler contracts it:
 // the product with prev is the fused one (fma(al1, prev, al * v)). Written
 // out, since which of two products nvcc fuses follows the order in which
 // their operands were computed, and here v comes from a warp's shuffles.
 __device__ __forceinline__ float relax(float al, float v, float al1, float prev) {
   return __fmaf_rn(al1, prev, __fmul_rn(al, v));
-}
-
-// The dot of a register row (lane's float4s k = 0..KW-1 at l + 32k) with the
-// shared vector v in rows_dot's order; every lane gets the sum.
-template <int KW>
-__device__ __forceinline__ float reg_dot(const float4 (&row)[KW], const float* v, int lane) {
-  const float4* v4 = reinterpret_cast<const float4*>(v);
-  float s = 0.0f;
-#pragma unroll
-  for (int k = 0; k < KW; ++k) {
-    const float4 a = row[k], b = v4[lane + 32 * k];
-    s = fmaf(a.x, b.x, s);
-    s = fmaf(a.y, b.y, s);
-    s = fmaf(a.z, b.z, s);
-    s = fmaf(a.w, b.w, s);
-  }
-  return qps::warp_sum(s);
 }
 }  // namespace
 
@@ -247,7 +135,7 @@ admm_chunk_cluster_kernel(const float* __restrict__ G, int ldG,
   }
   // Every CTA of the cluster must have started (and armed its mbarriers)
   // before another sends to it: arrive now, wait before the first send.
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  cluster_arrive();
   if (cid < B) {
     load_rows(PG, G + (i64)cid * n * ldG + (i64)i0 * ldG, ldG, nr, m);
     load_rows(PA, A + (i64)cid * m * n + (i64)r0 * n, n, mr, n);
@@ -257,7 +145,7 @@ admm_chunk_cluster_kernel(const float* __restrict__ G, int ldG,
   const int dst = lane < C ? lane : 0;
   const unsigned tv_d = mapa(smem_u32(tv), dst), xv_d = mapa(smem_u32(xv), dst);
   const unsigned mb_d = mapa(mb, dst);
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_wait();
 
   float4 gr[NB][MB], ar[MB][NB];
   unsigned phase_t[2] = {0, 0}, phase_x[2] = {0, 0};
@@ -413,32 +301,9 @@ constexpr int smem_bytes() {
   return bytes;
 }
 
-cudaLaunchConfig_t launch_config(int grid, int smem, cudaStream_t s,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// The clusters of the instance the card holds at once, into *out.
 template <int NB, int MB>
-cudaError_t resident(int* out) {
-  cudaError_t e = cudaFuncSetAttribute(admm_chunk_cluster_kernel<NB, MB>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem_bytes<NB, MB>());
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(C, smem_bytes<NB, MB>(), nullptr, &attr);
-  return cudaOccupancyMaxActiveClusters(out, admm_chunk_cluster_kernel<NB, MB>, &cfg);
+cudaError_t resident_nm(int* out) {
+  return resident(admm_chunk_cluster_kernel<NB, MB>, smem_bytes<NB, MB>(), out);
 }
 
 template <int NB, int MB>
@@ -448,36 +313,10 @@ cudaError_t launch(const float* G, int ldG, const float* A, const float* g,
                    const int* active, float* xo, float* zo, float* yo,
                    float* xpo, float* zpo, float* Axo, float* ATyo, int B,
                    int K, float alpha, cudaStream_t s) {
-  int clusters = 0;
-  cudaError_t e = resident<NB, MB>(&clusters);
-  if (e != cudaSuccess) return e;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg =
-      launch_config(C * (B < clusters ? B : clusters), smem_bytes<NB, MB>(), s, &attr);
-  return cudaLaunchKernelEx(&cfg, admm_chunk_cluster_kernel<NB, MB>, G, ldG, A, g, l, u, rho, x, z, y, active, xo,
-                            zo, yo, xpo, zpo, Axo, ATyo, B, K, alpha);
+  return launch_persistent(admm_chunk_cluster_kernel<NB, MB>, smem_bytes<NB, MB>(), B, s,
+                           G, ldG, A, g, l, u, rho, x, z, y, active, xo, zo, yo, xpo,
+                           zpo, Axo, ATyo, B, K, alpha);
 }
-
-// Calls F<NB, MB>(args...) for the (n, m) of one instance, or returns
-// cudaErrorInvalidValue: n, m multiples of 128, at most 512, with
-// (n/128)(m/128) <= 8.
-#define QPS_CLUSTER_DISPATCH(F, ...)                                   \
-  switch ((n / 128) * 16 + m / 128) {                                  \
-    case 0x11: return F<1, 1>(__VA_ARGS__);                            \
-    case 0x12: return F<1, 2>(__VA_ARGS__);                            \
-    case 0x13: return F<1, 3>(__VA_ARGS__);                            \
-    case 0x14: return F<1, 4>(__VA_ARGS__);                            \
-    case 0x21: return F<2, 1>(__VA_ARGS__);                            \
-    case 0x22: return F<2, 2>(__VA_ARGS__);                            \
-    case 0x23: return F<2, 3>(__VA_ARGS__);                            \
-    case 0x24: return F<2, 4>(__VA_ARGS__);                            \
-    case 0x31: return F<3, 1>(__VA_ARGS__);                            \
-    case 0x32: return F<3, 2>(__VA_ARGS__);                            \
-    case 0x41: return F<4, 1>(__VA_ARGS__);                            \
-    case 0x42: return F<4, 2>(__VA_ARGS__);                            \
-    default: return cudaErrorInvalidValue;                             \
-  }
 
 cudaError_t launch_for(int n, int m, const float* G, int ldG, const float* A,
                        const float* g, const float* l, const float* u,
@@ -485,16 +324,13 @@ cudaError_t launch_for(int n, int m, const float* G, int ldG, const float* A,
                        const float* y, const int* active, float* xo, float* zo,
                        float* yo, float* xpo, float* zpo, float* Axo, float* ATyo,
                        int B, int K, float alpha, cudaStream_t s) {
-  if (n % 128 || m % 128) return cudaErrorInvalidValue;
-  QPS_CLUSTER_DISPATCH(launch, G, ldG, A, g, l, u, rho, x, z, y, active, xo, zo, yo,
-                       xpo, zpo, Axo, ATyo, B, K, alpha, s)
+  QPS_CLUSTER_DISPATCH(launch, n, m, G, ldG, A, g, l, u, rho, x, z, y, active, xo, zo,
+                       yo, xpo, zpo, Axo, ATyo, B, K, alpha, s)
 }
 
 cudaError_t resident_for(int n, int m, int* out) {
-  if (n % 128 || m % 128) return cudaErrorInvalidValue;
-  QPS_CLUSTER_DISPATCH(resident, out)
+  QPS_CLUSTER_DISPATCH(resident_nm, n, m, out)
 }
-#undef QPS_CLUSTER_DISPATCH
 }  // namespace
 
 // G: f32 rows of pitch ldG (m for a contiguous (B, n, m) G, kp + n for the

@@ -1,0 +1,200 @@
+// Shared pieces of the two cluster chunks (admm_chunk_cluster.cu,
+// prox_chunk_cluster.cu): one lane per thread-block cluster of 8 CTAs, its
+// matrices held in registers, vectors exchanged between the CTAs with
+// st.async into distributed shared memory and counted by the receiver's
+// mbarrier, the next lane's rows brought into shared memory by cp.async.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace qps {
+namespace cluster {
+
+constexpr int C = 8;                 // CTAs a cluster (a lane), the portable size
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr size_t MAX_SMEM = 232448;  // 227 KB, the most a CTA can have
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared-memory word in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned mapa(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+// Arms the barrier's current phase: one arrival, `bytes` still to come.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Stores v[0..W) at the cluster address `a` and counts their bytes on the
+// receiver's mbarrier `bar` (a cluster address too): one 8- or 16-byte
+// store for W = 2 or 4 (a aligned to it), else W 4-byte stores.
+template <int W>
+__device__ __forceinline__ void send(unsigned a, const float (&v)[W], unsigned bar) {
+  if constexpr (W == 4) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+        "[%5];\n" ::"r"(a),
+        "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])), "r"(__float_as_uint(v[2])),
+        "r"(__float_as_uint(v[3])), "r"(bar)
+        : "memory");
+  } else if constexpr (W == 2) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+        ::"r"(a), "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])), "r"(bar)
+        : "memory");
+  } else {
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+                   ::"r"(a + 4 * q), "r"(__float_as_uint(v[q])), "r"(bar)
+                   : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+// Copies rows x cols floats (cols % 4 == 0) from global (row pitch ld) to
+// shared memory (row pitch cols) with 16-byte cp.async, all THREADS threads
+// (the caller commits the group).
+__device__ __forceinline__ void load_rows(float* dst, const float* src, i64 ld,
+                                          int rows, int cols) {
+  const int c4n = cols / 4;
+  for (int e = threadIdx.x; e < rows * c4n; e += THREADS) {
+    const int r = e / c4n, c4 = e - r * c4n;
+    cp_async16(dst + (i64)r * cols + 4 * c4, src + (i64)r * ld + 4 * c4);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for every cp.async group of this thread but the `n` newest.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The dot of a register row (lane's float4s k = 0..KW-1 at l + 32k) with the
+// shared vector v in rows_dot's order; every lane gets the sum.
+template <int KW>
+__device__ __forceinline__ float reg_dot(const float4 (&row)[KW], const float* v, int lane) {
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KW; ++k) {
+    const float4 a = row[k], b = v4[lane + 32 * k];
+    s = fmaf(a.x, b.x, s);
+    s = fmaf(a.y, b.y, s);
+    s = fmaf(a.z, b.z, s);
+    s = fmaf(a.w, b.w, s);
+  }
+  return warp_sum(s);
+}
+
+inline cudaLaunchConfig_t launch_config(int grid, int smem, cudaStream_t s,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of `kern` (smem bytes of dynamic shared memory a CTA) the
+// card holds at once, into *out.
+template <typename Kernel>
+cudaError_t resident(Kernel kern, int smem, int* out) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(C, smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+}
+
+// Launches `kern` as min(lanes, resident) persistent clusters.
+template <typename Kernel, typename... Args>
+cudaError_t launch_persistent(Kernel kern, int smem, int lanes, cudaStream_t s,
+                              Args... args) {
+  int clusters = 0;
+  cudaError_t e = resident(kern, smem, &clusters);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      launch_config(C * (lanes < clusters ? lanes : clusters), smem, s, &attr);
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+}  // namespace cluster
+}  // namespace qps
+
+// Calls F<NB, MB>(args...) for NB = n / 128 and MB = m / 128, or returns
+// cudaErrorInvalidValue: n, m multiples of 128, at most 512, with
+// (n/128)(m/128) <= 8 (the register budget of a cluster chunk).
+#define QPS_CLUSTER_DISPATCH(F, n, m, ...)                             \
+  if ((n) % 128 || (m) % 128) return cudaErrorInvalidValue;            \
+  switch (((n) / 128) * 16 + (m) / 128) {                              \
+    case 0x11: return F<1, 1>(__VA_ARGS__);                            \
+    case 0x12: return F<1, 2>(__VA_ARGS__);                            \
+    case 0x13: return F<1, 3>(__VA_ARGS__);                            \
+    case 0x14: return F<1, 4>(__VA_ARGS__);                            \
+    case 0x21: return F<2, 1>(__VA_ARGS__);                            \
+    case 0x22: return F<2, 2>(__VA_ARGS__);                            \
+    case 0x23: return F<2, 3>(__VA_ARGS__);                            \
+    case 0x24: return F<2, 4>(__VA_ARGS__);                            \
+    case 0x31: return F<3, 1>(__VA_ARGS__);                            \
+    case 0x32: return F<3, 2>(__VA_ARGS__);                            \
+    case 0x41: return F<4, 1>(__VA_ARGS__);                            \
+    case 0x42: return F<4, 2>(__VA_ARGS__);                            \
+    default: return cudaErrorInvalidValue;                             \
+  }

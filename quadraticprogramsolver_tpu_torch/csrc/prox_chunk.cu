@@ -218,8 +218,10 @@ int launch_prox_chunk(const float* G, const float* A, const float* C,
 }  // namespace
 
 // Contiguous f32: G (B, n, me + mi), A (B, me, n), C (B, mi, n), g/x (B, n),
-// b/y (B, me), d/s/z (B, mi), rho (B,); active (B,) int32. n, me, mi
-// multiples of 128; B % lanes == 0; prec 0 = highest, 1 = high, 2 = default.
+// b/y (B, me), d/s/z (B, mi), rho (B,); active (B,) int32. n and me + mi
+// multiples of 128, me and mi of 4 (16-byte rows of t and of the lane's
+// vectors in shared memory); B % lanes == 0; prec 0 = highest, 1 = high,
+// 2 = default.
 extern "C" int qps_prox_chunk(const float* G, const float* A, const float* C,
                               const float* g, const float* b, const float* d,
                               const float* rho, const float* x, const float* s,

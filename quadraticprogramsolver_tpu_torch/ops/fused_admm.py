@@ -32,6 +32,7 @@ import collections
 import torch
 
 from .. import _build
+from .cluster import CLUSTER, SMEM_PER_CTA, fits
 from .linalg import (PRECISIONS, bf16_round, dot_operand, matvec, matvec_at,
                      resolve_precision)
 
@@ -107,13 +108,6 @@ def _plain_chunk(kkt_solve, A, l, u, x, z, y, rho_row, active, *, K, alpha,
     return x, z, y, xp, zp, Ax, ATy
 
 
-#: CTAs of the cluster that holds one lane in the cluster chunk (8, the
-#: portable cluster size).
-CLUSTER = 8
-#: Shared memory one CTA can have on the H100 (227 KB).
-SMEM_PER_CTA = 232448
-
-
 def cluster_smem_bytes(n: int, m: int) -> int:
     """Shared memory one CTA of the cluster chunk needs at (n, m): the next
     lane's n/8 rows of G and m/8 rows of A and this lane's n/8 columns of A,
@@ -131,14 +125,13 @@ def chunk_kernel(n: int, m: int, lanes: int, dot_precision: str, source: str,
     cluster of :data:`CLUSTER` CTAs, G and A held in registers, the next
     lane's rows loaded into shared memory meanwhile) at ``dot_precision``
     "highest", ``lanes`` 1 and ``source`` "G" (contiguous) or "slab" (the
-    window), when n and m are multiples of 128 up to 512 whose G and A
-    rows fit the cluster's registers ((n/128)(m/128) <= 8) and each CTA's
-    shared memory fits ``smem_per_cta`` bytes; else "stream" (admm_chunk.cu,
-    the matrices read from device memory every iteration)."""
-    nb, mb = n // 128, m // 128  # a thread holds 8 nb mb matrix floats
+    window), when the lane fits the cluster (:func:`.cluster.fits`: n and
+    m multiples of 128 up to 512 with (n/128)(m/128) <= 8, and
+    :func:`cluster_smem_bytes` within ``smem_per_cta``); else "stream"
+    (admm_chunk.cu, the matrices read from device memory every
+    iteration)."""
     if (dot_precision == "highest" and source in ("G", "slab") and lanes == 1
-            and n % 128 == 0 and m % 128 == 0 and 0 < nb <= 4 and 0 < mb <= 4
-            and nb * mb <= 8 and cluster_smem_bytes(n, m) <= smem_per_cta):
+            and fits(n, m, lambda: cluster_smem_bytes(n, m), smem_per_cta)):
         return "cluster"
     return "stream"
 

@@ -15,6 +15,14 @@ On a CUDA tensor each wrapper launches its kernel in csrc/prox_chunk.cu; on
 a CPU tensor it runs its plain version, which rounds to bf16 only float32
 operands and runs any lane grouping as lanes=1 (the kernels give the same
 bits).
+
+A sigma-free launch at "highest", lanes 1, whose lane fits a cluster
+(:func:`chunk_kernel`) runs the cluster kernel, csrc/prox_chunk_cluster.cu,
+which holds each lane's G, A and C in the registers of a cluster of
+:data:`CLUSTER` CTAs for all K iterations; every other variant streams them
+(prox_chunk.cu). Both give the same bits. :func:`fused_proxqp_chunk_streaming`
+and :func:`fused_proxqp_chunk_cluster` launch one kernel whatever the rule
+says (each other's witness on the card).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import collections
 import torch
 
 from .. import _build
+from .cluster import CLUSTER, SMEM_PER_CTA, fits
 from .linalg import PRECISIONS, dot_operand, matvec, matvec_at, resolve_precision
 
 
@@ -72,6 +81,81 @@ def _plain_chunk(kkt_solve, A, C, b, d, x, s, y, z, rho, active, *, K,
             torch.where(act, y, y0), torch.where(act, z, z0))
 
 
+def cluster_smem_bytes(n: int, me: int, mi: int) -> int:
+    """Shared memory one CTA of the prox cluster chunk needs at (n, me, mi):
+    the next lane's n/8 rows of G and (me + mi)/8 rows of [A; C], t and x
+    twice, its n/8 rows of g and three vectors of its stacked rows, four
+    mbarriers (csrc/prox_chunk_cluster.cu: prox_cluster_floats)."""
+    mt = me + mi
+    nr, mr = n // CLUSTER, mt // CLUSTER
+    return 4 * (16 + nr * mt + mr * n + 2 * (mt + n) + nr + 3 * mr)
+
+
+def chunk_kernel(n: int, me: int, mi: int, lanes: int, dot_precision: str,
+                 smem_per_cta: int = SMEM_PER_CTA) -> str:
+    """The kernel a sigma-free prox chunk launch runs: "cluster" (one lane
+    per cluster of :data:`CLUSTER` CTAs, G, A and C held in registers, the
+    next lane's rows loaded into shared memory meanwhile) at
+    ``dot_precision`` "highest" and ``lanes`` 1, when the lane fits the
+    cluster (:func:`.cluster.fits` at (n, me + mi), with
+    :func:`cluster_smem_bytes` within ``smem_per_cta``); else "stream"
+    (prox_chunk.cu, the matrices read from device memory every
+    iteration)."""
+    if (dot_precision == "highest" and lanes == 1
+            and fits(n, me + mi, lambda: cluster_smem_bytes(n, me, mi),
+                     smem_per_cta)):
+        return "cluster"
+    return "stream"
+
+
+def chunk_variant(n: int, me: int, mi: int, lanes: int,
+                  dot_precision: str) -> str:
+    """The key a sigma-free launch counts under in
+    ``fused_proxqp_chunk.variants``: "precision,lanesL", with ",cluster"
+    when :func:`chunk_kernel` sends it to the cluster kernel."""
+    key = f"{dot_precision},lanes{lanes}"
+    if chunk_kernel(n, me, mi, lanes, dot_precision) == "cluster":
+        key += ",cluster"
+    return key
+
+
+def _launch_sigma_free(wrapper, kernel, G, A, C, g, b, d, x, s, y, z, rho,
+                       active, *, K, lanes, dot_precision, variant=None):
+    """Check a sigma-free chunk's operands and launch ``kernel`` ("stream"
+    or "cluster"), counted on ``wrapper``; returns (x, s, y, z)."""
+    B, n = x.shape
+    me, mi = b.shape[-1], d.shape[-1]
+    if dot_precision not in PRECISIONS:
+        raise ValueError(f"dot_precision must be one of {tuple(PRECISIONS)}; "
+                         f"got {dot_precision!r}")
+    _check_lanes(B, lanes)
+    if K < 1:
+        raise ValueError(f"{wrapper.__name__}: K must be >= 1; got {K}")
+    if me % 4 or mi % 4 or not (me and mi):
+        raise ValueError(f"{wrapper.__name__}: me and mi must be nonzero "
+                         f"multiples of 4; got me={me}, mi={mi}")
+    outs = [torch.empty_like(v) for v in (x, s, y, z)]
+    act = _build.check_chunk(
+        wrapper.__name__,
+        {"G": (G, (B, n, me + mi)), "A": (A, (B, me, n)), "C": (C, (B, mi, n)),
+         "g": (g, (B, n)), "b": (b, (B, me)), "d": (d, (B, mi)),
+         "x": (x, (B, n)), "s": (s, (B, mi)), "y": (y, (B, me)),
+         "z": (z, (B, mi)), "rho": (rho, (B,))},
+        {"n": n, "me + mi": me + mi}, outs, active)
+    ptrs = (G.data_ptr(), A.data_ptr(), C.data_ptr(), g.data_ptr(),
+            b.data_ptr(), d.data_ptr(), rho.data_ptr(), x.data_ptr(),
+            s.data_ptr(), y.data_ptr(), z.data_ptr(), act.data_ptr(),
+            *(o.data_ptr() for o in outs))
+    if kernel == "cluster":
+        _build.launch(wrapper, "qps_prox_chunk_cluster", *ptrs, B, n, me, mi,
+                      K, _build.stream_ptr(x), variant=variant)
+    else:
+        _build.launch(wrapper, "qps_prox_chunk", *ptrs, B, n, me, mi, K, lanes,
+                      PRECISIONS[dot_precision], _build.stream_ptr(x),
+                      variant=variant)
+    return tuple(outs)
+
+
 def fused_proxqp_chunk(G, A, C, g, b, d, x, s, y, z, rho, active, *, K: int,
                        lanes: int = 1, dot_precision: str = "highest"):
     """Run K sigma-free prox-ALM iterations for every active lane.
@@ -82,39 +166,78 @@ def fused_proxqp_chunk(G, A, C, g, b, d, x, s, y, z, rho, active, *, K: int,
     ``dot_precision`` of G t, C x and A x: "highest", "high" (bf16x3) or
     "default" (one bf16 pass). Returns (x, s, y, z); a frozen lane passes
     its inputs through unchanged.
+
+    On a CUDA tensor the launch runs the kernel :func:`chunk_kernel` names
+    and counts under its :func:`chunk_variant` key, e.g. "high,lanes2" or
+    "highest,lanes1,cluster".
     """
     if not _build.launches_kernel("fused_proxqp_chunk", x):
         return fused_proxqp_chunk_plain(G, A, C, g, b, d, x, s, y, z, rho,
                                         active, K=K, lanes=lanes,
                                         dot_precision=dot_precision)
-    B, n = x.shape
-    me, mi = b.shape[-1], d.shape[-1]
-    if dot_precision not in PRECISIONS:
-        raise ValueError(f"dot_precision must be one of {tuple(PRECISIONS)}; "
-                         f"got {dot_precision!r}")
-    _check_lanes(B, lanes)
-    if K < 1:
-        raise ValueError(f"fused_proxqp_chunk: K must be >= 1; got {K}")
-    outs = [torch.empty_like(v) for v in (x, s, y, z)]
-    act = _build.check_chunk(
-        "fused_proxqp_chunk",
-        {"G": (G, (B, n, me + mi)), "A": (A, (B, me, n)), "C": (C, (B, mi, n)),
-         "g": (g, (B, n)), "b": (b, (B, me)), "d": (d, (B, mi)),
-         "x": (x, (B, n)), "s": (s, (B, mi)), "y": (y, (B, me)),
-         "z": (z, (B, mi)), "rho": (rho, (B,))},
-        {"n": n, "me": me, "mi": mi}, outs, active)
-    _build.launch(
-        fused_proxqp_chunk, "qps_prox_chunk",
-        G.data_ptr(), A.data_ptr(), C.data_ptr(), g.data_ptr(), b.data_ptr(),
-        d.data_ptr(), rho.data_ptr(), x.data_ptr(), s.data_ptr(), y.data_ptr(),
-        z.data_ptr(), act.data_ptr(), *(o.data_ptr() for o in outs), B, n, me,
-        mi, K, lanes, PRECISIONS[dot_precision], _build.stream_ptr(x),
-        variant=f"{dot_precision},lanes{lanes}")
-    return tuple(outs)
+    n, me, mi = x.shape[-1], b.shape[-1], d.shape[-1]
+    return _launch_sigma_free(
+        fused_proxqp_chunk, chunk_kernel(n, me, mi, lanes, dot_precision),
+        G, A, C, g, b, d, x, s, y, z, rho, active, K=K, lanes=lanes,
+        dot_precision=dot_precision,
+        variant=chunk_variant(n, me, mi, lanes, dot_precision))
 
 
 fused_proxqp_chunk.launches = 0
 fused_proxqp_chunk.variants = collections.Counter()
+
+
+def fused_proxqp_chunk_streaming(G, A, C, g, b, d, x, s, y, z, rho, active,
+                                 *, K: int, lanes: int = 1,
+                                 dot_precision: str = "highest"):
+    """:func:`fused_proxqp_chunk` through the streaming kernel
+    (prox_chunk.cu) in every variant, whatever :func:`chunk_kernel` says:
+    the cluster kernel's bit-for-bit witness and timing baseline on the
+    card (no solver calls it). Counts on its own ``launches``; on a CPU
+    tensor the plain version."""
+    if not _build.launches_kernel("fused_proxqp_chunk_streaming", x):
+        return fused_proxqp_chunk_plain(G, A, C, g, b, d, x, s, y, z, rho,
+                                        active, K=K, lanes=lanes,
+                                        dot_precision=dot_precision)
+    return _launch_sigma_free(
+        fused_proxqp_chunk_streaming, "stream", G, A, C, g, b, d, x, s, y, z,
+        rho, active, K=K, lanes=lanes, dot_precision=dot_precision)
+
+
+fused_proxqp_chunk_streaming.launches = 0
+
+
+def fused_proxqp_chunk_cluster(G, A, C, g, b, d, x, s, y, z, rho, active, *,
+                               K: int):
+    """:func:`fused_proxqp_chunk` at "highest", lanes 1, through the cluster
+    kernel (csrc/prox_chunk_cluster.cu), whatever the solver's rule would
+    pick. Raises ValueError where :func:`chunk_kernel` refuses the shape.
+    Counts on its own ``launches``; on a CPU tensor the plain version."""
+    n, me, mi = x.shape[-1], b.shape[-1], d.shape[-1]
+    if chunk_kernel(n, me, mi, 1, "highest") != "cluster":
+        raise ValueError(f"fused_proxqp_chunk_cluster: n={n}, me={me}, "
+                         f"mi={mi} do not fit a cluster of {CLUSTER} CTAs")
+    if not _build.launches_kernel("fused_proxqp_chunk_cluster", x):
+        return fused_proxqp_chunk_plain(G, A, C, g, b, d, x, s, y, z, rho,
+                                        active, K=K)
+    return _launch_sigma_free(
+        fused_proxqp_chunk_cluster, "cluster", G, A, C, g, b, d, x, s, y, z,
+        rho, active, K=K, lanes=1, dot_precision="highest")
+
+
+fused_proxqp_chunk_cluster.launches = 0
+
+
+def cluster_occupancy(n: int, me: int, mi: int) -> int:
+    """How many clusters of the prox cluster chunk at (n, me + mi) the
+    current card holds at once (cudaOccupancyMaxActiveClusters): the lanes
+    in flight, and the clusters a launch starts."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    _build.check(_build.load().lib.qps_prox_chunk_cluster_occupancy(
+        n, me + mi, ctypes.byref(out)), "qps_prox_chunk_cluster_occupancy")
+    return out.value
 
 
 def fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y, z, rho,

@@ -1,17 +1,21 @@
-"""Rows 2 and 4a's redesigned kernels as the CPU can check them.
+"""Rows 2, 4a and 5a's redesigned kernels as the CPU can check them.
 
-The sigma-free chunk's dispatch rule (``ops/fused_admm.py: chunk_kernel``,
+The sigma-free chunks' dispatch rules (``ops/fused_admm.py: chunk_kernel``,
 a pure function of n, m, lanes, precision, G source and shared memory a
-CTA), its launch keys and the cluster kernel's shared-memory size; the
-wrappers that launch one kernel whatever the rule says (the streaming and
-cluster chunks, the previous v3 pivot kernel) against the JAX package's
-chunk in interpret mode and the v3 plain version; and every C entry point
-of ``csrc`` against the signature ``_build`` gives ctypes. The kernels
-themselves run only on the card (``tests/test_torch_cuda.py``).
+CTA; ``ops/fused_proxqp.py: chunk_kernel``, of n, me, mi, lanes, precision
+and shared memory), their launch keys and the cluster kernels'
+shared-memory sizes; the wrappers that launch one kernel whatever the rule
+says (the streaming and cluster chunks of both families, the previous v3
+pivot kernel) against the JAX package's chunks (the ADMM one in interpret
+mode, the prox kernel's body called eagerly) and the v3 plain version; and
+every C entry point of ``csrc`` against the signature ``_build`` gives
+ctypes. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,12 +23,14 @@ import torch
 
 import quadraticprogramsolver_tpu as qps
 from quadraticprogramsolver_tpu.models import kkt as jax_kkt
+from quadraticprogramsolver_tpu.ops import fused_proxqp as jax_fused_proxqp
 from quadraticprogramsolver_tpu.ops.fused_admm import (
     fused_admm_chunk as jax_admm_chunk)
 from quadraticprogramsolver_tpu.ops.spd_kernels import pallas_spd_inverse_unrolled
 
 from quadraticprogramsolver_tpu_torch import _build
-from quadraticprogramsolver_tpu_torch.ops import fused_admm, spd_kernels
+from quadraticprogramsolver_tpu_torch.ops import (cluster, fused_admm, fused_proxqp,
+                                                  spd_kernels)
 
 # (n, m, lanes, dot_precision, source) -> the kernel the rule picks.
 RULE = {
@@ -71,6 +77,48 @@ def test_cluster_smem_bytes():
     assert len(taken) == 12
     assert all(fused_admm.cluster_smem_bytes(n, m) <= fused_admm.SMEM_PER_CTA
                for n, m in taken)
+
+
+# (n, m, smem_bytes) -> whether the lane fits the cluster (ops/cluster.py).
+FITS = {
+    (512, 256, 1000): True,                  # both headlines
+    (128, 128, 1000): True,
+    (256, 512, 1000): True,                  # (n/128)(m/128) = 8
+    (512, 512, 1000): False,                 # 16 > 8
+    (640, 128, 1000): False,                 # n over 512
+    (512, 0, 1000): False,
+    (500, 256, 1000): False,                 # not a multiple of 128
+    (512, 256, cluster.SMEM_PER_CTA): True,  # exactly a CTA's shared memory
+    (512, 256, cluster.SMEM_PER_CTA + 4): False,
+}
+
+
+@pytest.mark.parametrize("case", list(FITS), ids=lambda c: ",".join(map(str, c)))
+def test_cluster_fits(case):
+    """The one register and shared-memory rule both cluster chunks share;
+    shared memory is asked for only where the registers fit."""
+    n, m, smem = case
+    asked = []
+    assert cluster.fits(n, m, lambda: asked.append(1) or smem) is FITS[case]
+    assert bool(asked) == (FITS[case] or smem > cluster.SMEM_PER_CTA)
+
+
+def test_both_families_take_the_cluster_rule_from_one_module():
+    """Over every 128-multiple shape up to 1024 (and 64-multiples for the
+    prox split), each family's chunk_kernel at "highest", lanes 1 says
+    "cluster" exactly where ``cluster.fits`` takes the shape with the
+    family's own shared memory."""
+    assert fused_admm.CLUSTER == fused_proxqp.CLUSTER == cluster.CLUSTER == 8
+    for n in range(128, 1025, 128):
+        for m in range(128, 1025, 128):
+            admm = cluster.fits(n, m, lambda: fused_admm.cluster_smem_bytes(n, m))
+            assert (fused_admm.chunk_kernel(n, m, 1, "highest", "G")
+                    == ("cluster" if admm else "stream")), (n, m)
+            for me in range(64, m, 64):
+                prox = cluster.fits(
+                    n, m, lambda: fused_proxqp.cluster_smem_bytes(n, me, m - me))
+                assert (fused_proxqp.chunk_kernel(n, me, m - me, 1, "highest")
+                        == ("cluster" if prox else "stream")), (n, me, m - me)
 
 
 VARIANT_KEYS = {
@@ -177,5 +225,166 @@ def test_every_c_entry_point_has_its_ctypes_signature():
     entry point whose parameter count differs would read garbage."""
     entries = _entry_points()
     assert {"qps_pivot_sweep_v3", "qps_pivot_sweep_v3_prev",
-            "qps_admm_chunk", "qps_admm_chunk_cluster"} <= set(entries)
+            "qps_admm_chunk", "qps_admm_chunk_cluster", "qps_prox_chunk",
+            "qps_prox_chunk_cluster", "qps_ell_matvec",
+            "qps_ell_matvec_prev"} <= set(entries)
     assert entries == {k: len(v) for k, v in _build._SIGNATURES.items()}
+
+
+# -- row 5a: the prox sigma-free chunk --
+
+#: The shared memory a CTA of the prox cluster chunk needs at the headline
+#: shape (n=512, me = mi = 128).
+PROX_SMEM = 4 * (16 + 64 * 256 + 32 * 512 + 2 * (256 + 512) + 64 + 3 * 32)
+
+# (n, me, mi, lanes, dot_precision, shared memory a CTA) -> the kernel the
+# prox rule picks.
+PROX_RULE = {
+    (512, 128, 128, 1, "highest", None): "cluster",    # the prox headline
+    (512, 128, 128, 1, "highest", PROX_SMEM): "cluster",
+    (512, 128, 128, 1, "highest", PROX_SMEM - 4): "stream",
+    (128, 64, 64, 1, "highest", None): "cluster",
+    (512, 64, 192, 1, "highest", None): "cluster",     # A rows in CTAs 0-1
+    (128, 32, 96, 1, "highest", None): "cluster",      # the A/C boundary in a CTA
+    (256, 128, 256, 1, "highest", None): "cluster",    # 8 (n/128)(mt/128) = 48
+    (384, 128, 128, 1, "highest", None): "cluster",
+    (512, 128, 128, 2, "highest", None): "stream",     # lanes 2
+    (512, 128, 128, 4, "highest", None): "stream",
+    (512, 128, 128, 1, "high", None): "stream",        # bf16x3
+    (512, 128, 128, 1, "default", None): "stream",     # one bf16 pass
+    (512, 256, 256, 1, "highest", None): "stream",     # over the registers
+    (384, 128, 256, 1, "highest", None): "stream",     # 3 x 3 > 8
+    (640, 64, 64, 1, "highest", None): "stream",       # n over 512
+    (256, 64, 32, 1, "highest", None): "stream",       # me + mi not 128k
+    (500, 128, 128, 1, "highest", None): "stream",     # n not 128k
+}
+
+
+@pytest.mark.parametrize("case", list(PROX_RULE), ids=lambda c: ",".join(map(str, c)))
+def test_prox_chunk_kernel_rule(case):
+    *shape, smem = case
+    kw = {} if smem is None else {"smem_per_cta": smem}
+    assert fused_proxqp.chunk_kernel(*shape, **kw) == PROX_RULE[case]
+
+
+def test_prox_cluster_smem_bytes():
+    """4 mbarriers (16 floats), the next lane's 64 G rows of 256 and 32
+    stacked rows of 512, t and x twice, 64 rows of g and 3 x 32 stacked
+    vector rows; every (n, me + mi) the rule takes fits a CTA, and only the
+    sum me + mi counts."""
+    assert fused_proxqp.cluster_smem_bytes(512, 128, 128) == PROX_SMEM
+    assert (fused_proxqp.cluster_smem_bytes(512, 64, 192)
+            == fused_proxqp.cluster_smem_bytes(512, 128, 128))
+    taken = [(n, mt) for n in range(128, 1025, 128) for mt in range(128, 1025, 128)
+             if fused_proxqp.chunk_kernel(n, mt // 2, mt // 2, 1, "highest") == "cluster"]
+    assert len(taken) == 12
+    assert all(fused_proxqp.cluster_smem_bytes(n, mt // 2, mt // 2)
+               <= fused_admm.SMEM_PER_CTA for n, mt in taken)
+
+
+PROX_VARIANT_KEYS = {
+    (512, 128, 128, 1, "highest"): "highest,lanes1,cluster",
+    (128, 32, 96, 1, "highest"): "highest,lanes1,cluster",
+    (512, 128, 128, 2, "high"): "high,lanes2",
+    (512, 128, 128, 2, "default"): "default,lanes2",
+    (512, 128, 128, 1, "high"): "high,lanes1",
+    (512, 128, 128, 2, "highest"): "highest,lanes2",
+    (1024, 256, 256, 1, "highest"): "highest,lanes1",
+}
+
+
+@pytest.mark.parametrize("case", list(PROX_VARIANT_KEYS),
+                         ids=lambda c: ",".join(map(str, c)))
+def test_prox_chunk_variant_key(case):
+    assert fused_proxqp.chunk_variant(*case) == PROX_VARIANT_KEYS[case]
+
+
+def test_prox_cluster_wrapper_refuses_what_the_rule_sends_elsewhere():
+    B = 2
+    for n, me, mi in ((1024, 256, 256), (512, 64, 32), (640, 64, 64)):
+        mt = me + mi
+        z = [torch.zeros((B, w)) for w in (n, me, mi, n, mi, me, mi)]
+        with pytest.raises(ValueError, match="do not fit a cluster of 8 CTAs"):
+            fused_proxqp.fused_proxqp_chunk_cluster(
+                torch.zeros((B, n, mt)), torch.zeros((B, me, n)),
+                torch.zeros((B, mi, n)), *z, torch.ones(B),
+                torch.ones(B, dtype=torch.bool), K=1)
+
+
+class _Ref:
+    """A Pallas ref stand-in for calling a kernel body eagerly: reads index
+    the array, writes replace it with ``.at[idx].set``."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __getitem__(self, idx):
+        return self.value[idx]
+
+    def __setitem__(self, idx, v):
+        self.value = self.value.at[idx].set(v)
+
+
+PROX_B, PROX_N, PROX_ME, PROX_MI, PROX_K = 4, 128, 64, 64, 5
+
+
+@pytest.fixture(scope="module")
+def prox_case():
+    """A split-form fleet at n=128, me = mi = 64 (a cluster CTA holds 16
+    stacked rows there: CTAs 0-3 the A rows, 4-7 the C rows), its sigma-free
+    cache G = M^{-1}[A' C'] and g in f64, rounded
+    to float32, iterates with the last lane frozen, and JAX's kernel body
+    (ops/fused_proxqp.py: _chunk_kernel, sigma-free) run eagerly on them,
+    all lanes in one call. JAX's wrapper takes only 128-multiple me and mi,
+    so the body is called through a ref shim with program_id 0."""
+    B, n, me, mi = PROX_B, PROX_N, PROX_ME, PROX_MI
+    rng = np.random.default_rng(11)
+    M = rng.standard_normal((B, n, n))
+    P = np.swapaxes(M, 1, 2) @ M / n + np.eye(n)
+    A = rng.standard_normal((B, me, n))
+    C = rng.standard_normal((B, mi, n))
+    xf = rng.standard_normal((B, n))
+    q = rng.standard_normal((B, n))
+    b = np.einsum("bij,bj->bi", A, xf)
+    d = np.einsum("bij,bj->bi", C, xf) + 1.0
+    rho = rng.uniform(0.05, 0.5, B)
+    Mn = P + rho[:, None, None] * (np.swapaxes(A, 1, 2) @ A + np.swapaxes(C, 1, 2) @ C)
+    X = np.linalg.solve(Mn, np.concatenate(
+        [np.swapaxes(A, 1, 2), np.swapaxes(C, 1, 2), q[:, :, None]], axis=-1))
+    G, g = X[..., :me + mi], X[..., me + mi]
+    x = rng.standard_normal((B, n))
+    s = np.abs(rng.standard_normal((B, mi)))
+    y = rng.standard_normal((B, me))
+    z = np.abs(rng.standard_normal((B, mi)))
+    arrs = [a.astype(np.float32) for a in (G, A, C, g, b, d, x, s, y, z, rho)]
+    active = np.array([True, True, True, False])
+    G, A, C, g, b, d, x, s, y, z, rho = arrs
+    vec = lambda a: _Ref(jnp.asarray(a)[:, None, :])  # noqa: E731
+    outs = [_Ref(jnp.zeros((B, 1, w), jnp.float32)) for w in (n, mi, me, mi)]
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(jax_fused_proxqp.pl, "program_id", lambda axis: 0)
+        jax_fused_proxqp._chunk_kernel(
+            _Ref(jnp.asarray(rho)), _Ref(jnp.asarray(active.astype(np.int32))),
+            _Ref(jnp.asarray(G[..., :me])), _Ref(jnp.asarray(A)),
+            _Ref(jnp.asarray(C)), _Ref(jnp.asarray(G[..., me:])), vec(g),
+            vec(b), vec(d), vec(x), vec(s), vec(y), vec(z), *outs, K=PROX_K,
+            sigma=0.0, refine=0, lanes=B, sigma_free=True)
+    ref = [np.asarray(o.value)[:, 0] for o in outs]
+    return [torch.from_numpy(a) for a in arrs], torch.from_numpy(active), ref
+
+
+@pytest.mark.parametrize("wrapper", ["fused_proxqp_chunk_cluster",
+                                     "fused_proxqp_chunk_streaming",
+                                     "fused_proxqp_chunk"])
+def test_prox_one_kernel_wrappers_match_jax_on_cpu(prox_case, wrapper):
+    """The cluster and streaming wrappers and the dispatching chunk run the
+    plain version on the CPU: bit for bit it, within 1e-5 of each output's
+    max of JAX's kernel body, the frozen lane passed through."""
+    args, active, ref = prox_case
+    out = getattr(fused_proxqp, wrapper)(*args, active, K=PROX_K)
+    plain = fused_proxqp.fused_proxqp_chunk_plain(*args, active, K=PROX_K)
+    for name, o, p, r, v0 in zip("xsyz", out, plain, ref, args[6:10]):
+        assert torch.equal(o, p), name
+        assert np.abs(o.numpy() - r).max() <= 1e-5 * max(np.abs(r).max(), 1.0), name
+        assert torch.equal(o[~active], v0[~active]), name
+    assert not torch.equal(out[0][active], args[6][active])

@@ -972,3 +972,107 @@ def test_chunk_dispatch_on_card(dev):
     for o, r in zip(out, fused_admm.fused_admm_chunk_plain(G, *rest, K=2,
                                                            alpha=1.6)):
         assert _close(o, r)
+
+
+def _prox_chunk_operands(dev, seed, b, n, me, mi):
+    """A prox fleet's sigma-free cache (from one stacked block [A; C]: the
+    same G = M^{-1}[A' C']) and iterates at phase 6's penalties, every
+    fourth lane frozen."""
+    prob, g = _prox_fleet(dev, seed, b=b, n=n, me=me, mi=mi)
+    # Phase 6's penalties: from rho ~ 0.1 up, FP32 rounding alone moves K=25
+    # iterations past TOL of the plain version.
+    rho = 0.0125 * (1.0 + torch.rand(b, generator=g, device=dev))
+    mt = me + mi
+    S = fused_factor.fused_factor_solve(
+        prob.P, torch.cat([prob.A, prob.C], 1), prob.q,
+        rho[:, None].expand(b, mt).contiguous(), sigma=0.0)
+    G, gv = S[..., :mt].contiguous(), S[..., mt].contiguous()
+    x = torch.randn((b, n), generator=g, device=dev)
+    s = torch.rand((b, mi), generator=g, device=dev)
+    y = torch.randn((b, me), generator=g, device=dev)
+    z = torch.rand((b, mi), generator=g, device=dev)
+    active = torch.arange(b, device=dev) % 4 != 3
+    return (G, prob.A, prob.C, gv, prob.b, prob.d, x, s, y, z, rho, active)
+
+
+@pytest.mark.parametrize("K", [1, 25])
+@pytest.mark.parametrize("n,me,mi", [(128, 64, 64), (256, 128, 128),
+                                     (512, 128, 128), (512, 64, 192)])
+def test_prox_cluster_chunk_matches_streaming_kernel(dev, n, me, mi, K):
+    """Row 5a's cluster kernel (G, A and C held in a cluster's registers)
+    against the streaming kernel, bit for bit on x, s, y and z, with every
+    fourth lane frozen and more lanes than twice the clusters resident at
+    once (not a multiple of them); and against the plain version (TOL)."""
+    resident = fused_proxqp.cluster_occupancy(n, me, mi)
+    assert resident >= 1
+    args = _prox_chunk_operands(dev, 40, 2 * resident + 3, n, me, mi)
+    active = args[-1]
+    stream = fused_proxqp.fused_proxqp_chunk_streaming(*args, K=K)
+    plain = fused_proxqp.fused_proxqp_chunk_plain(*args, K=K)
+    assert all(_close(o, r) for o, r in zip(stream, plain))
+    fused_proxqp.fused_proxqp_chunk_cluster.launches = 0
+    out = fused_proxqp.fused_proxqp_chunk_cluster(*args, K=K)
+    assert fused_proxqp.fused_proxqp_chunk_cluster.launches == 1
+    for o, r, v in zip(out, stream, args[6:10]):
+        assert torch.equal(o, r)
+        assert torch.equal(o[~active], v[~active])
+
+
+def test_prox_solve_runs_the_cluster_chunk(dev):
+    """The prox solve's chunk runs the cluster kernel at "highest" (n=200,
+    me=100, mi=60 padded to 256/128/128), the streaming one at "high"; the
+    cluster solve's statuses are the CPU solve's, x within 1e-3."""
+    prob, _ = _prox_fleet(dev, 41, n=200, me=100, mi=60)
+    base = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.05,
+                adaptive_rho=False, check_interval=25, kkt_warm_start=False,
+                kkt_refinement_steps=0, sigma_free_rhs=True, fused_chunk=True,
+                require_fused=True)
+    counts = fused_proxqp.fused_proxqp_chunk.variants
+    counts.clear()
+    st = pt.ProxQPSettings(**base)
+    sol = pt.solve_proxqp(prob, st)
+    assert set(counts) == {"highest,lanes1,cluster"}, counts
+    counts.clear()
+    pt.solve_proxqp(prob, pt.ProxQPSettings(chunk_dot_precision="high", **base))
+    assert set(counts) == {"high,lanes1"}, counts
+    ref = pt.solve_proxqp(prob.to("cpu"), st)
+    assert (ref.info.status == 3).all()
+    assert torch.equal(sol.info.status.cpu(), ref.info.status)
+    assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3
+
+
+def _random_ell(dev, g, rows, k, n):
+    """Random ELL arrays: each row's first U(0, k) slots hold values and
+    columns, the rest the padding (value 0, column 0)."""
+    vals = torch.randn((rows, k), generator=g, device=dev)
+    cols = torch.randint(0, n, (rows, k), generator=g, device=dev, dtype=torch.int32)
+    used = torch.randint(0, k + 1, (rows, 1), generator=g, device=dev)
+    pad = torch.arange(k, device=dev)[None, :] >= used
+    return vals.masked_fill(pad, 0.0), cols.masked_fill(pad, 0)
+
+
+@pytest.mark.parametrize("rows", [1, 255, 257, 100_000])
+def test_ell_matvec_matches_plain_and_previous_kernel(dev, rows):
+    """Row 13's kernel within TOL of its plain version and of the kernel it
+    replaced, at every k (the 16-byte path at k % 4 == 0, else scalar; the
+    scalar path also from 4-byte aligned arrays), one launch each."""
+    from quadraticprogramsolver_tpu_torch.ops import spmv
+
+    n = 5000
+    g = torch.Generator(device=dev).manual_seed(rows)
+    v = torch.randn(n, generator=g, device=dev)
+    for k in (1, 2, 3, 4, 5, 8, 11, 17, 32, 33, 44, 64, 100):
+        vals, cols = _random_ell(dev, g, rows, k, n)
+        plain = spmv.ell_matvec_plain(vals, cols, v)
+        before = (spmv.ell_matvec.launches, spmv.ell_matvec_prev.launches)
+        out = spmv.ell_matvec(vals, cols, v)
+        prev = spmv.ell_matvec_prev(vals, cols, v)
+        assert (spmv.ell_matvec.launches, spmv.ell_matvec_prev.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert _close(out, plain) and _close(out, prev) and _close(prev, plain), k
+        # The same arrays 4 bytes past a 16-byte boundary.
+        vb = torch.empty(rows * k + 1, device=dev)[1:].view(rows, k)
+        cb = torch.empty(rows * k + 1, device=dev, dtype=torch.int32)[1:].view(rows, k)
+        vb.copy_(vals)
+        cb.copy_(cols)
+        assert _close(spmv.ell_matvec(vb, cb, v), plain), k

@@ -7,7 +7,8 @@ ELL pre-scaled with ``scaling=``: identical statuses and outer iterations, x
 and y within 1e-7 in f64, against ``solve_jit`` on the same instance). Then
 the plain versions of the SpMV kernels of rows 13-15: row 13 against JAX's
 ``_ell_matvec``, the routing packers bit for bit against the probes' own
-(``benchmarks/*.py``, numpy only), the plain matvecs against scipy (f64,
+(``benchmarks/*.py``, numpy only), row 13's previous kernel (its wrapper the
+plain version here), the plain matvecs against scipy (f64,
 1e-12) and against the probe kernels' bodies, restated in jnp and run
 eagerly (the probes' Pallas kernels are closures inside their ``main()``).
 """
@@ -328,6 +329,22 @@ def test_ell_matvec_plain_matches_jax_and_scipy(data, which):
     assert spmv.ell_matvec.launches == 0  # the CPU runs the plain version
     assert np.abs(got.numpy() - np.asarray(ref)).max() <= 1e-12
     assert np.abs(got.numpy() - M @ v).max() <= 1e-12
+
+
+@pytest.mark.parametrize("which", ["P", "A", "At"])
+def test_ell_matvec_prev_is_the_plain_version_on_cpu(data, which):
+    """Row 13's previous kernel, kept as the new one's witness: on the CPU
+    its wrapper runs the plain version, bit for bit, and launches nothing;
+    in float32 too, as the new wrapper's does."""
+    M = {"P": data.P, "A": data.A, "At": data.A.T.tocsr()}[which]
+    v = np.random.default_rng(3).standard_normal(M.shape[1])
+    for dtype in (np.float64, np.float32):
+        vals, cols = (torch.tensor(a) for a in jsp._to_ell(M, dtype))
+        vt = torch.tensor(v.astype(dtype))
+        plain = spmv.ell_matvec_plain(vals, cols, vt)
+        assert torch.equal(spmv.ell_matvec_prev(vals, cols, vt), plain)
+        assert torch.equal(spmv.ell_matvec(vals, cols, vt), plain)
+    assert spmv.ell_matvec_prev.launches == 0 and spmv.ell_matvec.launches == 0
 
 
 @pytest.mark.parametrize("S,W", [(8, 128), (4, 256)])
