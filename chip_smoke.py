@@ -22,10 +22,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    cores), the H100 SXM's published peaks. The two M^{-1} chunks are also held, output by output,
    against their plain version run in f64 (the witness: the kernel's error
    within 3x the FP32 plain version's), the prox one at phase 6's penalties
-   and at phase 7c's rho0 = 0.1. Rows 2, 4a and 5a's kernels run beside the
-   previous kernels they replace on the main paths, kept as their witnesses
-   (``pivot_sweep_v3_prev``; ``admm_chunk`` and ``prox_chunk``, the
-   streaming chunks that every other variant runs): the v3 pivot sweep bit
+   and at phase 7c's rho0 = 0.1. Rows 1, 2, 3, 4a and 5a's kernels run beside
+   the previous kernels they replace on the main paths, kept as their
+   witnesses (``slab_build_prev``, ``slab_level_prev``,
+   ``pivot_sweep_v3_prev``; ``admm_chunk`` and ``prox_chunk``, the
+   streaming chunks that every other variant runs): the triangle build
+   (``slab_build``, one launch over the gram's upper triangle) bit for bit
+   the previous kernels on [A' | q | 0] and M's upper triangle, its gram part
+   exactly symmetric and within MIRROR_TOL of theirs, one and two row blocks;
+   the strip level (``slab_level``, one launch a level) bit for bit the
+   previous two-launch level on the whole slab; each timed in turns beside
+   its bound and one ``torch.baddbmm`` (TF32 off) on its dominant product
+   shapes, the card's FP32 rate as a yardstick; the v3 pivot sweep bit
    for bit its previous kernel on the slab's pivot blocks and on
    spread-diagonal blocks, the ADMM cluster chunk (``admm_chunk_cluster``)
    bit for bit the streaming one on all seven outputs from G and from the
@@ -58,17 +66,20 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    inverse of the 128-blocks, and the fused normal-matrix inverse of the
    phase's n=512, m=256 fleet with per-lane rho (beside the library
    Cholesky inverse of a torch-built M and the port's M^{-1} route).
-2b. Rows 2, 4a and 5a at the main paths' B=4096 beside their previous
-   kernels (the pivot sweep on the fleet's last pivot blocks, the ADMM chunk
+2b. Rows 1, 2, 3, 4a and 5a at the main paths' B=4096 beside their previous
+   kernels (the build of both families and the level at j=3 as in phase 2,
+   with the yardstick; the pivot sweep on the fleet's last pivot blocks, the ADMM chunk
    at K=11 and the prox chunk at K=25 with every lane active, also at
    B=512), bit for bit and timed in turns, with each cluster chunk's
    clusters resident at once.
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
-   end with status 2 or 3, every kernel's launch count must move, and the
-   chunk must run the kernel the dispatch rule names for its variant
-   (``ops/fused_admm.py: chunk_kernel``: the cluster chunk).
+   end with status 2 or 3, every kernel's launch count must move, the
+   factor must run one triangle build and 4 strip levels (``factor_kernels``),
+   and the chunk must run the kernel the dispatch rule names for its variant
+   (``ops/fused_admm.py: chunk_kernel``: the cluster chunk). Peak memory of
+   the counted solve.
 4. Audit: 16 lanes (8 spread, 8 with the most iterations) re-solved in f64
    on the host by ``f64_oracle.py`` beside this script (numpy and scipy
    only); max |x - x_ref|_inf must be <= 1e-4.
@@ -79,7 +90,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the sigma-free fused knobs at static rho = 0.0125 and again at adaptive
    rho (rho0 = 0.1, which must refactor in the loop). Every lane must end
    with status 3, the slab, pivot, level and prox chunk kernels must all
-   launch, the chunk through the kernel the dispatch rule names
+   launch, the factor through the triangle build and the strip levels, the
+   chunk through the kernel the dispatch rule names
    (``ops/fused_proxqp.py: chunk_kernel``: the cluster chunk), and 8 lanes (4 spread, the 4 other converged lanes with the most
    iterations) re-solved by the f64 oracle on the lowered box form must agree
    within 1e-4. Each run starts at eps 5e-5 and is repeated at 2e-5, then
@@ -173,13 +185,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 phase 3 (the ADMM headline), one profiled static-rho prox solve,
 one profiled solve each of phases 7a and 7b, one each of 8a and 8e, one
 of the fastest phase-9 stack and one of phase 11a (kernel time by name and
-the device's idle share). ``--sparse-only`` runs phases 1 and 11 alone and
+the device's idle share; phases 3 and 6 must trace one ``slab_build_kernel``
+and 4 ``level_strip_kernel`` and none of the previous factor kernels). ``--sparse-only`` runs phases 1 and 11 alone and
 prints no ``ok`` line. ``--time-chunks`` adds,
 after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
 The last lines are the total wall time, the kernels JSON (the seven kernels,
-the two cluster chunks and the previous v3 kernel, the eleven variants of
+the two cluster chunks and the previous build, level and v3 kernels, the eleven variants of
 rows 4c and 5c, the six pivot formulations and the bf16x3 level of rows
 7-10 and 3b, the three kernels of rows 6, 11 and 12, and the SpMV kernels
 of rows 13, 14a, 14b and 15 with row 13's previous kernel), the nvidia-smi
@@ -254,8 +267,12 @@ KERNELS = {
                        "quadraticprogramsolver_tpu/ops/spd_kernels.py:265"),
     "pivot_sweep_v3_prev": ("csrc/pivot_sweep.cu",
                             "quadraticprogramsolver_tpu/ops/spd_kernels.py:265"),
+    "slab_build_prev": ("csrc/slab_build.cu",
+                        "quadraticprogramsolver_tpu/ops/fused_factor.py:80"),
     "slab_level": ("csrc/slab_level.cu",
                    "quadraticprogramsolver_tpu/ops/fused_factor.py:131"),
+    "slab_level_prev": ("csrc/slab_level.cu",
+                        "quadraticprogramsolver_tpu/ops/fused_factor.py:131"),
     "admm_chunk": ("csrc/admm_chunk.cu",
                    "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
     "admm_chunk_cluster": ("csrc/admm_chunk_cluster.cu",
@@ -273,7 +290,9 @@ KERNELS = {
 
 #: The previous kernels kept beside their redesigns as bit-for-bit witnesses
 #: and timing baselines (no solver launches them): witness -> its redesign.
-WITNESSES = {"pivot_sweep_v3_prev": "pivot_sweep_v3",
+WITNESSES = {"slab_build_prev": "slab_build",
+             "slab_level_prev": "slab_level",
+             "pivot_sweep_v3_prev": "pivot_sweep_v3",
              "admm_chunk": "admm_chunk_cluster",
              "prox_chunk": "prox_chunk_cluster",
              "ell_matvec_prev": "ell_matvec"}
@@ -281,12 +300,18 @@ WITNESSES = {"pivot_sweep_v3_prev": "pivot_sweep_v3",
 #: kernel, or one chunk kernel whatever the dispatch rule says: witnesses
 #: and timing baselines only. Every path run reads them after its reset and
 #: fails unless they stayed 0.
-WITNESS_WRAPPERS = ("pivot_sweep_v3_prev", "ell_matvec_prev",
+WITNESS_WRAPPERS = ("slab_build_prev", "slab_level_prev",
+                    "pivot_sweep_v3_prev", "ell_matvec_prev",
                     "fused_admm_chunk_streaming", "fused_admm_chunk_cluster",
                     "fused_proxqp_chunk_streaming",
                     "fused_proxqp_chunk_cluster")
 #: Phase 2b: the redesigns and their witnesses at the main path's B.
 B_REDESIGN = B_MAIN
+#: The triangle build's gram part against the previous kernel's: max |new -
+#: prev| / max(max |prev|, 1). Its lower triangle is the mirror of the upper
+#: one, which rounds rho_r A[r, j] where the previous kernel rounded rho_r
+#: A[r, i]: an ulp of a product in sums of m of them, ~1e-7 of M's max.
+MIRROR_TOL = 1e-6
 
 #: Rows 4c and 5c: each chunk variant (a kernels-JSON entry of its own) ->
 #: (its chunk, the phase-8 stack whose launches it reports, the token of its
@@ -746,6 +771,95 @@ def slab_build_bound(B, n, ms):
     return bound(nbytes, B * n * (n + 1) * m)
 
 
+def level_bound(B, n, w_out):
+    """The live region and the pivot columns read once, Dinv read, the live
+    region written; Dinv . (pivot rows) for the 128 pivot rows, S - C .
+    DinvT for the other n - 128: 2 * 128 * w_out FLOPs a row."""
+    return bound(4 * B * (n * (w_out + 128) + 128 * 128 + n * w_out),
+                 2 * B * 128 * w_out * n)
+
+
+def yardstick_ms(torch, B, n, m, w_out, g):
+    """The card's FP32 rate on each redesigned kernel's dominant products:
+    ms of one torch.baddbmm (TF32 off) at the level's (B, n - 128, 128) .
+    (B, 128, w_out) and the gram's (B, n, m) . (B, m, n), on random
+    operands. A yardstick only: no one call computes a level or a slab."""
+    r = lambda *shape: torch.randn(shape, generator=g, device=DEVICE)  # noqa: E731
+    T, C, D = r(B, n - 128, w_out), r(B, n - 128, 128), r(B, 128, w_out)
+    level = cuda_ms(lambda: torch.baddbmm(T, C, D, alpha=-1))
+    del T, C, D
+    P, At, A = r(B, n, n), r(B, n, m), r(B, m, n)
+    gram = cuda_ms(lambda: torch.baddbmm(P, At, A))
+    return {"slab_level": level, "slab_build": gram}
+
+
+def build_pair(torch, args, label, failures):
+    """The triangle build (``build_slab``) against the previous kernels
+    (``build_slab_prev``) on ``args``: [A' | q | 0] and M's upper triangle
+    bit for bit; the gram part of M exactly symmetric (M is P plus the gram
+    of a P = 0 build, element for element, and that gram equals its
+    transpose); within MIRROR_TOL of the previous kernel. Returns (new ms,
+    previous ms), timed in turns."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_factor as ff
+
+    P, A, q, rho, sigma = args
+    n, kp = q.shape[-1], ff.slab_k(rho.shape[-1])
+    new = ff.build_slab(*args)
+    prev = ff.build_slab_prev(*args)
+    rhs = torch.equal(new[..., :kp], prev[..., :kp])
+    M, Mp = new[..., kp:], prev[..., kp:]
+    upper = torch.equal(torch.triu(M), torch.triu(Mp))
+    rel = float((M - Mp).abs().max()) / max(float(Mp.abs().max()), 1.0)
+    del prev, Mp
+    gram = ff.build_slab(torch.zeros_like(P), A, q, rho, sigma)[..., kp:].contiguous()
+    mirror = torch.equal(gram, gram.transpose(1, 2)) and torch.equal(M, P + gram)
+    del new, M, gram
+    log(f"[{label}] slab_build: [A' | q | 0] bit for bit build_slab_prev: "
+        f"{rhs}; upper triangle: {upper}; gram exactly symmetric: {mirror}; "
+        f"{rel:.3e} from build_slab_prev (limit {MIRROR_TOL:.0e})")
+    if not (rhs and upper and mirror and rel <= MIRROR_TOL):
+        failures.append(f"{label}: the triangle build is not the previous "
+                        f"kernel's bits and mirror ({rhs}, {upper}, {mirror}, "
+                        f"{rel:.3e})")
+    ms_prev, ms_new = in_turns(lambda: ff.build_slab_prev(*args),
+                               lambda: ff.build_slab(*args))
+    return ms_new, ms_prev
+
+
+def level_pair(torch, Sp, Dinv, j, w_out, label, failures):
+    """The strip level (``slab_level``) against the previous two-launch FP32
+    level (``slab_level_prev``) at level ``j`` on a copy of ``Sp``, bit for
+    bit on the whole slab. Returns (new ms, previous ms), timed in turns,
+    each call on a fresh copy."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_factor as ff
+
+    S1, S2 = Sp.clone(), Sp.clone()
+    ff.slab_level(S1, Dinv, j, w_out)
+    ff.slab_level_prev(S2, Dinv, j, w_out)
+    same = torch.equal(S1, S2)
+    del S1, S2
+    log(f"[{label}] slab_level (j={j}, w_out={w_out}): the whole slab bit for "
+        f"bit slab_level_prev: {same}")
+    if not same:
+        failures.append(f"{label}: the strip level is not the previous "
+                        "kernel's bits")
+    scratch = torch.empty((Sp.shape[0], 128, w_out), device=DEVICE)
+    fresh = lambda fn: cuda_ms(fn, setup=lambda: (Sp.clone(),))  # noqa: E731
+    return tuple(reversed(in_turns(
+        lambda S: ff.slab_level_prev(S, Dinv, j, w_out, scratch),
+        lambda S: ff.slab_level(S, Dinv, j, w_out), timer=fresh)))
+
+
+def redesign_line(label, name, B, ms_new, ms_prev, yard, bnd):
+    """One line of a redesigned kernel's times; returns them for the JSON."""
+    bms, by = bnd
+    log(f"[{label}] B={B} {name} {ms_new:.4f} ms, {name}_prev {ms_prev:.4f} ms "
+        f"({ms_prev / ms_new:.2f}x, in turns), bound {bms:.4f} ms ({by}, "
+        f"{bms / ms_new:.0%} of it), baddbmm yardstick {yard:.4f} ms")
+    return {"ms": ms_new, "witness_ms": ms_prev, "bound_ms": bms,
+            "yardstick_ms": yard}
+
+
 def minv_flops(n, m):
     """FLOPs of one M^{-1}-form iteration with REFINE passes: the rhs's
     A't (2mn), then per solve Minv r (2n^2) and per refinement pass A x,
@@ -772,10 +886,17 @@ def phase_kernels(torch, extra):
     args = (qp.P, qp.A, qp.q, rho_row, sigma)
     Sk = fused_factor.build_slab(*args)
     Sp = fused_factor.build_slab_plain(*args)
-    out["slab_build"] = (compare("slab_build", Sk, Sp, failures),
-                         cuda_ms(lambda: fused_factor.build_slab(*args)),
-                         cuda_ms(lambda: fused_factor.build_slab_plain(*args)),
-                         None, slab_build_bound(B_KERNEL, N, (M,)))
+    err_prev = compare("slab_build_prev", fused_factor.build_slab_prev(*args),
+                       Sp, failures)
+    yard = yardstick_ms(torch, B_KERNEL, N, M, kp + (N - 128), g)
+    ms_new, ms_prev = build_pair(torch, args, "phase 2", failures)
+    bnd = slab_build_bound(B_KERNEL, N, (M,))
+    plain_ms = cuda_ms(lambda: fused_factor.build_slab_plain(*args))
+    out["slab_build"] = (compare("slab_build", Sk, Sp, failures), ms_new,
+                         plain_ms, None, bnd)
+    out["slab_build_prev"] = (err_prev, ms_prev, plain_ms, None, bnd)
+    extra["slab_build"] = redesign_line("phase 2", "slab_build", B_KERNEL,
+                                        ms_new, ms_prev, yard["slab_build"], bnd)
     del Sk
 
     j = N // 128 - 1
@@ -816,23 +937,21 @@ def phase_kernels(torch, extra):
         failures.append("slab_level wrote outside the live region")
     if torch.equal(S1[:, :, :w_out], Sp[:, :, :w_out]):
         failures.append("slab_level left the live region unchanged")
+    fused_factor.slab_level_prev(S1.copy_(Sp), Dp, j, w_out)
+    err_prev = compare("slab_level_prev", S1[:, :, :w_out], S2[:, :, :w_out],
+                       failures)
     del S1, S2
-    scratch = torch.empty((B_KERNEL, 128, w_out), device=DEVICE)
-    clone = lambda: (Sp.clone(),)  # noqa: E731 — a fresh slab per timed call
-    level_bytes = 4 * B_KERNEL * (N * (w_out + 128) + 128 * 128 + N * w_out)
-    # Dinv . (pivot rows) for the 128 pivot rows, S - C . DinvT for the
-    # other N - 128: 2 * 128 * w_out FLOPs per row, N rows.
-    level_flops = 2 * B_KERNEL * 128 * w_out * N
-    out["slab_level"] = (
-        err,
-        cuda_ms(lambda S: fused_factor.slab_level(S, Dp, j, w_out, scratch),
-                setup=clone),
-        cuda_ms(lambda S: fused_factor.slab_level_plain(S, Dp, j, w_out),
-                setup=clone),
-        None, bound(level_bytes, level_flops))
+    ms_new, ms_prev = level_pair(torch, Sp, Dp, j, w_out, "phase 2", failures)
+    bnd = level_bound(B_KERNEL, N, w_out)
+    level_plain_ms = cuda_ms(lambda S: fused_factor.slab_level_plain(S, Dp, j, w_out),
+                             setup=lambda: (Sp.clone(),))
+    out["slab_level"] = (err, ms_new, level_plain_ms, None, bnd)
+    out["slab_level_prev"] = (err_prev, ms_prev, level_plain_ms, None, bnd)
+    extra["slab_level"] = redesign_line("phase 2", "slab_level", B_KERNEL,
+                                        ms_new, ms_prev, yard["slab_level"], bnd)
     phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures)
     phase_entry_kernels(torch, D, qp, out, extra, failures)
-    del Sp, D, Dk, Dp, scratch
+    del Sp, D, Dk, Dp
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho_row, sigma=sigma)
     G, gv = S[..., :M].contiguous(), S[..., M].contiguous()
@@ -924,11 +1043,12 @@ def phase_kernels(torch, extra):
     bargs = (prob.P, blocks, prob.q, rho_row, 0.0)
     Sk = fused_factor.build_slab(*bargs)
     Sp = fused_factor.build_slab_plain(*bargs)
+    ms_new, ms_prev = build_pair(torch, bargs, "phase 2 two blocks", failures)
     out["slab_build_two_block"] = (
-        compare("slab_build (two blocks)", Sk, Sp, failures),
-        cuda_ms(lambda: fused_factor.build_slab(*bargs)),
+        compare("slab_build (two blocks)", Sk, Sp, failures), ms_new,
         cuda_ms(lambda: fused_factor.build_slab_plain(*bargs)),
         None, slab_build_bound(B_KERNEL, N, (ME, MI)))
+    extra["slab_build"]["two_block_witness_ms"] = ms_prev
     del Sk, Sp
     S = fused_factor.fused_factor_solve(prob.P, blocks, prob.q, rho_row,
                                         sigma=0.0)
@@ -1127,10 +1247,24 @@ def phase_redesigns(torch):
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     qp = device_random_qp_fleet(B, N, M, generator=g)
     rho = torch.full((B, M), 0.4, device=DEVICE)
-    Sp = fused_factor.build_slab(qp.P, qp.A, qp.q, rho, 1e-6)
     j = N // 128 - 1
     w_out = fused_factor.slab_k(M) + j * 128
+    # Rows 1 and 3: the triangle build and the strip level.
+    yard = yardstick_ms(torch, B, N, M, w_out, g)
+    args = (qp.P, qp.A, qp.q, rho, 1e-6)
+    ms_new, ms_prev = build_pair(torch, args, "phase 2b", failures)
+    bnd = slab_build_bound(B, N, (M,))
+    res["slab_build"] = {"b4096": redesign_line(
+        "phase 2b", "slab_build", B, ms_new, ms_prev, yard["slab_build"], bnd)}
+    res["slab_build_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bnd[0]}}
+    Sp = fused_factor.build_slab(*args)
     D = Sp[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
+    ms_new, ms_prev = level_pair(torch, Sp, spd_kernels.spd_inverse_unrolled(D),
+                                 j, w_out, "phase 2b", failures)
+    bnd = level_bound(B, N, w_out)
+    res["slab_level"] = {"b4096": redesign_line(
+        "phase 2b", "slab_level", B, ms_new, ms_prev, yard["slab_level"], bnd)}
+    res["slab_level_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bnd[0]}}
     new, prev = spd_kernels.spd_inverse_unrolled, spd_kernels.pivot_sweep_v3_prev
     same = torch.equal(new(D), prev(D))
     ms_prev, ms_new = in_turns(lambda: prev(D), lambda: new(D))
@@ -1183,9 +1317,16 @@ def phase_redesigns(torch):
 
     prob = device_prox_fleet(B, N, ME, MI, generator=g)
     r = 0.0125 * (1.0 + torch.rand(B, generator=g, device=DEVICE))
-    S = fused_factor.fused_factor_solve(
-        prob.P, (prob.A, prob.C), prob.q,
-        r[:, None].expand(B, ME + MI).contiguous(), sigma=0.0)
+    bargs = (prob.P, (prob.A, prob.C), prob.q,
+             r[:, None].expand(B, ME + MI).contiguous(), 0.0)
+    ms_new, ms_prev = build_pair(torch, bargs, "phase 2b two blocks", failures)
+    bms, by = slab_build_bound(B, N, (ME, MI))
+    log(f"[phase 2b] B={B} slab_build (two blocks) {ms_new:.4f} ms, "
+        f"slab_build_prev {ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x, in turns), "
+        f"bound {bms:.4f} ms ({by})")
+    res["slab_build"]["b4096_two_block"] = {"ms": ms_new, "witness_ms": ms_prev,
+                                            "bound_ms": bms}
+    S = fused_factor.fused_factor_solve(*bargs[:4], sigma=0.0)
     G, gv = S[..., :ME + MI].contiguous(), S[..., ME + MI].contiguous()
     del S
     it = (torch.randn((B, N), generator=g, device=DEVICE),
@@ -1307,6 +1448,8 @@ def counters():
             "routed_levels": routed_spmv.routed_levels_matvec,
             "row_routed_rows": routed_spmv.row_routed_rows,
             # The witness wrappers (WITNESS_WRAPPERS): no solver calls them.
+            "slab_build_prev": fused_factor.build_slab_prev,
+            "slab_level_prev": fused_factor.slab_level_prev,
             "pivot_sweep_v3_prev": spd_kernels.pivot_sweep_v3_prev,
             "ell_matvec_prev": spmv.ell_matvec_prev,
             "fused_admm_chunk_streaming": fused_admm.fused_admm_chunk_streaming,
@@ -1415,6 +1558,21 @@ def chunk_kernels(cnt, name, rule, label):
     return split
 
 
+def factor_kernels(cnt, label):
+    """The sigma-free factor's launches of a run: every build through the
+    triangle kernel and LEVELS strip levels a build (``build_slab.variants``,
+    ``slab_level.variants``: at "highest" the strip kernel is the only one
+    ``slab_level`` launches), the witnesses at 0 (``read``)."""
+    builds = cnt["slab_build"].launches
+    by_build = dict(cnt["slab_build"].variants)
+    by_level = dict(cnt["slab_level"].variants)
+    log(f"[{label}] factor launches: builds {by_build}, levels {by_level}")
+    require(builds > 0 and by_build == {"triangle": builds}
+            and by_level == {"highest": LEVELS * builds},
+            f"{label}: expected {LEVELS} strip levels for each of {builds} "
+            f"triangle builds; got {by_build}, {by_level}")
+
+
 def reset(cnt):
     for fn in cnt.values():
         fn.launches = 0
@@ -1517,8 +1675,18 @@ def on_device(e):
             and not e.key.startswith("ProfilerStep"))
 
 
-def profile_solve(torch, solve, label):
-    """One profiled solve: device kernel time by name and the idle share."""
+#: The fused factor's device kernels as torch.profiler names them: the
+#: redesigns (one triangle build, LEVELS strip levels a factor) and the
+#: previous kernels, which a solve must not run.
+FACTOR_TRACE = {"slab_build_kernel": 1, "level_strip_kernel": LEVELS}
+PREV_TRACE = ("slab_gram_prev_kernel", "slab_rhs_prev_kernel",
+              "level_dinvt_kernel", "level_update_kernel")
+
+
+def profile_solve(torch, solve, label, factor=False):
+    """One profiled solve: device kernel time by name and the idle share;
+    with ``factor`` (a one-factor solve), the trace must hold FACTOR_TRACE's
+    kernels as often as it says and none of PREV_TRACE's."""
     solve()
     prof, wall = traced(torch, solve)
 
@@ -1536,6 +1704,13 @@ def profile_solve(torch, solve, label):
         f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}")
     for ms, count, key in rows[:15]:
         log(f"[{label}]   {ms:9.3f} ms  {count:5d} x  {key[:90]}")
+    if factor:
+        seen = {k: sum(c for _, c, key in rows if k in key)
+                for k in (*FACTOR_TRACE, *PREV_TRACE)}
+        log(f"[{label}] factor kernels in the trace: {seen}")
+        require(all(seen[k] == v for k, v in FACTOR_TRACE.items())
+                and not any(seen[k] for k in PREV_TRACE),
+                f"{label}: the factor's kernels in the trace are {seen}")
 
 
 def phase_prox(torch, pkg, cnt, profile):
@@ -1566,6 +1741,7 @@ def phase_prox(torch, pkg, cnt, profile):
             sol = pkg.solve_proxqp(prob, settings)
             torch.cuda.synchronize()
             counts = read(cnt, PROX_PATH, label, witnesses=True)
+            factor_kernels(cnt, label)
             counts.update(chunk_kernels(
                 cnt, "prox_chunk", fused_proxqp.chunk_kernel(
                     N, ME, MI, 1, "highest"), label))
@@ -1591,7 +1767,7 @@ def phase_prox(torch, pkg, cnt, profile):
                 f"{AUDIT_TARGET:.0e} at eps 1e-5")
         if profile and not adaptive:
             profile_solve(torch, lambda: pkg.solve_proxqp(prob, settings),
-                          "phase 6 profile")
+                          "phase 6 profile", factor=True)
     return launches
 
 
@@ -2696,16 +2872,21 @@ def main() -> int:
     qp = device_random_qp_fleet(B_MAIN, N, M, generator=g)
     torch.cuda.synchronize()
     cnt = counters()
+    torch.cuda.reset_peak_memory_stats()
     reset(cnt)
     sol = pkg.solve(qp, static)
     torch.cuda.synchronize()
     launches = read(cnt, ADMM_PATH, "phase 3 main-path solve", witnesses=True)
+    factor_kernels(cnt, "phase 3 main-path solve")
+    log(f"[phase 3 main-path solve] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     launches.update(chunk_kernels(
         cnt, "admm_chunk", fused_admm.chunk_kernel(N, M, 1, "highest", "G"),
         "phase 3 main-path solve"))
     del sol
     if "--profile" in sys.argv[1:]:
-        profile_solve(torch, lambda: pkg.solve(qp, static), "phase 3 profile")
+        profile_solve(torch, lambda: pkg.solve(qp, static), "phase 3 profile",
+                      factor=True)
     for settings, label in ((static, "phase 3 static rho"),
                             (adaptive, "phase 3 adaptive rho")):
         sol, dt = run_main(torch, lambda: pkg.solve(qp, settings))

@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time chip_smoke.py's phase 3 and phase 6 static solves with the port found
+under ROOT, so that two checkouts can be compared on one card in turns.
+
+    git archive <parent> | tar -x -C _archive/parent   # a git-ignored directory
+    for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r; done
+
+Each run builds ROOT's kernels, generates phase 3's fleet (B=4096, n=512,
+m=256, seed 1234, the sigma-free fused FP32 knobs at static rho 0.4, eps
+1e-4) and phase 6's (B=4096, n=512, me = mi = 128, seed 1236, static rho
+0.0125, eps 5e-5) on the card, and prints one JSON line: each solve's best
+of 3 after a warm call, its factor timed alone (best of 4) and the peak
+device memory of the warm call. Needs a CUDA card.
+"""
+
+import json
+import os
+import sys
+import time
+
+
+def best_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def main() -> int:
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else ".")
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_solves: no CUDA device", file=sys.stderr)
+        return 2
+    import quadraticprogramsolver_tpu_torch as pkg
+    from quadraticprogramsolver_tpu_torch.models import kkt, proxqp
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    if not pkg.__file__.startswith(root):
+        raise RuntimeError(f"imported {pkg.__file__}, not the port under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"root": sys.argv[1] if len(sys.argv) > 1 else ".",
+           "device": torch.cuda.get_device_name(0)}
+
+    def run(tag, solve, factor):
+        torch.cuda.reset_peak_memory_stats()
+        solve()
+        torch.cuda.synchronize()
+        out[f"{tag}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[f"{tag}_solve_ms"] = best_ms(torch, solve, 3)
+        out[f"{tag}_factor_ms"] = best_ms(torch, factor, 4)
+
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    qp = device_random_qp_fleet(4096, 512, 256, generator=g)
+    st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
+                      check_interval=11, kkt_refinement_steps=0,
+                      sigma_free_rhs=True, fused_factor=True, fused_chunk=True,
+                      require_fused=True, adaptive_rho=False)
+    rho = torch.full(qp.batch_shape, st.rho, device="cuda")
+    run("phase3", lambda: pkg.solve(qp, st),
+        lambda: kkt.cholesky_init(qp, rho, st.sigma_for(qp.dtype), st))
+    del qp
+    g = torch.Generator(device="cuda").manual_seed(1236)
+    prob = device_prox_fleet(4096, 512, 128, 128, generator=g)
+    ps = pkg.ProxQPSettings(eps_abs=5e-5, eps_rel=5e-5, rho=0.0125,
+                            adaptive_rho=False, max_iterations=2000,
+                            check_interval=25, kkt_warm_start=False,
+                            kkt_refinement_steps=0, sigma_free_rhs=True,
+                            fused_chunk=True, require_fused=True)
+    rho = torch.full(prob.batch_shape, ps.rho, device="cuda")
+    run("phase6", lambda: pkg.solve_proxqp(prob, ps),
+        lambda: proxqp._build_sigma_free_cache(prob, rho, ps))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "qps_slab_build": (_P,) * 6 + (_I, _I, _I, _I, _I, _F, _P),
+    "qps_slab_build_prev": (_P,) * 6 + (_I, _I, _I, _I, _I, _F, _P),
     "qps_pivot_sweep_v3": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_v3_prev": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_ref": (_P, _L, _L, _P, _I, _P),
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "qps_pivot_sweep_v3p": (_P, _L, _L, _P, _I, _P),
     "qps_normal_inverse": (_P,) * 8 + (_I, _I, _I, _F, _P),
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    "qps_slab_level_strip": (_P, _P, _I, _I, _I, _I, _I, _P),
     "qps_admm_chunk": (_P,) * 19 + (_I,) * 7 + (_F, _P),
     "qps_admm_chunk_cluster": (_P,) * 17 + (_I,) * 5 + (_F, _P),
     "qps_admm_chunk_cluster_occupancy": (_I, _I, _P),

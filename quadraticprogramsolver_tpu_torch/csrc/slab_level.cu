@@ -12,29 +12,42 @@
 // The race a block-by-block carry-over would have: on the TPU one grid step
 // held a lane's whole live region in VMEM, so writing the pivot rows in place
 // was safe. Here the live region (n x w_out, up to 1.4 MB per lane at
-// n=512, m=256) is tiled over many CTAs, and a tile that overwrote the pivot
-// rows would race every other tile still reading them. So the level is two
-// launches: the first computes DinvT into a scratch buffer (B, 128, >= w_out);
-// the second runs the rank-128 update tile by tile, taking the pivot rows
-// from the scratch. The pivot columns C are never written at this level.
+// n=512, m=256) is spread over many CTAs, and a CTA that overwrote the pivot
+// rows would race every other CTA still reading them.
 //
-// Precision (Settings.factor_precision, the TPU kernel's prec): kHighest
-// multiplies in FP32; kHigh is its manual bf16x3 branch (fused_factor.py:
-// 151-165). There the level's small operands, Dinv and the pivot rows of T in
-// the first launch, C and DinvT in the second, are split into bf16 halves as
+// What bounds it on the H100: at n=512, m=256 the four levels cost
+// 2*n*128*sum(w_out) = 0.27 GFLOP per lane, 1.10 TFLOP at B=4096 (16.4 ms
+// at the 67 TFLOP/s FP32 peak), against ~38.6 GB of slab read and written
+// (11.5 ms at 3.35 TB/s): near the ridge, so the loads must overlap the FMAs.
+//
+// level_strip_kernel (qps_slab_level_strip, FP32, "highest"): one launch a
+// level over column strips. A CTA owns the columns [c0, c0 + 128) of one
+// lane (the last strip 64 wide when w_out % 128 == 64), over all n rows, so
+// no other CTA reads or writes them: it computes DinvT for its strip into
+// shared memory (Dinv and the strip's pivot rows through sgemm.cuh's cp.async
+// ring), writes it into the pivot rows, then streams C's 128-row blocks
+// through the ring against the resident DinvT and subtracts each 128 x 128
+// product from its block of the strip. The pivot columns are not written at
+// this level. No scratch. The grid is (strips, B), strips fastest, so a
+// lane's strips share C and Dinv in the L2. Bit for bit the two-launch FP32
+// level below (same operands, same k order, one fmaf a term).
+//
+// The two-launch level (qps_slab_level): level_dinvt_kernel computes DinvT
+// into a scratch buffer (B, 128, >= w_out); level_update_kernel then runs the
+// rank-128 update in 64x64 tiles, taking the pivot rows from the scratch.
+// At FP32 (prec 0) it is the previous kernel, kept as the strip kernel's
+// witness; at bf16x3 (prec 1, kHigh, Settings.factor_precision="high", the
+// TPU kernel's manual branch, fused_factor.py: 151-165) it is the only one.
+// There the level's small operands, Dinv and the pivot rows of T in the
+// first launch, C and DinvT in the second, are split into bf16 halves as
 // they are staged (round to nearest even, common.cuh: Prec), and the tile's
 // product is three bf16 passes on the tensor cores, ah.bh + ah.bl + al.bh
 // with FP32 accumulation (mma.sync m16n8k16; lo.lo dropped, as the TPU
-// kernel drops it); T itself enters the update elementwise, unsplit.
-//
-// What bounds it on the H100: FLOPs. At n=512, m=256 the four levels cost
-// 2*n*128*sum(w_out) + 2*128*128*sum(w_out) = 0.34 GFLOP per lane, 1.4
-// TFLOP at B=4096 (~21 ms at the 67 TFLOP/s FP32 peak), against ~38 GB of
-// slab read and written (~11 ms at 3.35 TB/s). Design: both launches are 64x64
-// tiles with K = 128 (SIMT at kHighest, common.cuh; tensor cores at kHigh);
-// update tiles in the pivot rows skip the product and copy DinvT.
+// kernel drops it); T itself enters the update elementwise, unsplit. Update
+// tiles in the pivot rows skip the product and copy DinvT.
 
 #include "common.cuh"
+#include "sgemm.cuh"
 
 using qps::i64;
 
@@ -222,4 +235,124 @@ extern "C" int qps_slab_level(float* S, const float* Dinv, float* scratch,
     return slab_level<qps::Prec::kHigh>(S, Dinv, scratch, ld_t, B, n, wid, j, w_out, s);
   if (prec != static_cast<int>(qps::Prec::kHighest)) return (int)cudaErrorInvalidValue;
   return slab_level<qps::Prec::kHighest>(S, Dinv, scratch, ld_t, B, n, wid, j, w_out, s);
+}
+
+namespace {
+namespace sg = qps::sgemm;
+
+// Dynamic shared memory of the strip kernel: DinvT (128 x 128; the first
+// phase's B stages live in it), then the ring's A stages.
+constexpr size_t STRIP_SMEM = sizeof(float) * (NB * NB + sg::STAGES * sg::A_STAGE);
+static_assert(sg::STAGES * sg::TK * 128 <= NB * NB,
+              "the first phase's B stages fit in DinvT's space");
+
+// One lane's strip [c0, c0 + TN) of the level.
+template <int TN>
+__device__ __forceinline__ void level_strip(float* __restrict__ Sb,
+                                            const float* __restrict__ Db,
+                                            int n, int wid, int j, int w_out,
+                                            int c0, float* smem) {
+  constexpr int NC = TN / 16;
+  constexpr int KT = NB / sg::TK;  // k-tiles of a 128-deep product
+  float* Dt = smem;                // DinvT[k][c], pitch TN
+  float* As = smem + NB * NB;
+  const int ty = sg::tile_ty(), tx = sg::tile_tx();
+  float acc[8][NC];
+  auto zero = [&]() {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] = 0.0f;
+  };
+  auto none = [](int, int) {};
+  // DinvT = Dinv . T[j rows, strip]: Dinv's k-tiles transposed into the A
+  // stages, the pivot rows' k-tiles into B stages inside Dt.
+  zero();
+  const float* piv = Sb + (i64)j * NB * wid + c0;
+  sg::pipeline(
+      KT,
+      [&](int kt, int s) {
+        sg::load_a_rowmajor(As + s * sg::A_STAGE, Db + kt * sg::TK, NB);
+        sg::load_b<TN>(Dt + s * sg::TK * TN, piv + (i64)kt * sg::TK * wid, wid);
+      },
+      none,
+      [&](int, int s) {
+        sg::mma<TN>(As + s * sg::A_STAGE, Dt + s * sg::TK * TN, TN, acc);
+      });
+  // pipeline() ended with a barrier: Dt is free. DinvT into Dt and into
+  // the pivot rows (every read of them has landed).
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int h = 0; h < NC / 4; ++h) {
+      const float4 v = make_float4(acc[r][h * 4], acc[r][h * 4 + 1],
+                                   acc[r][h * 4 + 2], acc[r][h * 4 + 3]);
+      const int i = ty * 8 + r, c = h * 64 + tx * 4;
+      *reinterpret_cast<float4*>(Dt + i * TN + c) = v;
+      *reinterpret_cast<float4*>(Sb + (i64)(j * NB + i) * wid + c0 + c) = v;
+    }
+  __syncthreads();
+  // S[ib rows, strip] -= C[ib rows] . DinvT for every row block ib != j: C's
+  // k-tiles (transposed) stream through the ring across the blocks.
+  zero();
+  const float* C = Sb + w_out;
+  const int blocks = n / NB - 1;
+  sg::pipeline(
+      blocks * KT,
+      [&](int kt, int s) {
+        const int blk = kt / KT, ib = blk < j ? blk : blk + 1;
+        sg::load_a_rowmajor(As + s * sg::A_STAGE,
+                            C + (i64)ib * NB * wid + (kt % KT) * sg::TK, wid);
+      },
+      none,
+      [&](int kt, int s) {
+        sg::mma<TN>(As + s * sg::A_STAGE, Dt + (kt % KT) * sg::TK * TN, TN, acc);
+        if (kt % KT != KT - 1) return;
+        const int blk = kt / KT, ib = blk < j ? blk : blk + 1;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int h = 0; h < NC / 4; ++h) {
+            float* row = Sb + (i64)(ib * NB + ty * 8 + r) * wid + c0 + h * 64 + tx * 4;
+            float4 v = *reinterpret_cast<float4*>(row);
+            v.x -= acc[r][h * 4];
+            v.y -= acc[r][h * 4 + 1];
+            v.z -= acc[r][h * 4 + 2];
+            v.w -= acc[r][h * 4 + 3];
+            *reinterpret_cast<float4*>(row) = v;
+          }
+        zero();
+      });
+}
+}  // namespace
+
+// Grid (ceil(w_out / 128), B): CTA (x, b) owns lane b's columns [128x,
+// 128x + 128) of the live region, or [128x, 128x + 64) for the last strip
+// when w_out % 128 == 64.
+__global__ void __launch_bounds__(sg::THREADS, sg::MIN_BLOCKS)
+level_strip_kernel(float* __restrict__ S, const float* __restrict__ Dinv,
+                   int n, int wid, int j, int w_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y, c0 = blockIdx.x * 128;
+  float* Sb = S + (i64)b * n * wid;
+  const float* Db = Dinv + (i64)b * NB * NB;
+  if (c0 + 128 <= w_out)
+    level_strip<128>(Sb, Db, n, wid, j, w_out, c0, smem);
+  else
+    level_strip<64>(Sb, Db, n, wid, j, w_out, c0, smem);
+}
+
+// S: contiguous (B, n, wid); Dinv: contiguous (B, 128, 128); both 16-byte
+// aligned. n % 128 == 0, 0 <= j < n / 128, w_out % 64 == 0, w_out + 128 <=
+// wid, wid % 4 == 0, 0 < B <= 65535.
+extern "C" int qps_slab_level_strip(float* S, const float* Dinv, int B, int n,
+                                    int wid, int j, int w_out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      level_strip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)STRIP_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  level_strip_kernel<<<dim3((w_out + 127) / 128, B), sg::THREADS, STRIP_SMEM, s>>>(
+      S, Dinv, n, wid, j, w_out);
+  return (int)cudaGetLastError();
 }

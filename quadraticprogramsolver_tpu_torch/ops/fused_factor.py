@@ -13,10 +13,15 @@ the first, in place; afterwards S[b, :, :kp] = M^{-1} [A' | q | 0], so
 G = S[:, :, :m] and g = S[:, :, m].
 
 Kernels (CUDA, float32): :func:`build_slab` (csrc/slab_build.cu, one or two
-blocks) and :func:`slab_level` (csrc/slab_level.cu, FP32 or bf16x3
-products); the pivot blocks go through
-:func:`~.spd_kernels.spd_inverse_unrolled` (csrc/pivot_sweep.cu, any pivot
-formulation). On CPU tensors each wrapper runs its plain PyTorch version.
+blocks; at n % 128 == 0 one launch over the gram's upper triangle) and
+:func:`slab_level` (csrc/slab_level.cu: at "highest" one launch a level over
+column strips, at "high" bf16x3 products in two launches), each picking its
+kernel by a pure rule (:func:`build_kernel`, :func:`level_kernel`); the
+pivot blocks go through :func:`~.spd_kernels.spd_inverse_unrolled`
+(csrc/pivot_sweep.cu, any pivot formulation). The previous FP32 kernels stay
+as the witnesses :func:`build_slab_prev` and :func:`slab_level_prev` (no
+solver calls them). On CPU tensors each wrapper runs its plain PyTorch
+version.
 """
 
 from __future__ import annotations
@@ -63,16 +68,22 @@ def build_slab_plain(P, A, q, rho_row, sigma: float) -> torch.Tensor:
     return S
 
 
-def build_slab(P, A, q, rho_row, sigma: float) -> torch.Tensor:
-    """S = [A_0' | A_1' | q | 0 | P + sigma*I + sum_i A_i' diag(rho_i) A_i]
-    per lane.
+def build_kernel(n: int) -> str:
+    """The kernel :func:`build_slab` launches for n columns: "triangle"
+    (csrc/slab_build.cu: slab_build_kernel, one launch over the gram's upper
+    triangle of 128 x 128 tiles, the lower one its mirror) when n % 128 ==
+    0, else "square" (the previous kernels, :func:`build_slab_prev`'s: the
+    full gram in 64 x 64 tiles, then [A' | q | 0] in a second launch)."""
+    return "triangle" if n % NB == 0 else "square"
 
-    P (B, n, n), A (B, m, n) or a tuple of row blocks (B, m_i, n) (at most
-    two on the card), q (B, n), rho_row (B, sum m_i) -> (B, n, kp + n).
-    """
-    blocks = _blocks(A)
-    if not _build.launches_kernel("build_slab", P):
-        return build_slab_plain(P, blocks, q, rho_row, sigma)
+
+_BUILD_ENTRIES = {"triangle": "qps_slab_build", "square": "qps_slab_build_prev"}
+
+
+def _launch_build(wrapper, kernel, P, blocks, q, rho_row, sigma, variant=None):
+    """Check the build's operands and launch ``kernel`` ("triangle" or
+    "square"), counted on ``wrapper`` (and ``wrapper.variants[variant]``);
+    returns the slab."""
     if not 1 <= len(blocks) <= 2:
         raise ValueError(f"slab kernel takes one or two row blocks; got "
                          f"{len(blocks)}")
@@ -90,16 +101,53 @@ def build_slab(P, A, q, rho_row, sigma: float) -> torch.Tensor:
                          f"n={n}, rows={ms}, B={B}")
     kp = slab_k(m)
     S = torch.empty((B, n, kp + n), dtype=torch.float32, device=P.device)
-    _build.require_cuda_f32("build_slab", P, *blocks, q, rho_row, S)
+    _build.require_cuda_f32(wrapper.__name__, P, *blocks, q, rho_row, S)
     A1, m1 = (blocks[1].data_ptr(), ms[1]) if len(blocks) == 2 else (None, 0)
     _build.launch(
-        build_slab, "qps_slab_build",
+        wrapper, _BUILD_ENTRIES[kernel],
         P.data_ptr(), blocks[0].data_ptr(), A1, q.data_ptr(), rho_row.data_ptr(),
-        S.data_ptr(), B, n, ms[0], m1, kp, float(sigma), _build.stream_ptr(P))
+        S.data_ptr(), B, n, ms[0], m1, kp, float(sigma), _build.stream_ptr(P),
+        variant=variant)
     return S
 
 
+def build_slab(P, A, q, rho_row, sigma: float) -> torch.Tensor:
+    """S = [A_0' | A_1' | q | 0 | P + sigma*I + sum_i A_i' diag(rho_i) A_i]
+    per lane.
+
+    P (B, n, n), A (B, m, n) or a tuple of row blocks (B, m_i, n) (at most
+    two on the card), q (B, n), rho_row (B, sum m_i) -> (B, n, kp + n). On a
+    CUDA tensor it launches the kernel :func:`build_kernel` names for n,
+    counted in ``build_slab.variants`` under that name. The triangle
+    kernel's gram part is exactly symmetric: its lower triangle mirrors the
+    upper one, which with [A' | q | 0] is bit for bit the square kernels'.
+    """
+    blocks = _blocks(A)
+    if not _build.launches_kernel("build_slab", P):
+        return build_slab_plain(P, blocks, q, rho_row, sigma)
+    kernel = build_kernel(q.shape[-1])
+    return _launch_build(build_slab, kernel, P, blocks, q, rho_row, sigma,
+                         variant=kernel)
+
+
 build_slab.launches = 0
+build_slab.variants = collections.Counter()
+
+
+def build_slab_prev(P, A, q, rho_row, sigma: float) -> torch.Tensor:
+    """:func:`build_slab` through the previous kernels (the "square" build)
+    at every n % 64 == 0: the witness and timing baseline of the triangle
+    kernel on the card (no solver calls it). On a CUDA tensor it launches
+    them and counts in ``build_slab_prev.launches``; on a CPU tensor it runs
+    :func:`build_slab_plain`."""
+    blocks = _blocks(A)
+    if not _build.launches_kernel("build_slab_prev", P):
+        return build_slab_plain(P, blocks, q, rho_row, sigma)
+    return _launch_build(build_slab_prev, "square", P, blocks, q, rho_row,
+                         sigma)
+
+
+build_slab_prev.launches = 0
 
 
 #: The slab level's product precisions, in the order of their codes in
@@ -125,6 +173,44 @@ def slab_level_plain(S, Dinv, j: int, w_out: int,
     S[:, rows, :w_out] = DinvT
 
 
+def level_kernel(dot_precision: str) -> str:
+    """The kernel :func:`slab_level` launches at ``dot_precision``: "strip"
+    at "highest" (csrc/slab_level.cu: level_strip_kernel, one launch a level
+    over column strips, no scratch), "tiles" at "high" (the two-launch
+    bf16x3 level, DinvT through a scratch buffer)."""
+    return "strip" if dot_precision == "highest" else "tiles"
+
+
+def _check_level(S, Dinv, j: int, w_out: int):
+    B, n, wid = S.shape
+    if tuple(Dinv.shape) != (B, NB, NB):
+        raise ValueError(f"Dinv must be ({B}, {NB}, {NB}); got {tuple(Dinv.shape)}")
+    if n % NB or not 0 <= j < n // NB or w_out % 64 or w_out + NB > wid \
+            or wid % 4 or not 0 < B <= 65535:
+        raise ValueError(f"slab level: bad geometry n={n}, wid={wid}, j={j}, "
+                         f"w_out={w_out}, B={B}")
+    return B, n, wid
+
+
+def _launch_tiles(wrapper, S, Dinv, j, w_out, scratch, dot_precision, variant):
+    """The two-launch level (DinvT into ``scratch``, then the update tiles),
+    counted on ``wrapper``."""
+    B, n, wid = _check_level(S, Dinv, j, w_out)
+    if scratch is None:
+        scratch = torch.empty((B, NB, w_out), dtype=torch.float32,
+                              device=S.device)
+    if scratch.shape[:2] != (B, NB) or scratch.shape[2] < w_out \
+            or scratch.shape[2] % 4:
+        raise ValueError(f"scratch must be ({B}, {NB}, >= {w_out}); got "
+                         f"{tuple(scratch.shape)}")
+    _build.require_cuda_f32(wrapper.__name__, S, Dinv, scratch)
+    _build.launch(
+        wrapper, "qps_slab_level",
+        S.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), scratch.shape[2],
+        B, n, wid, j, w_out, LEVEL_PRECISIONS.index(dot_precision),
+        _build.stream_ptr(S), variant=variant)
+
+
 def slab_level(S, Dinv, j: int, w_out: int, scratch=None,
                dot_precision: str = "highest") -> None:
     """One Gauss-Jordan level on S[:, :, :w_out + 128], in place.
@@ -135,39 +221,44 @@ def slab_level(S, Dinv, j: int, w_out: int, scratch=None,
     ``dot_precision``: "highest" (FP32 products) or "high" (bf16x3: Dinv,
     the pivot rows, C and Dinv . T split into bf16 halves, lo . lo
     dropped; the level's other operand, T, enters elementwise); float64
-    runs "highest". ``scratch`` (CUDA only): a (B, 128, >= w_out) float32
-    buffer for Dinv . T[j rows], reused across levels; allocated when None.
-    A launch counts in ``slab_level.variants[dot_precision]``.
+    runs "highest". On a CUDA tensor it launches the kernel
+    :func:`level_kernel` names, counted in
+    ``slab_level.variants[dot_precision]``. ``scratch`` (the "high" level
+    only): a (B, 128, >= w_out) float32 buffer for Dinv . T[j rows], reused
+    across levels; allocated when None.
     """
     if dot_precision not in LEVEL_PRECISIONS:
         raise ValueError(f"slab level precision must be one of "
                          f"{LEVEL_PRECISIONS}; got {dot_precision!r}")
     if not _build.launches_kernel("slab_level", S):
         return slab_level_plain(S, Dinv, j, w_out, dot_precision)
-    B, n, wid = S.shape
-    if tuple(Dinv.shape) != (B, NB, NB):
-        raise ValueError(f"Dinv must be ({B}, {NB}, {NB}); got {tuple(Dinv.shape)}")
-    if n % NB or not 0 <= j < n // NB or w_out % 64 or w_out + NB > wid \
-            or wid % 4 or not 0 < B <= 65535:
-        raise ValueError(f"slab level: bad geometry n={n}, wid={wid}, j={j}, "
-                         f"w_out={w_out}, B={B}")
-    if scratch is None:
-        scratch = torch.empty((B, NB, w_out), dtype=torch.float32,
-                              device=S.device)
-    if scratch.shape[:2] != (B, NB) or scratch.shape[2] < w_out \
-            or scratch.shape[2] % 4:
-        raise ValueError(f"scratch must be ({B}, {NB}, >= {w_out}); got "
-                         f"{tuple(scratch.shape)}")
-    _build.require_cuda_f32("slab_level", S, Dinv, scratch)
+    if level_kernel(dot_precision) == "tiles":
+        return _launch_tiles(slab_level, S, Dinv, j, w_out, scratch,
+                             dot_precision, dot_precision)
+    B, n, wid = _check_level(S, Dinv, j, w_out)
+    _build.require_cuda_f32("slab_level", S, Dinv)
     _build.launch(
-        slab_level, "qps_slab_level",
-        S.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), scratch.shape[2],
-        B, n, wid, j, w_out, LEVEL_PRECISIONS.index(dot_precision),
+        slab_level, "qps_slab_level_strip",
+        S.data_ptr(), Dinv.data_ptr(), B, n, wid, j, w_out,
         _build.stream_ptr(S), variant=dot_precision)
 
 
 slab_level.launches = 0
 slab_level.variants = collections.Counter()
+
+
+def slab_level_prev(S, Dinv, j: int, w_out: int, scratch=None) -> None:
+    """:func:`slab_level` at "highest" through the previous FP32 kernel
+    (the two launches, DinvT through ``scratch``): the witness and timing
+    baseline of the strip kernel on the card (no solver calls it). On a CUDA
+    tensor it launches it and counts in ``slab_level_prev.launches``; on a
+    CPU tensor it runs :func:`slab_level_plain`."""
+    if not _build.launches_kernel("slab_level_prev", S):
+        return slab_level_plain(S, Dinv, j, w_out)
+    _launch_tiles(slab_level_prev, S, Dinv, j, w_out, scratch, "highest", None)
+
+
+slab_level_prev.launches = 0
 
 
 def fused_factor_solve(P, A, q, rho_row, *, sigma: float,
@@ -192,8 +283,10 @@ def fused_factor_solve(P, A, q, rho_row, *, sigma: float,
                          f"{[a.shape[-2] for a in _blocks(A)]}")
     kp = slab_k(m)
     S = build_slab(P, A, q, rho_row, sigma)
+    # Only the two-launch level needs a scratch: (B, 128, kp + n - 128)
+    # floats, 1.5 GB at B=4096, n=512, m=256.
     scratch = None
-    if S.device.type == "cuda":
+    if level_kernel(dot_precision) == "tiles":
         scratch = torch.empty((B, NB, kp + n - NB), dtype=S.dtype,
                               device=S.device)
     for j in range(n // NB - 1, -1, -1):

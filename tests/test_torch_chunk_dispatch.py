@@ -227,7 +227,8 @@ def test_every_c_entry_point_has_its_ctypes_signature():
     assert {"qps_pivot_sweep_v3", "qps_pivot_sweep_v3_prev",
             "qps_admm_chunk", "qps_admm_chunk_cluster", "qps_prox_chunk",
             "qps_prox_chunk_cluster", "qps_ell_matvec",
-            "qps_ell_matvec_prev"} <= set(entries)
+            "qps_ell_matvec_prev", "qps_slab_build", "qps_slab_build_prev",
+            "qps_slab_level", "qps_slab_level_strip"} <= set(entries)
     assert entries == {k: len(v) for k, v in _build._SIGNATURES.items()}
 
 

@@ -1076,3 +1076,136 @@ def test_ell_matvec_matches_plain_and_previous_kernel(dev, rows):
         vb.copy_(vals)
         cb.copy_(cols)
         assert _close(spmv.ell_matvec(vb, cb, v), plain), k
+
+
+# -- rows 1 and 3: the triangle build and the strip level --
+
+
+def _factor_operands(dev, seed, b, n, ms):
+    """P (a random_qp fleet's), row blocks of rows ``ms``, q and per-row
+    rho in [0.1, 1.1), made on the card from a seed."""
+    qp, g = _fleet(dev, seed, b=b, n=n, m=sum(ms))
+    blocks = tuple(qp.A[:, o:o + mb].contiguous()
+                   for o, mb in zip((0, *ms[:-1]), ms))
+    rho = 0.1 + torch.rand((b, sum(ms)), generator=g, device=dev)
+    return qp.P, blocks, qp.q, rho
+
+
+@pytest.mark.parametrize("b", [5, 300])
+@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("n", [128, 256, 512])
+def test_strip_level_matches_previous_kernel(dev, n, m, b):
+    """Row 3's strip kernel (one launch a level) bit for bit the previous
+    two-launch FP32 level (``slab_level_prev``) on the whole slab, at every
+    level j: m = 64 gives w_out % 128 == 0 (kp = 128), m = 128 gives 64 (kp
+    = 192, a 64-wide last strip); B = 300 is more than one wave (two CTAs
+    an SM on 132 SMs)."""
+    P, A, q, rho = _factor_operands(dev, 40, b, n, (m,))
+    S = fused_factor.build_slab(P, A, q, rho, 1e-6)
+    kp = fused_factor.slab_k(m)
+    assert kp % 128 == {64: 0, 128: 64}[m]
+    for j in range(n // 128 - 1, -1, -1):
+        w_out = kp + j * 128
+        Dinv = spd_kernels.spd_inverse_unrolled(
+            S[:, j * 128:(j + 1) * 128, w_out:w_out + 128])
+        new = S.clone()
+        fused_factor.slab_level.variants.clear()
+        fused_factor.slab_level_prev.launches = 0
+        fused_factor.slab_level(new, Dinv, j, w_out)
+        fused_factor.slab_level_prev(S, Dinv, j, w_out)
+        assert dict(fused_factor.slab_level.variants) == {"highest": 1}
+        assert fused_factor.slab_level_prev.launches == 1
+        assert torch.isfinite(S).all()
+        assert torch.equal(new, S), j
+
+
+@pytest.mark.parametrize("ms", [(256,), (128, 128), (48, 80)])
+@pytest.mark.parametrize("n", [128, 512])
+def test_triangle_build_matches_previous_kernel(dev, n, ms):
+    """Row 1's triangle kernel against the previous kernels
+    (``build_slab_prev``), one and two row blocks: [A' | q | 0] and the
+    upper triangle of M bit for bit; the gram part of M exactly symmetric
+    (M is P plus the mirrored gram of a P = 0 build, element for element);
+    within 1e-6 of the previous kernel relative to max(|prev|, 1), which
+    rounds rho_r A[r, j] where the mirror rounds rho_r A[r, i]."""
+    b = 37
+    P, A, q, rho = _factor_operands(dev, 41, b, n, ms)
+    kp = fused_factor.slab_k(sum(ms))
+    assert fused_factor.build_kernel(n) == "triangle"
+    fused_factor.build_slab.variants.clear()
+    fused_factor.build_slab_prev.launches = 0
+    new = fused_factor.build_slab(P, A, q, rho, 1e-6)
+    prev = fused_factor.build_slab_prev(P, A, q, rho, 1e-6)
+    gram = fused_factor.build_slab(torch.zeros_like(P), A, q, rho, 1e-6)[..., kp:]
+    assert dict(fused_factor.build_slab.variants) == {"triangle": 2}
+    assert fused_factor.build_slab_prev.launches == 1
+    assert torch.equal(new[..., :kp], prev[..., :kp])
+    upper = torch.ones((n, n), dtype=torch.bool, device=dev).triu()
+    M, Mp = new[..., kp:], prev[..., kp:]
+    assert torch.equal(M[:, upper], Mp[:, upper])
+    assert torch.equal(gram, gram.transpose(1, 2))
+    assert torch.equal(M, P + gram)
+    err = float((M - Mp).abs().max()) / max(float(Mp.abs().max()), 1.0)
+    assert err <= 1e-6, err
+
+
+def test_build_keeps_the_square_kernel_off_128(dev):
+    """At n % 128 == 64 the rule sends the build to the previous kernels:
+    bit for bit ``build_slab_prev``."""
+    P, A, q, rho = _factor_operands(dev, 43, 5, 192, (64, 32))
+    assert fused_factor.build_kernel(192) == "square"
+    fused_factor.build_slab.variants.clear()
+    S = fused_factor.build_slab(P, A, q, rho, 1e-6)
+    assert dict(fused_factor.build_slab.variants) == {"square": 1}
+    assert torch.equal(S, fused_factor.build_slab_prev(P, A, q, rho, 1e-6))
+
+
+def test_high_level_keeps_the_two_launch_kernel(dev):
+    """slab_level(..., "high") still runs the two-launch bf16x3 kernel:
+    bit for bit a direct call of its C entry point at prec 1."""
+    from quadraticprogramsolver_tpu_torch import _build
+
+    b, n, m = 16, 512, 256
+    P, A, q, rho = _factor_operands(dev, 44, b, n, (m,))
+    S = fused_factor.build_slab(P, A, q, rho, 1e-6)
+    kp, j = fused_factor.slab_k(m), n // 128 - 1
+    w_out = kp + j * 128
+    Dinv = spd_kernels.spd_inverse_unrolled(S[:, j * 128:, w_out:w_out + 128])
+    Sh, Sd = S.clone(), S.clone()
+    fused_factor.slab_level.variants.clear()
+    fused_factor.slab_level(Sh, Dinv, j, w_out, dot_precision="high")
+    assert dict(fused_factor.slab_level.variants) == {"high": 1}
+    scratch = torch.empty((b, 128, w_out), device=dev)
+    code = _build.load().lib.qps_slab_level(
+        Sd.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), w_out, b, n,
+        S.shape[-1], j, w_out, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    assert torch.equal(Sh, Sd)
+
+
+@pytest.mark.parametrize("ms", [(256,), (128, 128)])
+def test_redesigned_factor_matches_plain(dev, ms):
+    """The whole factor (1 triangle build, 4 strip levels, no witness
+    launch) within TOL of its plain version on the card, both families'
+    shapes at n = 512."""
+    b, n = 16, 512
+    P, A, q, rho = _factor_operands(dev, 45, b, n, ms)
+    m = sum(ms)
+    fused_factor.build_slab.variants.clear()
+    fused_factor.slab_level.variants.clear()
+    fused_factor.build_slab_prev.launches = 0
+    fused_factor.slab_level_prev.launches = 0
+    X = fused_factor.fused_factor_solve(P, A, q, rho, sigma=1e-6)
+    assert dict(fused_factor.build_slab.variants) == {"triangle": 1}
+    assert dict(fused_factor.slab_level.variants) == {"highest": 4}
+    assert fused_factor.build_slab_prev.launches == 0
+    assert fused_factor.slab_level_prev.launches == 0
+    Sp = fused_factor.build_slab_plain(P, A, q, rho, 1e-6)
+    kp = fused_factor.slab_k(m)
+    for j in range(n // 128 - 1, -1, -1):
+        w_out = kp + j * 128
+        D = Sp[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
+        fused_factor.slab_level_plain(Sp, spd_kernels.pivot_sweep_v3_plain(D),
+                                      j, w_out)
+    assert _close(X[..., :m + 1], Sp[..., :m + 1])
