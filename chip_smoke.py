@@ -21,8 +21,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    bf16 operands summed in FP32 over the 989 TFLOP/s of the bf16 tensor
    cores), the H100 SXM's published peaks. The two M^{-1} chunks are also held, output by output,
    against their plain version run in f64 (the witness: the kernel's error
-   within 3x the FP32 plain version's), the prox one at phase 6's penalties
-   and at phase 7c's rho0 = 0.1. Rows 1, 2, 3, 4a and 5a's kernels run beside
+   within 3x the FP32 plain version's; the cluster kernels), the prox one
+   at phase 6's penalties and at phase 7c's rho0 = 0.1. Rows 1, 2, 3, 4a,
+   4b, 5a and 5b's kernels run beside
    the previous kernels they replace on the main paths, kept as their
    witnesses (``slab_build_prev``, ``slab_level_prev``,
    ``pivot_sweep_v3_prev``; ``admm_chunk`` and ``prox_chunk``, the
@@ -39,7 +40,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    bit for bit the streaming one on all seven outputs from G and from the
    slab window at K=11 and K=1, the prox cluster chunk
    (``prox_chunk_cluster``) bit for bit the streaming one on x, s, y and z
-   at K=25 and K=1, each pair timed in turns (old, new, new, old). Then each chunk variant of rows 4c/5c (an
+   at K=25 and K=1, and the M^{-1}-form cluster chunks
+   (``admm_chunk_minv_cluster``, ``prox_chunk_minv_cluster``, rows 4b and
+   5b) bit for bit the streaming M^{-1} chunks (``admm_chunk_minv``,
+   ``prox_chunk_minv``, their witnesses) on every output at K=25 and K=1,
+   each pair timed in turns (old, new, new, old). Then each chunk variant of rows 4c/5c (an
    entry of its own in the kernels JSON): the sigma-free ADMM chunk at
    "high" and "default" (held by the f64 witness, whose plain version in
    f64 runs without rounding) and with the split G, the slab window, lanes
@@ -71,7 +76,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    with the yardstick; the pivot sweep on the fleet's last pivot blocks, the ADMM chunk
    at K=11 and the prox chunk at K=25 with every lane active, also at
    B=512), bit for bit and timed in turns, with each cluster chunk's
-   clusters resident at once.
+   clusters resident at once; and rows 4b and 5b, the M^{-1}-form cluster
+   chunks beside the streaming ones at K=25, refine 1, every lane active,
+   at B=512 and at phase 7's B=2048 (``minv_redesigns``).
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
    the card, solved with the headline knobs (fused factor + fused chunk,
    sigma-free, require_fused) at static and at adaptive rho. Every lane must
@@ -102,11 +109,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
        the factor runs the blocked Gauss-Jordan sweep, 4 pivot launches per
        factor and no Cholesky, the torch chunk; 7b. the same with
        ``fused_chunk=True, require_fused=True``: one M^{-1} chunk launch per
-       check; 7c. the phase-6 prox fleet at B=2048 with the JAX package's
+       check, every one through the cluster kernel (``minv_cluster_only``:
+       ``fused_admm_chunk_minv.variants`` key "lanes1,cluster"); 7c. the phase-6 prox fleet at B=2048 with the JAX package's
        M^{-1} fleet settings (benchmarks/proxqp_fleet.py: rho0 = 0.1
        adaptive, refinement 1, check_interval 50, zero start) and the fused
-       M^{-1} prox chunk, which is then held against its f64 witness at the
-       penalties that run ended with. Each starts at eps 1e-4 and tightens
+       M^{-1} prox chunk, every launch through the cluster kernel, which is
+       then held against its f64 witness at the penalties that run ended
+       with. Each starts at eps 1e-4 and tightens
        to 2e-5, then 1e-5, while its f64 audit (16 ADMM / 8 prox lanes)
        fails; each
        prints its solve, its factor timed alone beside
@@ -125,8 +134,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``baseline_shape`` row); 8e the ``benchmarks/proxqp_fleet.py --headline``
    stack on phase 6's fleet (lanes 2, "high", a "default" first chunk; its
    chunks must stream). 8f
-   and 8g run phase 7b's and 7c's stacks at lanes 2 beside lanes 1: the
-   same statuses, iterations and x, bit for bit.
+   and 8g run phase 7b's and 7c's stacks at lanes 2 (the streaming M^{-1}
+   chunks) beside lanes 1 (the cluster ones): the same statuses,
+   iterations and x, bit for bit.
 9. The fused factor's knobs on phase 3's fleet and static-rho stack, one at
    a time: 9a-9f ``pivot_variant`` = "ref", "value", "r2", "r4", "r8",
    "panel", 9g ``factor_precision="high"``. Each tightens eps while its
@@ -183,7 +193,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho solve of
 phase 3 (the ADMM headline), one profiled static-rho prox solve,
-one profiled solve each of phases 7a and 7b, one each of 8a and 8e, one
+one profiled solve each of phases 7a, 7b and 7c, one each of 8a and 8e, one
 of the fastest phase-9 stack and one of phase 11a (kernel time by name and
 the device's idle share; phases 3 and 6 must trace one ``slab_build_kernel``
 and 4 ``level_strip_kernel`` and none of the previous factor kernels). ``--sparse-only`` runs phases 1 and 11 alone and
@@ -192,7 +202,7 @@ after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
 The last lines are the total wall time, the kernels JSON (the seven kernels,
-the two cluster chunks and the previous build, level and v3 kernels, the eleven variants of
+the four cluster chunks and the previous build, level and v3 kernels, the eleven variants of
 rows 4c and 5c, the six pivot formulations and the bf16x3 level of rows
 7-10 and 3b, the three kernels of rows 6, 11 and 12, and the SpMV kernels
 of rows 13, 14a, 14b and 15 with row 13's previous kernel), the nvidia-smi
@@ -285,6 +295,10 @@ KERNELS = {
                         "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
     "prox_chunk_minv": ("csrc/prox_chunk.cu",
                         "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
+    "admm_chunk_minv_cluster": ("csrc/admm_chunk_minv_cluster.cu",
+                                "quadraticprogramsolver_tpu/ops/fused_admm.py:47"),
+    "prox_chunk_minv_cluster": ("csrc/prox_chunk_minv_cluster.cu",
+                                "quadraticprogramsolver_tpu/ops/fused_proxqp.py:31"),
 }
 
 
@@ -295,6 +309,8 @@ WITNESSES = {"slab_build_prev": "slab_build",
              "pivot_sweep_v3_prev": "pivot_sweep_v3",
              "admm_chunk": "admm_chunk_cluster",
              "prox_chunk": "prox_chunk_cluster",
+             "admm_chunk_minv": "admm_chunk_minv_cluster",
+             "prox_chunk_minv": "prox_chunk_minv_cluster",
              "ell_matvec_prev": "ell_matvec"}
 #: The counters (see counters()) of the wrappers that launch a kept previous
 #: kernel, or one chunk kernel whatever the dispatch rule says: witnesses
@@ -304,7 +320,11 @@ WITNESS_WRAPPERS = ("slab_build_prev", "slab_level_prev",
                     "pivot_sweep_v3_prev", "ell_matvec_prev",
                     "fused_admm_chunk_streaming", "fused_admm_chunk_cluster",
                     "fused_proxqp_chunk_streaming",
-                    "fused_proxqp_chunk_cluster")
+                    "fused_proxqp_chunk_cluster",
+                    "fused_admm_chunk_minv_streaming",
+                    "fused_admm_chunk_minv_cluster",
+                    "fused_proxqp_chunk_minv_streaming",
+                    "fused_proxqp_chunk_minv_cluster")
 #: Phase 2b: the redesigns and their witnesses at the main path's B.
 B_REDESIGN = B_MAIN
 #: The triangle build's gram part against the previous kernel's: max |new -
@@ -490,8 +510,9 @@ def witness(label, name, kern_fn, plain_fn, args, kw, outs, failures):
 
 
 def prox_minv_witness(torch, prob, rho, iterates, active, label, failures):
-    """The M^{-1} prox chunk (K_MINV iterations, REFINE passes, sigma 1e-2)
-    against its f64 witness at the per-lane penalties ``rho``, from the
+    """The M^{-1} prox chunk (K_MINV iterations, REFINE passes, sigma 1e-2;
+    the cluster kernel, bit for bit the streaming one in phase 2) against
+    its f64 witness at the per-lane penalties ``rho``, from the
     iterates (x, s, y, z)."""
     from quadraticprogramsolver_tpu_torch.ops import fused_proxqp, linalg
 
@@ -502,8 +523,8 @@ def prox_minv_witness(torch, prob, rho, iterates, active, label, failures):
     del Mn
     args = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, *iterates,
             rho, active)
-    return witness(label, "prox_chunk_minv",
-                   fused_proxqp.fused_proxqp_chunk_minv,
+    return witness(label, "prox_chunk_minv_cluster",
+                   fused_proxqp.fused_proxqp_chunk_minv_cluster,
                    fused_proxqp.fused_proxqp_chunk_minv_plain, args,
                    dict(K=K_MINV, sigma=sigma, refine=REFINE), "xsyz", failures)
 
@@ -867,6 +888,41 @@ def minv_flops(n, m):
     return 2 * n * n * (1 + 2 * REFINE) + 4 * m * n * (1 + REFINE)
 
 
+def minv_pair(torch, name, stream, cluster, plain, args, kw, nbytes, flops,
+              out, failures):
+    """Row 4b or 5b: the M^{-1}-form cluster kernel (``name``_cluster) beside
+    the streaming kernel (``name``, its witness), each through its own
+    wrapper: both against the plain version (LIMIT), the cluster's outputs
+    bit for bit the streaming kernel's at K and at K=1, and both timed in
+    turns (streaming, cluster, cluster, streaming). Records both entries in
+    ``out`` and returns the streaming kernel's outputs."""
+    ks = stream(*args, **kw)
+    kc = cluster(*args, **kw)
+    kp = plain(*args, **kw)
+    err_s = compare(name, ks, kp, failures)
+    err_c = compare(f"{name}_cluster", kc, kp, failures)
+    for k, (a, b) in ((kw["K"], (kc, ks)),
+                      (1, (cluster(*args, **dict(kw, K=1)),
+                           stream(*args, **dict(kw, K=1))))):
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        log(f"[phase 2] {name}_cluster (K={k}): every output bit for bit the "
+            f"streaming kernel's: {same}")
+        if not same:
+            failures.append(f"{name}_cluster (K={k}): not the streaming "
+                            "kernel's bits")
+    ms_s, ms_c = in_turns(lambda: stream(*args, **kw),
+                          lambda: cluster(*args, **kw))
+    plain_ms = cuda_ms(lambda: plain(*args, **kw))
+    bnd = bound(nbytes, flops)
+    out[name] = (err_s, ms_s, plain_ms, None, bnd)
+    out[f"{name}_cluster"] = (err_c, ms_c, plain_ms, None, bnd)
+    log(f"[phase 2] {name}_cluster {ms_c:.4f} ms against the streaming "
+        f"{name} {ms_s:.4f} ms ({ms_s / ms_c:.2f}x; B={args[0].shape[0]}, "
+        f"K={kw['K']}, refine {kw['refine']}, in turns), bound {bnd[0]:.4f} "
+        f"ms ({bnd[1]})")
+    return ks
+
+
 def phase_kernels(torch, extra):
     from quadraticprogramsolver_tpu_torch.ops import (
         fused_admm, fused_factor, fused_proxqp, linalg, spd_kernels)
@@ -1119,27 +1175,21 @@ def phase_kernels(torch, extra):
     qargs = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y, z,
              rho, active)
     qkw = dict(K=K_MINV, sigma=sigma_p, refine=REFINE)
-    qk = fused_proxqp.fused_proxqp_chunk_minv(*qargs, **qkw)
-    qpl = fused_proxqp.fused_proxqp_chunk_minv_plain(*qargs, **qkw)
-    err = compare("prox_chunk_minv", qk, qpl, failures)
+    qbytes, qflops = prox_minv_work(B_KERNEL, n_act)
+    # Row 5b: the cluster kernel beside the streaming one (its witness).
+    qk = minv_pair(torch, "prox_chunk_minv",
+                   fused_proxqp.fused_proxqp_chunk_minv_streaming,
+                   fused_proxqp.fused_proxqp_chunk_minv_cluster,
+                   fused_proxqp.fused_proxqp_chunk_minv_plain, qargs, qkw,
+                   qbytes, qflops, out, failures)
     if not all(torch.equal(o[frozen], v[frozen])
                for o, v in zip(qk, (x, s, y, z))):
         failures.append("prox_chunk_minv: a frozen lane did not pass through")
-    # Minv, P, A and C of the active lanes read once; the vectors in (q, x,
-    # b, y, d, s, z, rho, active) and out (x, y, s, z).
-    qbytes = 4 * (n_act * (2 * N * N + mt * N)
-                  + B_KERNEL * (2 * N + 2 * ME + 3 * MI + 2)
-                  + B_KERNEL * (N + ME + 2 * MI))
-    qflops = n_act * K_MINV * minv_flops(N, mt)
-    out["prox_chunk_minv"] = (
-        err, cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_minv(*qargs, **qkw)),
-        cuda_ms(lambda: fused_proxqp.fused_proxqp_chunk_minv_plain(*qargs, **qkw)),
-        None, bound(qbytes, qflops))
     variant(out, failures, "prox_chunk_minv_lanes2",
             fused_proxqp.fused_proxqp_chunk_minv,
             fused_proxqp.fused_proxqp_chunk_minv_plain, qargs,
             dict(qkw, lanes=2), qbytes, (qflops, 0), same_as=qk, limit=True)
-    del Minv, qargs, qk, qpl
+    del Minv, qargs, qk
     # The f64 witness at these penalties and at 7c's starting rho0 = 0.1.
     for rho_w, tag in ((rho, "rho 0.0125-0.025"),
                        (torch.full_like(rho, 0.1), "rho 0.1")):
@@ -1161,29 +1211,23 @@ def phase_kernels(torch, extra):
     y = torch.randn((B_KERNEL, M), generator=g, device=DEVICE)
     margs = (Minv, qp.A, qp.P, qp.q, qp.l, qp.u, x, z, y, rho_row, active)
     mkw = dict(K=K_MINV, alpha=1.6, sigma=sigma_a, refine=REFINE)
-    mk = fused_admm.fused_admm_chunk_minv(*margs, **mkw)
-    mp = fused_admm.fused_admm_chunk_minv_plain(*margs, **mkw)
-    err = compare("admm_chunk_minv", mk, mp, failures)
+    mbytes, mflops = admm_minv_work(B_KERNEL, n_act)
+    # Row 4b: the cluster kernel beside the streaming one (its witness).
+    mk = minv_pair(torch, "admm_chunk_minv",
+                   fused_admm.fused_admm_chunk_minv_streaming,
+                   fused_admm.fused_admm_chunk_minv_cluster,
+                   fused_admm.fused_admm_chunk_minv_plain, margs, mkw, mbytes,
+                   mflops, out, failures)
     if not (torch.equal(mk[0][frozen], x[frozen])
             and torch.equal(mk[3][frozen], x[frozen])
             and torch.equal(mk[4][frozen], z[frozen])):
         failures.append("admm_chunk_minv: a frozen lane did not pass through")
-    # Minv and P of the active lanes, A of every lane (the check products),
-    # the vectors in (q, x, l, u, rho, z, y) and out (x, xp, A'y, z, y, zp,
-    # Ax).
-    mbytes = 4 * (n_act * 2 * N * N + B_KERNEL * M * N
-                  + B_KERNEL * (2 * N + 5 * M) + B_KERNEL * (3 * N + 4 * M))
-    mflops = n_act * K_MINV * minv_flops(N, M) + B_KERNEL * 4 * N * M
-    out["admm_chunk_minv"] = (
-        err, cuda_ms(lambda: fused_admm.fused_admm_chunk_minv(*margs, **mkw)),
-        cuda_ms(lambda: fused_admm.fused_admm_chunk_minv_plain(*margs, **mkw)),
-        None, bound(mbytes, mflops))
     variant(out, failures, "admm_chunk_minv_lanes2",
             fused_admm.fused_admm_chunk_minv,
             fused_admm.fused_admm_chunk_minv_plain, margs, dict(mkw, lanes=2),
             mbytes, (mflops, 0), same_as=mk, limit=True)
-    witness("phase 2 witness, rho 0.4", "admm_chunk_minv",
-            fused_admm.fused_admm_chunk_minv,
+    witness("phase 2 witness, rho 0.4", "admm_chunk_minv_cluster",
+            fused_admm.fused_admm_chunk_minv_cluster,
             fused_admm.fused_admm_chunk_minv_plain, margs, mkw,
             ("x", "z", "y", "x_prev", "z_prev", "Ax", "ATy"), failures)
     for name, (e, ms, pms, lms, (bms, by)) in out.items():
@@ -1214,6 +1258,28 @@ def admm_chunk_bound(B, n_act, K):
     nbytes = 4 * (n_act * N * M + B * M * N + B * (2 * N + 5 * M)
                   + B * (3 * N + 4 * M))
     return bound(nbytes, 4 * N * M * (n_act * K + B))
+
+
+def admm_minv_work(B, n_act):
+    """The M^{-1}-form ADMM chunk's least work at K_MINV, REFINE: Minv and P
+    of the active lanes and A of every lane (the check products) read once,
+    the vectors in (q, x, l, u, rho, z, y) and out (x, xp, A'y, z, y, zp,
+    Ax); minv_flops a lane and iteration, 4nm a lane for the check
+    products. Returns (bytes, FP32 FLOPs)."""
+    nbytes = 4 * (n_act * 2 * N * N + B * M * N + B * (2 * N + 5 * M)
+                  + B * (3 * N + 4 * M))
+    return nbytes, n_act * K_MINV * minv_flops(N, M) + B * 4 * N * M
+
+
+def prox_minv_work(B, n_act):
+    """The M^{-1}-form prox chunk's least work at K_MINV, REFINE: Minv, P,
+    A and C of the active lanes read once, the vectors in (q, x, b, y, d,
+    s, z, rho, active) and out (x, y, s, z); minv_flops a lane and
+    iteration. Returns (bytes, FP32 FLOPs)."""
+    mt = ME + MI
+    nbytes = 4 * (n_act * (2 * N * N + mt * N) + B * (2 * N + 2 * ME + 3 * MI + 2)
+                  + B * (N + ME + 2 * MI))
+    return nbytes, n_act * K_MINV * minv_flops(N, mt)
 
 
 def prox_chunk_work(B, n_act, K):
@@ -1361,7 +1427,98 @@ def phase_redesigns(torch):
         res.setdefault("prox_chunk_cluster", {})[tag] = {"ms": ms_c,
                                                          "bound_ms": bms}
     res["prox_chunk_cluster"]["clusters_resident"] = resident
+    del prob, G, gv, pargs, ref, it
+    for name, numbers in minv_redesigns(torch, failures).items():
+        res.setdefault(name, {}).update(numbers)
     require(not failures, "; ".join(failures))
+    return res
+
+
+def minv_redesigns(torch, failures):
+    """Phase 2b, rows 4b and 5b: each M^{-1}-form cluster chunk beside its
+    streaming witness at B=512 and at 7b's and 7c's B_DEFAULTS=2048, K_MINV
+    iterations, REFINE passes, every lane active (phase 2's penalties):
+    bit for bit, timed in turns, beside its bound, with the clusters
+    resident at once. Returns each kernel's numbers by B."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_admm, fused_proxqp, linalg
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    B, res = B_DEFAULTS, {}
+
+    def pair(name, stream, cluster, args, kw, work, resident):
+        log(f"[phase 2b] {name}_cluster at n={N}: {resident} clusters of 8 "
+            f"CTAs resident at once (refine {REFINE})")
+        ref = stream(*args, **kw)
+        for b in (B_KERNEL, B):
+            sub = tuple(a[:b] for a in args)
+            bms, by = bound(*work(b, b))
+            ms_s, ms_c = in_turns(lambda: stream(*sub, **kw),
+                                  lambda: cluster(*sub, **kw))
+            same = all(torch.equal(u_, v_[:b])
+                       for u_, v_ in zip(cluster(*sub, **kw), ref))
+            if not same:
+                failures.append(f"phase 2b: {name}_cluster (B={b}) is not the "
+                                "streaming kernel's bits")
+            log(f"[phase 2b] B={b} {name} (K={K_MINV}, refine {REFINE}, every "
+                f"lane active): cluster {ms_c:.4f} ms, streaming {ms_s:.4f} ms "
+                f"({ms_s / ms_c:.2f}x); bound {bms:.4f} ms ({by}); bit for bit: "
+                f"{same}")
+            tag = f"b{b}" if b != B_KERNEL else "b512_all_active"
+            res.setdefault(name, {})[tag] = {"ms": ms_s, "bound_ms": bms}
+            res.setdefault(f"{name}_cluster", {})[tag] = {"ms": ms_c,
+                                                          "bound_ms": bms}
+        # What sets the cluster kernel's time at B: a lane's fixed cost
+        # (its matrices' loads, the epilogue) from K=1, an iteration's from
+        # K=25 against K=1, a refinement pass's from refine 0 against
+        # REFINE; each cluster walks B / resident lanes.
+        ms_k1 = cuda_ms(lambda: cluster(*args, **dict(kw, K=1)))
+        ms_r0 = cuda_ms(lambda: cluster(*args, **dict(kw, refine=0)))
+        lanes = B / resident
+        it_us = (ms_c - ms_k1) / (K_MINV - 1) / lanes * 1e3
+        log(f"[phase 2b] B={B} {name}_cluster: K=1 {ms_k1:.4f} ms, refine 0 "
+            f"{ms_r0:.4f} ms; a cluster's lane {ms_k1 / lanes * 1e3:.2f} us "
+            f"fixed + {it_us:.2f} us an iteration (refine {REFINE}), of which "
+            f"{(ms_c - ms_r0) / K_MINV / lanes * 1e3:.2f} us the refinement "
+            f"pass")
+        res[f"{name}_cluster"][f"b{B}"].update(k1_ms=ms_k1, refine0_ms=ms_r0,
+                                               iteration_us=it_us)
+        res[f"{name}_cluster"]["clusters_resident"] = resident
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    act = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    qp = device_random_qp_fleet(B, N, M, generator=g)
+    rho_row = torch.full((B, M), 0.4, device=DEVICE)
+    Mn = qp.P + 1e-4 * torch.eye(N, device=DEVICE) + (
+        qp.A.transpose(1, 2) * rho_row[:, None, :]) @ qp.A
+    Minv = linalg.spd_inverse(Mn)
+    del Mn
+    x, z, y = (torch.randn((B, w), generator=g, device=DEVICE)
+               for w in (N, M, M))
+    pair("admm_chunk_minv", fused_admm.fused_admm_chunk_minv_streaming,
+         fused_admm.fused_admm_chunk_minv_cluster,
+         (Minv, qp.A, qp.P, qp.q, qp.l, qp.u, x, z, y, rho_row, act),
+         dict(K=K_MINV, alpha=1.6, sigma=1e-4, refine=REFINE), admm_minv_work,
+         fused_admm.minv_cluster_occupancy(N, M, REFINE))
+    del qp, Minv, x, z, y, rho_row
+
+    prob = device_prox_fleet(B, N, ME, MI, generator=g)
+    rho = 0.0125 * (1.0 + torch.rand(B, generator=g, device=DEVICE))
+    Mn = prob.P + 1e-2 * torch.eye(N, device=DEVICE) + rho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    del Mn
+    it = (torch.randn((B, N), generator=g, device=DEVICE),
+          torch.rand((B, MI), generator=g, device=DEVICE),
+          torch.randn((B, ME), generator=g, device=DEVICE),
+          torch.rand((B, MI), generator=g, device=DEVICE))
+    pair("prox_chunk_minv", fused_proxqp.fused_proxqp_chunk_minv_streaming,
+         fused_proxqp.fused_proxqp_chunk_minv_cluster,
+         (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, *it, rho, act),
+         dict(K=K_MINV, sigma=1e-2, refine=REFINE), prox_minv_work,
+         fused_proxqp.minv_cluster_occupancy(N, ME, MI, REFINE))
     return res
 
 
@@ -1456,7 +1613,14 @@ def counters():
             "fused_admm_chunk_cluster": fused_admm.fused_admm_chunk_cluster,
             "fused_proxqp_chunk_streaming":
                 fused_proxqp.fused_proxqp_chunk_streaming,
-            "fused_proxqp_chunk_cluster": fused_proxqp.fused_proxqp_chunk_cluster}
+            "fused_proxqp_chunk_cluster": fused_proxqp.fused_proxqp_chunk_cluster,
+            "fused_admm_chunk_minv_streaming":
+                fused_admm.fused_admm_chunk_minv_streaming,
+            "fused_admm_chunk_minv_cluster": fused_admm.fused_admm_chunk_minv_cluster,
+            "fused_proxqp_chunk_minv_streaming":
+                fused_proxqp.fused_proxqp_chunk_minv_streaming,
+            "fused_proxqp_chunk_minv_cluster":
+                fused_proxqp.fused_proxqp_chunk_minv_cluster}
 
 
 def audit(qp, x, status, iters, label, required=True, prefix="phase 4"):
@@ -1555,6 +1719,16 @@ def chunk_kernels(cnt, name, rule, label):
     log(f"[{label}] {name} launches by kernel: {split} (variants {variants}); "
         f"the rule sends highest lanes 1 to {want}")
     require(split[want] > 0, f"{label}: {want} never launched")
+    return split
+
+
+def minv_cluster_only(cnt, name, label):
+    """An M^{-1}-form chunk's launches of a lanes-1 run split by kernel
+    (``chunk_kernels``): every one must have run the cluster kernel, which
+    ops' ``minv_chunk_kernel`` names at 512/256 and 512/128/128."""
+    split = chunk_kernels(cnt, name, "cluster", label)
+    require(split[name] == 0, f"{label}: {split[name]} {name} launches "
+            "streamed")
     return split
 
 
@@ -1869,6 +2043,7 @@ def phase_minv(torch, pkg, cnt, profile):
                 require(counts["admm_chunk_minv"] == chunks,
                         f"{label}: {counts['admm_chunk_minv']} M^-1 chunk "
                         f"launches for {chunks} checks")
+                counts.update(minv_cluster_only(cnt, "admm_chunk_minv", label))
             x, status, iters = report_solve(qp, sol, None, None, f"{label} counted")
             del sol
             dev = audit(qp, x, status, iters, label, required=False,
@@ -1913,6 +2088,7 @@ def phase_minv(torch, pkg, cnt, profile):
         require(counts["prox_chunk_minv"] == chunks,
                 f"{label}: {counts['prox_chunk_minv']} M^-1 prox chunk "
                 f"launches for {chunks} checks")
+        counts.update(minv_cluster_only(cnt, "prox_chunk_minv", label))
         report_prox(prob, sol, None, None, f"{label} counted")
         dev = prox_audit(pkg, prob, sol, label)
         rho_end = sol.info.rho[:B_KERNEL].to(torch.float32).contiguous()
@@ -1942,6 +2118,9 @@ def phase_minv(torch, pkg, cnt, profile):
     fdt = factor_seconds(torch, prob, settings)
     report_prox(prob, sol, dt, fdt, f"{label} refactors {builds - 1}")
     del sol
+    if profile:
+        profile_solve(torch, lambda: pkg.solve_proxqp(prob, settings),
+                      "phase 7c profile")
     rho = torch.full((B_DEFAULTS,), settings.rho, device=DEVICE)
     Mn = prob.P + settings.sigma * torch.eye(N, device=DEVICE) + rho[:, None, None] * (
         prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
@@ -2081,7 +2260,10 @@ def phase_stacks(torch, pkg, cnt, profile):
 def phase_minv_lanes(torch, pkg, cnt):
     """8f, 8g: phase 7b's and 7c's stacks (at the eps their audits passed)
     with chunk_lanes=2 against chunk_lanes=1, each timed in this call: the
-    same statuses and iterations, the same x bit for bit."""
+    same statuses and iterations, the same x bit for bit. Lanes 1 runs the
+    M^{-1} cluster kernels and lanes 2 the streaming ones (every launch
+    under its key), so this holds the cluster kernels to their witnesses
+    through whole solves."""
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
         device_random_qp_fleet)
     from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
@@ -2112,7 +2294,11 @@ def phase_minv_lanes(torch, pkg, cnt):
             sols[lanes] = solve(fleet, settings)
             torch.cuda.synchronize()
             counts = read(cnt, path, label)
-            variants = read_variants(cnt, name, (f"lanes{lanes}",), label)
+            # Lanes 1 runs the cluster kernel, lanes 2 the streaming one.
+            want = "lanes1,cluster" if lanes == 1 else f"lanes{lanes}"
+            variants = read_variants(cnt, name, (want,), label)
+            require(set(variants) == {want},
+                    f"{label}: expected only {want} launches; got {variants}")
             _, dt = run_main(torch, lambda: solve(fleet, settings))
             info = sols[lanes].info
             log(f"[{label}] solve {dt * 1e3:.2f} ms (best of 3), "
@@ -2938,7 +3124,9 @@ def main() -> int:
         by_path = {k: v.get(name) for k, v in paths.items()}
         own = {"prox_chunk": "prox", "prox_chunk_cluster": "prox",
                "admm_chunk_minv": "admm_minv",
-               "prox_chunk_minv": "prox_minv"}.get(name, "admm")
+               "admm_chunk_minv_cluster": "admm_minv",
+               "prox_chunk_minv": "prox_minv",
+               "prox_chunk_minv_cluster": "prox_minv"}.get(name, "admm")
         e = {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
              "replaces": rep,
              # Its own path's count: the ADMM path's for the factor kernels,

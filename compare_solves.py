@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Time chip_smoke.py's phase 3 and phase 6 static solves with the port found
-under ROOT, so that two checkouts can be compared on one card in turns.
+"""Time chip_smoke.py's phase 3 and phase 6 static solves (or, with
+``--minv``, its phase 7b and 7c solves) with the port found under ROOT, so
+that two checkouts can be compared on one card in turns.
 
     git archive <parent> | tar -x -C _archive/parent   # a git-ignored directory
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r; done
+    for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --minv; done
 
 Each run builds ROOT's kernels, generates phase 3's fleet (B=4096, n=512,
 m=256, seed 1234, the sigma-free fused FP32 knobs at static rho 0.4, eps
 1e-4) and phase 6's (B=4096, n=512, me = mi = 128, seed 1236, static rho
 0.0125, eps 5e-5) on the card, and prints one JSON line: each solve's best
 of 3 after a warm call, its factor timed alone (best of 4) and the peak
-device memory of the warm call. Needs a CUDA card.
+device memory of the warm call. ``--minv`` takes phase 7b's fleet (B=2048,
+512/256, seed 1234, default Settings with the fused M^{-1} chunk, eps 1e-4)
+and 7c's (B=2048, 512/128/128, seed 1236, rho0 0.1 adaptive, refinement
+1, check_interval 50, eps 2e-5, where its audit passes) instead, each also
+profiled once after a warm-up step: the M^{-1} chunk kernels' device
+time, every kernel's device time and the chunk's launches. Needs a CUDA
+card.
 """
 
 import json
@@ -32,8 +40,38 @@ def best_ms(torch, fn, reps):
     return best
 
 
+def chunk_profile(torch, fn):
+    """(device ms of the M^{-1} chunk kernels, their launches, device ms of
+    every kernel) in one solve traced by torch.profiler after a warm-up
+    step (a trace that follows another drops its first device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    chunk = total = 0.0
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+            continue
+        v = getattr(e, "self_device_time_total", None)
+        ms = (e.self_cuda_time_total if v is None else v) / 1e3
+        total += ms
+        if "chunk_minv" in e.key:
+            chunk += ms
+            launches += e.count
+    return chunk, launches, total
+
+
 def main() -> int:
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else ".")
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    root = os.path.abspath(args[0] if args else ".")
     sys.path.insert(0, root)
     import torch
 
@@ -50,17 +88,37 @@ def main() -> int:
     if not pkg.__file__.startswith(root):
         raise RuntimeError(f"imported {pkg.__file__}, not the port under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"root": sys.argv[1] if len(sys.argv) > 1 else ".",
+    out = {"root": args[0] if args else ".",
            "device": torch.cuda.get_device_name(0)}
 
-    def run(tag, solve, factor):
+    def run(tag, solve, factor=None):
         torch.cuda.reset_peak_memory_stats()
         solve()
         torch.cuda.synchronize()
         out[f"{tag}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out[f"{tag}_solve_ms"] = best_ms(torch, solve, 3)
-        out[f"{tag}_factor_ms"] = best_ms(torch, factor, 4)
+        if factor is None:
+            (out[f"{tag}_chunk_ms"], out[f"{tag}_chunk_launches"],
+             out[f"{tag}_device_ms"]) = chunk_profile(torch, solve)
+        else:
+            out[f"{tag}_factor_ms"] = best_ms(torch, factor, 4)
 
+    if "--minv" in sys.argv[1:]:
+        g = torch.Generator(device="cuda").manual_seed(1234)
+        qp = device_random_qp_fleet(2048, 512, 256, generator=g)
+        st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                          fused_chunk=True, require_fused=True)
+        run("phase7b", lambda: pkg.solve(qp, st))
+        del qp
+        g = torch.Generator(device="cuda").manual_seed(1236)
+        prob = device_prox_fleet(2048, 512, 128, 128, generator=g)
+        ps = pkg.ProxQPSettings(max_iterations=2000, eps_abs=2e-5, eps_rel=2e-5,
+                                rho=0.1, adaptive_rho=True, kkt_refinement_steps=1,
+                                check_interval=50, kkt_warm_start=False,
+                                fused_chunk=True, require_fused=True)
+        run("phase7c", lambda: pkg.solve_proxqp(prob, ps))
+        print(json.dumps(out), flush=True)
+        return 0
     g = torch.Generator(device="cuda").manual_seed(1234)
     qp = device_random_qp_fleet(4096, 512, 256, generator=g)
     st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,

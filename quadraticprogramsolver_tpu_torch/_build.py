@@ -50,6 +50,10 @@ _SIGNATURES = {
     "qps_prox_chunk_cluster_occupancy": (_I, _I, _P),
     "qps_admm_chunk_minv": (_P,) * 18 + (_I,) * 6 + (_F, _F, _P),
     "qps_prox_chunk_minv": (_P,) * 17 + (_I,) * 7 + (_F, _P),
+    "qps_admm_chunk_minv_cluster": (_P,) * 18 + (_I,) * 5 + (_F, _F, _P),
+    "qps_admm_chunk_minv_cluster_occupancy": (_I, _I, _I, _P),
+    "qps_prox_chunk_minv_cluster": (_P,) * 17 + (_I,) * 6 + (_F, _P),
+    "qps_prox_chunk_minv_cluster_occupancy": (_I, _I, _I, _P),
     "qps_ell_matvec": (_P,) * 4 + (_I, _I, _P),
     "qps_ell_matvec_prev": (_P,) * 4 + (_I, _I, _P),
     "qps_routed_levels": (_P,) * 4 + (_I,) * 5 + (_P,),

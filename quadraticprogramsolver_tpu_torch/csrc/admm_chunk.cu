@@ -323,8 +323,10 @@ extern "C" int qps_admm_chunk(const float* G, const void* Ghi, const void* Glo,
 // lane. Design: that of the sigma-free kernel, one CTA of 8 warps for all K
 // iterations, vectors in shared memory, every matrix streamed from device
 // memory each time it is used: row products one warp per row (warp_rows_dot),
-// A' products as column reductions with 16-byte loads (cols_dot). Keeping
-// Minv and P on chip across a cluster is later work.
+// A' products as column reductions with 16-byte loads (cols_dot). At lanes 1
+// the solver runs admm_chunk_minv_cluster.cu instead, which holds Minv, A
+// and P on chip across a cluster (the same bits); this kernel serves lanes
+// >= 2, the other shapes, and is that kernel's witness.
 namespace {
 __host__ __device__ constexpr int minv_lane_floats(int n, int m) { return 6 * n + 8 * m; }
 

@@ -1,8 +1,12 @@
-// Shared pieces of the two cluster chunks (admm_chunk_cluster.cu,
-// prox_chunk_cluster.cu): one lane per thread-block cluster of 8 CTAs, its
-// matrices held in registers, vectors exchanged between the CTAs with
+// Shared pieces of the four cluster chunks (the sigma-free
+// admm_chunk_cluster.cu, prox_chunk_cluster.cu and the M^{-1}-form
+// admm_chunk_minv_cluster.cu, prox_chunk_minv_cluster.cu): one lane per
+// thread-block cluster of 8 CTAs, its matrices held in registers (and, in
+// the M^{-1} form, shared memory), vectors exchanged between the CTAs with
 // st.async into distributed shared memory and counted by the receiver's
-// mbarrier, the next lane's rows brought into shared memory by cp.async.
+// mbarrier, matrix rows brought into shared memory by cp.async; the row dots
+// in rows_dot's order (reg_dot, smem_dot) and the A' products in cols_dot's
+// at the streaming chunks' 256 threads (col_chains, col_sum).
 
 #pragma once
 
@@ -131,6 +135,55 @@ __device__ __forceinline__ float reg_dot(const float4 (&row)[KW], const float* v
     s = fmaf(a.w, b.w, s);
   }
   return warp_sum(s);
+}
+
+// reg_dot with the row in shared memory (the same float4s, the same order).
+template <int KW>
+__device__ __forceinline__ float smem_dot(const float* row, const float* v, int lane) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KW; ++k) {
+    const float4 a = r4[lane + 32 * k], b = v4[lane + 32 * k];
+    s = fmaf(a.x, b.x, s);
+    s = fmaf(a.y, b.y, s);
+    s = fmaf(a.z, b.z, s);
+    s = fmaf(a.w, b.w, s);
+  }
+  return warp_sum(s);
+}
+
+// The row groups cols_dot splits an n-wide M'v into at the streaming chunks'
+// 256 threads (n <= 512, so n/4 < 256 and every column is summed in groups).
+__host__ __device__ constexpr int col_groups(int n) { return 256 / (n / 4); }
+
+// cols_dot's partial sums for a CTA's `cols` columns of M'v: column c of AC
+// (rows x cols, row pitch cols, in shared memory) against v (rows), group
+// g < G summing rows g, g + G, ... in order, one FMA a row, into
+// part[g * cols + c]. Threads first .. first + cols * G - 1 take one
+// (column, group) each; the caller syncs before col_sum reads part.
+template <int G>
+__device__ __forceinline__ void col_chains(const float* AC, int cols, const float* v,
+                                           int rows, float* part, int first) {
+  const int t = static_cast<int>(threadIdx.x) - first;
+  if (t >= 0 && t < cols * G) {
+    const int c = t % cols, g = t / cols;
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int r = g; r < rows; r += G) acc = fmaf(AC[r * cols + c], v[r], acc);
+    part[g * cols + c] = acc;
+  }
+}
+
+// Column c's sum of its G partial sums, in cols_dot's order (0 + group 0 +
+// group 1 + ...).
+template <int G>
+__device__ __forceinline__ float col_sum(const float* part, int cols, int c) {
+  float s = 0.0f;
+#pragma unroll
+  for (int g = 0; g < G; ++g) s += part[g * cols + c];
+  return s;
 }
 
 inline cudaLaunchConfig_t launch_config(int grid, int smem, cudaStream_t s,

@@ -264,7 +264,10 @@ extern "C" int qps_prox_chunk(const float* G, const float* A, const float* C,
 // me = mi = 128. Design: that of the sigma-free kernel (one CTA of 8 warps for
 // all K iterations, vectors in shared memory, every matrix streamed each time
 // it is used), with the A' and C' products as column reductions (cols_dot).
-// Frozen lanes pass their inputs through bit for bit.
+// Frozen lanes pass their inputs through bit for bit. At lanes 1 the solver
+// runs prox_chunk_minv_cluster.cu instead (Minv, [A; C] and P on chip across
+// a cluster, the same bits); this kernel serves lanes >= 2, the other
+// shapes, and is that kernel's witness.
 namespace {
 __host__ __device__ constexpr int minv_lane_floats(int n, int me, int mi) {
   return 4 * n + 4 * me + 5 * mi;

@@ -23,6 +23,14 @@ registers of a cluster of :data:`CLUSTER` CTAs for all K iterations; every
 other variant streams them (admm_chunk.cu). Both give the same bits.
 :func:`fused_admm_chunk_streaming` and :func:`fused_admm_chunk_cluster`
 launch one kernel whatever the rule says (each other's witness on the card).
+
+An M^{-1}-form launch at lanes 1 whose lane fits a cluster
+(:func:`minv_chunk_kernel`) runs csrc/admm_chunk_minv_cluster.cu, which
+holds each lane's M^{-1} and A rows in a cluster's registers and A's
+columns and P's rows in its shared memory for all K iterations; lanes >= 2
+and other shapes stream them (admm_chunk.cu: admm_chunk_minv_kernel). Both
+give the same bits; :func:`fused_admm_chunk_minv_streaming` and
+:func:`fused_admm_chunk_minv_cluster` are the one-kernel witnesses.
 """
 
 from __future__ import annotations
@@ -304,6 +312,81 @@ def fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y, rho_row, active,
                         alpha=alpha)
 
 
+def minv_cluster_smem_bytes(n: int, m: int, refine: int) -> int:
+    """Shared memory one CTA of the M^{-1}-form cluster chunk needs at (n, m):
+    five mbarriers, the exchange buffers t, rho A xx (m each), rhs, xx and
+    the residual (n each), the x and y gathers twice, its vector rows, the
+    A' products' partial sums, this lane's m x n/8 columns of A and, when
+    ``refine`` > 0, its n/8 x n rows of P
+    (csrc/admm_chunk_minv_cluster.cu: minv_cluster_floats)."""
+    nr, mr = n // CLUSTER, m // CLUSTER
+    groups = 256 // (n // 4)
+    return 4 * (16 + 2 * m + 3 * n + 2 * (n + m) + 6 * nr + 7 * mr
+                + groups * nr + m * nr + (nr * n if refine > 0 else 0))
+
+
+def minv_chunk_kernel(n: int, m: int, lanes: int, refine: int,
+                      smem_per_cta: int = SMEM_PER_CTA) -> str:
+    """The kernel an M^{-1}-form chunk launch runs: "cluster" (one lane per
+    cluster of :data:`CLUSTER` CTAs, M^{-1} and A rows in registers, A's
+    columns and, with refinement, P's rows in shared memory, for all K
+    iterations) at ``lanes`` 1 when the lane fits the cluster
+    (:func:`.cluster.fits` at (n, m), whose register rule keeps a thread's
+    4 (n/128)(n/128 + m/128) floats of M^{-1} and A rows within 96, and
+    :func:`minv_cluster_smem_bytes` within ``smem_per_cta``); else "stream"
+    (admm_chunk.cu: admm_chunk_minv_kernel, every matrix read from device
+    memory each time it is used)."""
+    if lanes == 1 and fits(n, m, lambda: minv_cluster_smem_bytes(n, m, refine),
+                           smem_per_cta):
+        return "cluster"
+    return "stream"
+
+
+def minv_chunk_variant(n: int, m: int, lanes: int, refine: int) -> str:
+    """The key an M^{-1}-form launch counts under in
+    ``fused_admm_chunk_minv.variants``: "lanesL", with ",cluster" when
+    :func:`minv_chunk_kernel` sends it to the cluster kernel."""
+    key = f"lanes{lanes}"
+    if minv_chunk_kernel(n, m, lanes, refine) == "cluster":
+        key += ",cluster"
+    return key
+
+
+def _launch_minv(wrapper, kernel, Minv, A, P, q, l, u, x, z, y, rho_row,
+                 active, *, K, alpha, sigma, refine, lanes, variant=None):
+    """Check an M^{-1}-form chunk's operands and launch ``kernel``
+    ("stream" or "cluster"), counted on ``wrapper``; returns the seven
+    outputs."""
+    B, n = x.shape
+    m = l.shape[-1]
+    name = wrapper.__name__
+    if K < 1 or refine < 0 or lanes < 1 or B % lanes:
+        raise ValueError(f"{name}: K must be >= 1, refine >= 0 and lanes "
+                         f"must divide B={B}; got K={K}, refine={refine}, "
+                         f"lanes={lanes}")
+    operands = {"Minv": (Minv, (B, n, n)), "A": (A, (B, m, n)),
+                "q": (q, (B, n)), "l": (l, (B, m)), "u": (u, (B, m)),
+                "x": (x, (B, n)), "z": (z, (B, m)), "y": (y, (B, m)),
+                "rho_row": (rho_row, (B, m))}
+    if refine > 0:
+        operands["P"] = (P, (B, n, n))
+    outs = [torch.empty_like(v) for v in (x, z, y, x, z, z, x)]
+    act = _build.check_chunk(name, operands, {"n": n, "m": m}, outs, active)
+    ptrs = (Minv.data_ptr(), A.data_ptr(),
+            P.data_ptr() if refine > 0 else None, q.data_ptr(), l.data_ptr(),
+            u.data_ptr(), rho_row.data_ptr(), x.data_ptr(), z.data_ptr(),
+            y.data_ptr(), act.data_ptr(), *(o.data_ptr() for o in outs))
+    if kernel == "cluster":
+        _build.launch(wrapper, "qps_admm_chunk_minv_cluster", *ptrs, B, n, m,
+                      K, refine, float(alpha), float(sigma),
+                      _build.stream_ptr(x), variant=variant)
+    else:
+        _build.launch(wrapper, "qps_admm_chunk_minv", *ptrs, B, n, m, K,
+                      refine, lanes, float(alpha), float(sigma),
+                      _build.stream_ptr(x), variant=variant)
+    return tuple(outs)
+
+
 def fused_admm_chunk_minv(Minv, A, P, q, l, u, x, z, y, rho_row, active, *,
                           K: int, alpha: float, sigma: float, refine: int,
                           lanes: int = 1):
@@ -315,37 +398,83 @@ def fused_admm_chunk_minv(Minv, A, P, q, l, u, x, z, y, rho_row, active, *,
     Each KKT solve takes ``refine`` refinement passes against the true M
     built from P and A; ``lanes`` lanes per CTA (B must divide). Returns
     what :func:`fused_admm_chunk` returns.
+
+    On a CUDA tensor the launch runs the kernel :func:`minv_chunk_kernel`
+    names and counts under its :func:`minv_chunk_variant` key, e.g.
+    "lanes2" or "lanes1,cluster".
     """
     if not _build.launches_kernel("fused_admm_chunk_minv", x):
         return fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y,
                                            rho_row, active, K=K, alpha=alpha,
                                            sigma=sigma, refine=refine,
                                            lanes=lanes)
-    B, n = x.shape
-    m = l.shape[-1]
-    if K < 1 or refine < 0 or lanes < 1 or B % lanes:
-        raise ValueError(f"fused_admm_chunk_minv: K must be >= 1, refine >= 0 "
-                         f"and lanes must divide B={B}; got K={K}, "
-                         f"refine={refine}, lanes={lanes}")
-    operands = {"Minv": (Minv, (B, n, n)), "A": (A, (B, m, n)),
-                "q": (q, (B, n)), "l": (l, (B, m)), "u": (u, (B, m)),
-                "x": (x, (B, n)), "z": (z, (B, m)), "y": (y, (B, m)),
-                "rho_row": (rho_row, (B, m))}
-    if refine > 0:
-        operands["P"] = (P, (B, n, n))
-    outs = [torch.empty_like(v) for v in (x, z, y, x, z, z, x)]
-    act = _build.check_chunk("fused_admm_chunk_minv", operands,
-                             {"n": n, "m": m}, outs, active)
-    _build.launch(
-        fused_admm_chunk_minv, "qps_admm_chunk_minv",
-        Minv.data_ptr(), A.data_ptr(), P.data_ptr() if refine > 0 else None,
-        q.data_ptr(), l.data_ptr(), u.data_ptr(), rho_row.data_ptr(),
-        x.data_ptr(), z.data_ptr(), y.data_ptr(), act.data_ptr(),
-        *(o.data_ptr() for o in outs), B, n, m, K, refine, lanes,
-        float(alpha), float(sigma), _build.stream_ptr(x),
-        variant=f"lanes{lanes}")
-    return tuple(outs)
+    n, m = x.shape[-1], l.shape[-1]
+    return _launch_minv(
+        fused_admm_chunk_minv, minv_chunk_kernel(n, m, lanes, refine), Minv, A,
+        P, q, l, u, x, z, y, rho_row, active, K=K, alpha=alpha, sigma=sigma,
+        refine=refine, lanes=lanes,
+        variant=minv_chunk_variant(n, m, lanes, refine))
 
 
 fused_admm_chunk_minv.launches = 0
 fused_admm_chunk_minv.variants = collections.Counter()
+
+
+def fused_admm_chunk_minv_streaming(Minv, A, P, q, l, u, x, z, y, rho_row,
+                                    active, *, K: int, alpha: float,
+                                    sigma: float, refine: int, lanes: int = 1):
+    """:func:`fused_admm_chunk_minv` through the streaming kernel
+    (admm_chunk.cu: admm_chunk_minv_kernel) whatever
+    :func:`minv_chunk_kernel` says: the cluster kernel's bit-for-bit
+    witness and timing baseline on the card (no solver calls it). Counts
+    on its own ``launches``; on a CPU tensor the plain version."""
+    if not _build.launches_kernel("fused_admm_chunk_minv_streaming", x):
+        return fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y,
+                                           rho_row, active, K=K, alpha=alpha,
+                                           sigma=sigma, refine=refine,
+                                           lanes=lanes)
+    return _launch_minv(
+        fused_admm_chunk_minv_streaming, "stream", Minv, A, P, q, l, u, x, z,
+        y, rho_row, active, K=K, alpha=alpha, sigma=sigma, refine=refine,
+        lanes=lanes)
+
+
+fused_admm_chunk_minv_streaming.launches = 0
+
+
+def fused_admm_chunk_minv_cluster(Minv, A, P, q, l, u, x, z, y, rho_row,
+                                  active, *, K: int, alpha: float,
+                                  sigma: float, refine: int):
+    """:func:`fused_admm_chunk_minv` at lanes 1 through the cluster kernel
+    (csrc/admm_chunk_minv_cluster.cu), whatever the solver's rule would
+    pick. Raises ValueError where :func:`minv_chunk_kernel` refuses the
+    shape. Counts on its own ``launches``; on a CPU tensor the plain
+    version."""
+    n, m = x.shape[-1], l.shape[-1]
+    if minv_chunk_kernel(n, m, 1, refine) != "cluster":
+        raise ValueError(f"fused_admm_chunk_minv_cluster: n={n}, m={m}, "
+                         f"refine={refine} do not fit a cluster of "
+                         f"{CLUSTER} CTAs")
+    if not _build.launches_kernel("fused_admm_chunk_minv_cluster", x):
+        return fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y,
+                                           rho_row, active, K=K, alpha=alpha,
+                                           sigma=sigma, refine=refine)
+    return _launch_minv(
+        fused_admm_chunk_minv_cluster, "cluster", Minv, A, P, q, l, u, x, z, y,
+        rho_row, active, K=K, alpha=alpha, sigma=sigma, refine=refine,
+        lanes=1)
+
+
+fused_admm_chunk_minv_cluster.launches = 0
+
+
+def minv_cluster_occupancy(n: int, m: int, refine: int) -> int:
+    """How many clusters of the M^{-1}-form cluster chunk at (n, m, refine)
+    the current card holds at once (cudaOccupancyMaxActiveClusters): the
+    lanes in flight, and the clusters a launch starts."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    _build.check(_build.load().lib.qps_admm_chunk_minv_cluster_occupancy(
+        n, m, refine, ctypes.byref(out)), "qps_admm_chunk_minv_cluster_occupancy")
+    return out.value

@@ -23,6 +23,14 @@ which holds each lane's G, A and C in the registers of a cluster of
 (prox_chunk.cu). Both give the same bits. :func:`fused_proxqp_chunk_streaming`
 and :func:`fused_proxqp_chunk_cluster` launch one kernel whatever the rule
 says (each other's witness on the card).
+
+An M^{-1}-form launch at lanes 1 whose lane fits a cluster
+(:func:`minv_chunk_kernel`) runs csrc/prox_chunk_minv_cluster.cu (M^{-1}
+and [A; C] rows in a cluster's registers, [A; C]'s columns and P's rows in
+its shared memory); lanes >= 2 and other shapes stream them (prox_chunk.cu:
+prox_chunk_minv_kernel). Both give the same bits;
+:func:`fused_proxqp_chunk_minv_streaming` and
+:func:`fused_proxqp_chunk_minv_cluster` are the one-kernel witnesses.
 """
 
 from __future__ import annotations
@@ -264,6 +272,84 @@ def fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y, z, rho,
     return _plain_chunk(kkt_solve, A, C, b, d, x, s, y, z, rho, active, K=K)
 
 
+def minv_cluster_smem_bytes(n: int, me: int, mi: int, refine: int) -> int:
+    """Shared memory one CTA of the M^{-1}-form prox cluster chunk needs at
+    (n, me, mi): five mbarriers, the exchange buffers t, [A x; C x]
+    (me + mi each), rhs, x and the residual (n each), its vector rows, the
+    A' and C' products' partial sums, this lane's (me + mi) x n/8 columns of
+    [A; C] and, when ``refine`` > 0, its n/8 x n rows of P
+    (csrc/prox_chunk_minv_cluster.cu: prox_minv_cluster_floats)."""
+    mt = me + mi
+    nr, mr = n // CLUSTER, mt // CLUSTER
+    groups = 256 // (n // 4)
+    return 4 * (16 + 2 * mt + 3 * n + 4 * nr + 3 * mr + 2 * groups * nr
+                + mt * nr + (nr * n if refine > 0 else 0))
+
+
+def minv_chunk_kernel(n: int, me: int, mi: int, lanes: int, refine: int,
+                      smem_per_cta: int = SMEM_PER_CTA) -> str:
+    """The kernel an M^{-1}-form prox chunk launch runs: "cluster" (one
+    lane per cluster of :data:`CLUSTER` CTAs, M^{-1} and [A; C] rows in
+    registers, [A; C]'s columns and, with refinement, P's rows in shared
+    memory, for all K iterations) at ``lanes`` 1 when the lane fits the
+    cluster (:func:`.cluster.fits` at (n, me + mi), and
+    :func:`minv_cluster_smem_bytes` within ``smem_per_cta``); else "stream"
+    (prox_chunk.cu: prox_chunk_minv_kernel, every matrix read from device
+    memory each time it is used)."""
+    if lanes == 1 and fits(n, me + mi,
+                           lambda: minv_cluster_smem_bytes(n, me, mi, refine),
+                           smem_per_cta):
+        return "cluster"
+    return "stream"
+
+
+def minv_chunk_variant(n: int, me: int, mi: int, lanes: int,
+                       refine: int) -> str:
+    """The key an M^{-1}-form launch counts under in
+    ``fused_proxqp_chunk_minv.variants``: "lanesL", with ",cluster" when
+    :func:`minv_chunk_kernel` sends it to the cluster kernel."""
+    key = f"lanes{lanes}"
+    if minv_chunk_kernel(n, me, mi, lanes, refine) == "cluster":
+        key += ",cluster"
+    return key
+
+
+def _launch_minv(wrapper, kernel, Minv, A, C, P, q, b, d, x, s, y, z, rho,
+                 active, *, K, sigma, refine, lanes, variant=None):
+    """Check an M^{-1}-form prox chunk's operands and launch ``kernel``
+    ("stream" or "cluster"), counted on ``wrapper``; returns (x, s, y, z)."""
+    B, n = x.shape
+    me, mi = b.shape[-1], d.shape[-1]
+    name = wrapper.__name__
+    if K < 1 or refine < 0:
+        raise ValueError(f"{name}: K must be >= 1 and refine >= 0; got K={K}, "
+                         f"refine={refine}")
+    _check_lanes(B, lanes)
+    operands = {"Minv": (Minv, (B, n, n)), "A": (A, (B, me, n)),
+                "C": (C, (B, mi, n)), "q": (q, (B, n)), "b": (b, (B, me)),
+                "d": (d, (B, mi)), "x": (x, (B, n)), "s": (s, (B, mi)),
+                "y": (y, (B, me)), "z": (z, (B, mi)), "rho": (rho, (B,))}
+    if refine > 0:
+        operands["P"] = (P, (B, n, n))
+    outs = [torch.empty_like(v) for v in (x, s, y, z)]
+    act = _build.check_chunk(name, operands, {"n": n, "me": me, "mi": mi},
+                             outs, active)
+    ptrs = (Minv.data_ptr(), A.data_ptr(), C.data_ptr(),
+            P.data_ptr() if refine > 0 else None, q.data_ptr(), b.data_ptr(),
+            d.data_ptr(), rho.data_ptr(), x.data_ptr(), s.data_ptr(),
+            y.data_ptr(), z.data_ptr(), act.data_ptr(),
+            *(o.data_ptr() for o in outs))
+    if kernel == "cluster":
+        _build.launch(wrapper, "qps_prox_chunk_minv_cluster", *ptrs, B, n, me,
+                      mi, K, refine, float(sigma), _build.stream_ptr(x),
+                      variant=variant)
+    else:
+        _build.launch(wrapper, "qps_prox_chunk_minv", *ptrs, B, n, me, mi, K,
+                      refine, lanes, float(sigma), _build.stream_ptr(x),
+                      variant=variant)
+    return tuple(outs)
+
+
 def fused_proxqp_chunk_minv(Minv, A, C, P, q, b, d, x, s, y, z, rho, active,
                             *, K: int, sigma: float, refine: int,
                             lanes: int = 1):
@@ -275,36 +361,81 @@ def fused_proxqp_chunk_minv(Minv, A, C, P, q, b, d, x, s, y, z, rho, active,
     rho (B,), active (B,) bool. Each KKT solve takes ``refine`` refinement
     passes against the true M; ``lanes`` lanes per CTA (B must divide).
     Returns (x, s, y, z); a frozen lane passes its inputs through unchanged.
+
+    On a CUDA tensor the launch runs the kernel :func:`minv_chunk_kernel`
+    names and counts under its :func:`minv_chunk_variant` key, e.g.
+    "lanes2" or "lanes1,cluster".
     """
     if not _build.launches_kernel("fused_proxqp_chunk_minv", x):
         return fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y,
                                              z, rho, active, K=K, sigma=sigma,
                                              refine=refine, lanes=lanes)
-    B, n = x.shape
-    me, mi = b.shape[-1], d.shape[-1]
-    if K < 1 or refine < 0:
-        raise ValueError(f"fused_proxqp_chunk_minv: K must be >= 1 and refine "
-                         f">= 0; got K={K}, refine={refine}")
-    _check_lanes(B, lanes)
-    operands = {"Minv": (Minv, (B, n, n)), "A": (A, (B, me, n)),
-                "C": (C, (B, mi, n)), "q": (q, (B, n)), "b": (b, (B, me)),
-                "d": (d, (B, mi)), "x": (x, (B, n)), "s": (s, (B, mi)),
-                "y": (y, (B, me)), "z": (z, (B, mi)), "rho": (rho, (B,))}
-    if refine > 0:
-        operands["P"] = (P, (B, n, n))
-    outs = [torch.empty_like(v) for v in (x, s, y, z)]
-    act = _build.check_chunk("fused_proxqp_chunk_minv", operands,
-                             {"n": n, "me": me, "mi": mi}, outs, active)
-    _build.launch(
-        fused_proxqp_chunk_minv, "qps_prox_chunk_minv",
-        Minv.data_ptr(), A.data_ptr(), C.data_ptr(),
-        P.data_ptr() if refine > 0 else None, q.data_ptr(), b.data_ptr(),
-        d.data_ptr(), rho.data_ptr(), x.data_ptr(), s.data_ptr(), y.data_ptr(),
-        z.data_ptr(), act.data_ptr(), *(o.data_ptr() for o in outs), B, n, me,
-        mi, K, refine, lanes, float(sigma), _build.stream_ptr(x),
-        variant=f"lanes{lanes}")
-    return tuple(outs)
+    n, me, mi = x.shape[-1], b.shape[-1], d.shape[-1]
+    return _launch_minv(
+        fused_proxqp_chunk_minv, minv_chunk_kernel(n, me, mi, lanes, refine),
+        Minv, A, C, P, q, b, d, x, s, y, z, rho, active, K=K, sigma=sigma,
+        refine=refine, lanes=lanes,
+        variant=minv_chunk_variant(n, me, mi, lanes, refine))
 
 
 fused_proxqp_chunk_minv.launches = 0
 fused_proxqp_chunk_minv.variants = collections.Counter()
+
+
+def fused_proxqp_chunk_minv_streaming(Minv, A, C, P, q, b, d, x, s, y, z, rho,
+                                      active, *, K: int, sigma: float,
+                                      refine: int, lanes: int = 1):
+    """:func:`fused_proxqp_chunk_minv` through the streaming kernel
+    (prox_chunk.cu: prox_chunk_minv_kernel) whatever
+    :func:`minv_chunk_kernel` says: the cluster kernel's bit-for-bit
+    witness and timing baseline on the card (no solver calls it). Counts
+    on its own ``launches``; on a CPU tensor the plain version."""
+    if not _build.launches_kernel("fused_proxqp_chunk_minv_streaming", x):
+        return fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y,
+                                             z, rho, active, K=K, sigma=sigma,
+                                             refine=refine, lanes=lanes)
+    return _launch_minv(
+        fused_proxqp_chunk_minv_streaming, "stream", Minv, A, C, P, q, b, d,
+        x, s, y, z, rho, active, K=K, sigma=sigma, refine=refine, lanes=lanes)
+
+
+fused_proxqp_chunk_minv_streaming.launches = 0
+
+
+def fused_proxqp_chunk_minv_cluster(Minv, A, C, P, q, b, d, x, s, y, z, rho,
+                                    active, *, K: int, sigma: float,
+                                    refine: int):
+    """:func:`fused_proxqp_chunk_minv` at lanes 1 through the cluster kernel
+    (csrc/prox_chunk_minv_cluster.cu), whatever the solver's rule would
+    pick. Raises ValueError where :func:`minv_chunk_kernel` refuses the
+    shape. Counts on its own ``launches``; on a CPU tensor the plain
+    version."""
+    n, me, mi = x.shape[-1], b.shape[-1], d.shape[-1]
+    if minv_chunk_kernel(n, me, mi, 1, refine) != "cluster":
+        raise ValueError(f"fused_proxqp_chunk_minv_cluster: n={n}, me={me}, "
+                         f"mi={mi}, refine={refine} do not fit a cluster of "
+                         f"{CLUSTER} CTAs")
+    if not _build.launches_kernel("fused_proxqp_chunk_minv_cluster", x):
+        return fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y,
+                                             z, rho, active, K=K, sigma=sigma,
+                                             refine=refine)
+    return _launch_minv(
+        fused_proxqp_chunk_minv_cluster, "cluster", Minv, A, C, P, q, b, d, x,
+        s, y, z, rho, active, K=K, sigma=sigma, refine=refine, lanes=1)
+
+
+fused_proxqp_chunk_minv_cluster.launches = 0
+
+
+def minv_cluster_occupancy(n: int, me: int, mi: int, refine: int) -> int:
+    """How many clusters of the M^{-1}-form prox cluster chunk at
+    (n, me + mi, refine) the current card holds at once
+    (cudaOccupancyMaxActiveClusters): the lanes in flight, and the clusters
+    a launch starts."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    _build.check(_build.load().lib.qps_prox_chunk_minv_cluster_occupancy(
+        n, me + mi, refine, ctypes.byref(out)),
+        "qps_prox_chunk_minv_cluster_occupancy")
+    return out.value

@@ -228,7 +228,10 @@ def test_every_c_entry_point_has_its_ctypes_signature():
             "qps_admm_chunk", "qps_admm_chunk_cluster", "qps_prox_chunk",
             "qps_prox_chunk_cluster", "qps_ell_matvec",
             "qps_ell_matvec_prev", "qps_slab_build", "qps_slab_build_prev",
-            "qps_slab_level", "qps_slab_level_strip"} <= set(entries)
+            "qps_slab_level", "qps_slab_level_strip",
+            "qps_admm_chunk_minv_cluster", "qps_prox_chunk_minv_cluster",
+            "qps_admm_chunk_minv_cluster_occupancy",
+            "qps_prox_chunk_minv_cluster_occupancy"} <= set(entries)
     assert entries == {k: len(v) for k, v in _build._SIGNATURES.items()}
 
 

@@ -272,14 +272,19 @@ def test_minv_prox_kernel_against_f64_witness(dev, rho_v, refine):
     args = (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y, z,
             rho, active)
     kw = dict(K=25, sigma=1e-2, refine=refine)
-    out = fused_proxqp.fused_proxqp_chunk_minv(*args, **kw)
     ref = fused_proxqp.fused_proxqp_chunk_minv_plain(*args, **kw)
     wit = fused_proxqp.fused_proxqp_chunk_minv_plain(
         *(a.double() if a.is_floating_point() else a for a in args), **kw)
-    for o, r, w in zip(out, ref, wit):
-        ek = float((o.double() - w).abs().max())
-        ep = float((r.double() - w).abs().max())
-        assert ek <= 3.0 * ep + 1e-7 * float(w.abs().max()), (ek, ep)
+    # The solver's dispatch (the cluster kernel at this shape), and each
+    # kernel through its own wrapper.
+    for run in (fused_proxqp.fused_proxqp_chunk_minv,
+                fused_proxqp.fused_proxqp_chunk_minv_cluster,
+                fused_proxqp.fused_proxqp_chunk_minv_streaming):
+        out = run(*args, **kw)
+        for o, r, w in zip(out, ref, wit):
+            ek = float((o.double() - w).abs().max())
+            ep = float((r.double() - w).abs().max())
+            assert ek <= 3.0 * ep + 1e-7 * float(w.abs().max()), (run.__name__, ek, ep)
 
 
 def test_default_settings_solves_run_the_minv_kernels(dev):
@@ -1209,3 +1214,133 @@ def test_redesigned_factor_matches_plain(dev, ms):
         fused_factor.slab_level_plain(Sp, spd_kernels.pivot_sweep_v3_plain(D),
                                       j, w_out)
     assert _close(X[..., :m + 1], Sp[..., :m + 1])
+
+
+# -- rows 4b and 5b: the M^{-1}-form chunks held on chip by a cluster --
+
+
+def _mismatches(out, ref, names):
+    """The outputs that are not bit for bit equal, with their max |diff|."""
+    return {k: float((o - r).abs().max()) for k, o, r in zip(names, out, ref)
+            if not torch.equal(o, r)}
+
+
+def _minv_operands(dev, seed, b, n, m):
+    """An ADMM fleet's M^{-1} (rho 0.4, sigma 1e-4) and random iterates,
+    every fourth lane frozen."""
+    qp, g = _fleet(dev, seed, b=b, n=n, m=m)
+    rho = torch.full((b, m), 0.4, device=dev)
+    Mn = qp.P + 1e-4 * torch.eye(n, device=dev) + (
+        qp.A.transpose(1, 2) * rho[:, None, :]) @ qp.A
+    # Off the sweep's shapes (n = 640) the inverse is a Cholesky one, not
+    # contiguous.
+    Minv = linalg.spd_inverse(Mn).contiguous()
+    x = torch.randn((b, n), generator=g, device=dev)
+    z = torch.randn((b, m), generator=g, device=dev)
+    y = torch.randn((b, m), generator=g, device=dev)
+    active = torch.arange(b, device=dev) % 4 != 3
+    return (Minv, qp.A, qp.P, qp.q, qp.l, qp.u, x, z, y, rho, active)
+
+
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("K", [1, 25])
+@pytest.mark.parametrize("n,m", [(512, 256), (256, 384)])
+def test_minv_cluster_chunk_matches_streaming_kernel(dev, n, m, K, refine):
+    """Row 4b's cluster kernel (M^{-1} and A rows in a cluster's registers,
+    A's columns and P's rows in its shared memory) against the streaming
+    kernel, bit for bit on all seven outputs, every fourth lane frozen,
+    more lanes than twice the clusters resident at once; and against the
+    plain version (TOL)."""
+    resident = fused_admm.minv_cluster_occupancy(n, m, refine)
+    assert resident >= 1
+    args = _minv_operands(dev, 50, 2 * resident + 3, n, m)
+    x, z, active = args[6], args[7], args[10]
+    kw = dict(K=K, alpha=1.6, sigma=1e-4, refine=refine)
+    stream = fused_admm.fused_admm_chunk_minv_streaming(*args, **kw)
+    plain = fused_admm.fused_admm_chunk_minv_plain(*args, **kw)
+    assert all(_close(o, r) for o, r in zip(stream, plain))
+    fused_admm.fused_admm_chunk_minv_cluster.launches = 0
+    out = fused_admm.fused_admm_chunk_minv_cluster(*args, **kw)
+    assert fused_admm.fused_admm_chunk_minv_cluster.launches == 1
+    bad = _mismatches(out, stream, ("x", "z", "y", "x_prev", "z_prev", "Ax", "ATy"))
+    assert not bad, bad
+    assert torch.equal(out[0][~active], x[~active])
+    assert torch.equal(out[3][~active], x[~active])
+    assert torch.equal(out[4][~active], z[~active])
+
+
+def _prox_minv_operands(dev, seed, b, n, me, mi, rho0=None):
+    """A prox fleet's M^{-1} (sigma 1e-2) at phase 6's penalties, or at one
+    rho0 for every lane, and random iterates, every fourth lane frozen."""
+    prob, g = _prox_fleet(dev, seed, b=b, n=n, me=me, mi=mi)
+    if rho0 is None:
+        rho = 0.0125 * (1.0 + torch.rand(b, generator=g, device=dev))
+    else:
+        rho = torch.full((b,), rho0, device=dev)
+    Mn = prob.P + 1e-2 * torch.eye(n, device=dev) + rho[:, None, None] * (
+        prob.A.transpose(1, 2) @ prob.A + prob.C.transpose(1, 2) @ prob.C)
+    Minv = linalg.spd_inverse(Mn)
+    x = torch.randn((b, n), generator=g, device=dev)
+    s = torch.rand((b, mi), generator=g, device=dev)
+    y = torch.randn((b, me), generator=g, device=dev)
+    z = torch.rand((b, mi), generator=g, device=dev)
+    active = torch.arange(b, device=dev) % 4 != 3
+    return (Minv, prob.A, prob.C, prob.P, prob.q, prob.b, prob.d, x, s, y, z,
+            rho, active)
+
+
+@pytest.mark.parametrize("refine", [0, 1, 2])
+@pytest.mark.parametrize("K", [1, 25])
+@pytest.mark.parametrize("rho0", [None, 0.1])
+@pytest.mark.parametrize("n,me,mi", [(512, 128, 128), (256, 128, 256)])
+def test_prox_minv_cluster_chunk_matches_streaming_kernel(dev, n, me, mi, rho0, K,
+                                                         refine):
+    """Row 5b's cluster kernel (M^{-1} and [A; C] rows in a cluster's
+    registers, [A; C]'s columns and P's rows in its shared memory) against
+    the streaming kernel, bit for bit on x, s, y and z, every fourth lane
+    frozen, more lanes than twice the clusters resident at once, at phase
+    6's penalties and at 7c's rho0 = 0.1."""
+    resident = fused_proxqp.minv_cluster_occupancy(n, me, mi, refine)
+    assert resident >= 1
+    args = _prox_minv_operands(dev, 51, 2 * resident + 3, n, me, mi, rho0)
+    active = args[-1]
+    kw = dict(K=K, sigma=1e-2, refine=refine)
+    stream = fused_proxqp.fused_proxqp_chunk_minv_streaming(*args, **kw)
+    fused_proxqp.fused_proxqp_chunk_minv_cluster.launches = 0
+    out = fused_proxqp.fused_proxqp_chunk_minv_cluster(*args, **kw)
+    assert fused_proxqp.fused_proxqp_chunk_minv_cluster.launches == 1
+    bad = _mismatches(out, stream, ("x", "s", "y", "z"))
+    assert not bad, bad
+    for o, v in zip(out, args[7:11]):
+        assert torch.equal(o[~active], v[~active])
+
+
+def test_minv_chunk_dispatch_on_card(dev):
+    """The solver's M^{-1} chunks run the cluster kernels at lanes 1 and
+    stream at lanes 2 (the same bits), and off the cluster's shapes."""
+    args = _minv_operands(dev, 52, 4, 256, 128)
+    run, counts = fused_admm.fused_admm_chunk_minv, fused_admm.fused_admm_chunk_minv.variants
+    counts.clear()
+    kw = dict(K=3, alpha=1.6, sigma=1e-4, refine=1)
+    one = run(*args, **kw)
+    two = run(*args, lanes=2, **kw)
+    assert dict(counts) == {"lanes1,cluster": 1, "lanes2": 1}
+    assert all(torch.equal(o, r) for o, r in zip(one, two))
+    pargs = _prox_minv_operands(dev, 53, 4, 256, 128, 128)
+    prun, pcounts = (fused_proxqp.fused_proxqp_chunk_minv,
+                     fused_proxqp.fused_proxqp_chunk_minv.variants)
+    pcounts.clear()
+    pkw = dict(K=3, sigma=1e-2, refine=1)
+    one = prun(*pargs, **pkw)
+    two = prun(*pargs, lanes=2, **pkw)
+    assert dict(pcounts) == {"lanes1,cluster": 1, "lanes2": 1}
+    assert all(torch.equal(o, r) for o, r in zip(one, two))
+    # n = 640 is over the cluster's registers: the streaming kernel.
+    args = _minv_operands(dev, 54, 2, 640, 128)
+    counts.clear()
+    out = run(*args, **kw)
+    assert dict(counts) == {"lanes1": 1}
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_admm.fused_admm_chunk_minv_cluster(*args, **kw)
+    assert all(_close(o, r) for o, r in zip(
+        out, fused_admm.fused_admm_chunk_minv_plain(*args, **kw)))
