@@ -45,14 +45,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    5b) bit for bit the streaming M^{-1} chunks (``admm_chunk_minv``,
    ``prox_chunk_minv``, their witnesses) on every output at K=25 and K=1,
    each pair timed in turns (old, new, new, old). Then each chunk variant of rows 4c/5c (an
-   entry of its own in the kernels JSON): the sigma-free ADMM chunk at
-   "high" and "default" (held by the f64 witness, whose plain version in
-   f64 runs without rounding) and with the split G, the slab window, lanes
-   2 (all three at "high", bit for bit equal to the "high" kernel) and
-   lanes 4 (FP32, bit for bit the lanes-1 kernel); the M^{-1} ADMM chunk at
-   lanes 2; the prox chunk at "high", "default" and lanes 2; the M^{-1} prox
-   chunk at lanes 2. The bound of "high" counts its iterate products three
-   times. The witness cannot fail a "default" kernel that skips a rounding
+   entry of its own in the kernels JSON), launched through the solver's
+   dispatch, which must send it to a cluster kernel (its key ends in
+   ",cluster": every variant's lane fits one): the sigma-free
+   ADMM chunk at "high" and "default" (held by the f64 witness, whose plain
+   version in f64 runs without rounding) and with the split G, the slab
+   window, lanes 2 (all three at "high", bit for bit equal to the "high"
+   kernel) and lanes 4 (FP32, bit for bit the lanes-1 kernel); the M^{-1}
+   ADMM chunk at lanes 2; the prox chunk at "high", "default" and lanes 2;
+   the M^{-1} prox chunk at lanes 2. Each is also bit for bit the streaming
+   kernel of the same variant (its witness) and timed in turns beside it.
+   The bound of "high" counts its iterate products three times. The witness cannot fail a "default" kernel that skips a rounding
    (the plain "default" lies far from f64), so each family's "default"
    kernel is also held at K=1 against its plain version and its own
    "highest" (``default_check``). Then rows 7-10 and 3b, the fused
@@ -76,7 +79,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    with the yardstick; the pivot sweep on the fleet's last pivot blocks, the ADMM chunk
    at K=11 and the prox chunk at K=25 with every lane active, also at
    B=512), bit for bit and timed in turns, with each cluster chunk's
-   clusters resident at once; and rows 4b and 5b, the M^{-1}-form cluster
+   clusters resident at once; rows 4c and 5c, each "high" and "default"
+   cluster variant (ADMM from G, the bf16 halves and the slab window; prox)
+   beside the streaming kernel of the same variant, bit for bit, in turns,
+   beside its bound and the "highest" cluster kernel (``variant_pairs``);
+   and rows 4b and 5b, the M^{-1}-form cluster
    chunks beside the streaming ones at K=25, refine 1, every lane active,
    at B=512 and at phase 7's B=2048 (``minv_redesigns``).
 3. The main path: a seeded B=4096, n=512, m=256 random_qp fleet generated on
@@ -126,17 +133,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    audit of its family (16 ADMM / 8 prox lanes), tightening eps while the
    audit fails; each prints its solve, factor, iterations, eps, audit, peak
    memory and the launches of every chunk variant, and fails if a variant of
-   its stack never launched: 8a bench.py's ``slab_settings`` (slab window,
+   its stack never launched or a launch did not run a cluster kernel (its
+   key must end in ",cluster"): 8a bench.py's ``slab_settings`` (slab window,
    lanes 2, "high", a "default" first chunk) on phase 3's fleet; 8b its
    ``slab_hi`` (slab window, lanes 4, FP32, the same schedule); 8c the
    ``split_cache`` stack (8a with the bf16 G halves, no schedule); 8d the
    literal 500/250 fleet under ``slab_settings`` (bench.py's
    ``baseline_shape`` row); 8e the ``benchmarks/proxqp_fleet.py --headline``
-   stack on phase 6's fleet (lanes 2, "high", a "default" first chunk; its
-   chunks must stream). 8f
-   and 8g run phase 7b's and 7c's stacks at lanes 2 (the streaming M^{-1}
-   chunks) beside lanes 1 (the cluster ones): the same statuses,
-   iterations and x, bit for bit.
+   stack on phase 6's fleet (lanes 2, "high", a "default" first chunk). 8f
+   and 8g run phase 7b's and 7c's stacks at lanes 2 beside lanes 1 (the
+   M^{-1} cluster chunks at both): the same statuses, iterations and x,
+   bit for bit. Every stack (8f and 8g at lanes 2) is solved again with
+   every chunk on its streaming kernel (``streaming_witness``, a context
+   of this script that points the dispatch rules at "stream", its launches
+   counted apart), timed, and must give the same statuses, iterations and
+   x, bit for bit.
 9. The fused factor's knobs on phase 3's fleet and static-rho stack, one at
    a time: 9a-9f ``pivot_variant`` = "ref", "value", "r2", "r4", "r8",
    "panel", 9g ``factor_precision="high"``. Each tightens eps while its
@@ -193,7 +204,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho solve of
 phase 3 (the ADMM headline), one profiled static-rho prox solve,
-one profiled solve each of phases 7a, 7b and 7c, one each of 8a and 8e, one
+one profiled solve each of phases 7a, 7b and 7c, one each of 8a, 8e and 8f
+(lanes 2), one
 of the fastest phase-9 stack and one of phase 11a (kernel time by name and
 the device's idle share; phases 3 and 6 must trace one ``slab_build_kernel``
 and 4 ``level_strip_kernel`` and none of the previous factor kernels). ``--sparse-only`` runs phases 1 and 11 alone and
@@ -212,6 +224,7 @@ line, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -334,20 +347,22 @@ B_REDESIGN = B_MAIN
 MIRROR_TOL = 1e-6
 
 #: Rows 4c and 5c: each chunk variant (a kernels-JSON entry of its own) ->
-#: (its chunk, the phase-8 stack whose launches it reports, the token of its
-#: launch key: precision, G source or lanes).
+#: (the cluster kernel that runs it, the phase-8 stack whose launches it
+#: reports, the token of its launch key: precision, G source or lanes).
+#: Each is held bit for bit against, and timed in turns beside, the
+#: streaming kernel of the same variant (its witness, ``stream_ms``).
 VARIANTS = {
-    "admm_chunk_high": ("admm_chunk", "8a", ",high,"),
-    "admm_chunk_default": ("admm_chunk", "8a", ",default,"),
-    "admm_chunk_split": ("admm_chunk", "8c", ",split,"),
-    "admm_chunk_slab": ("admm_chunk", "8a", ",slab,"),
-    "admm_chunk_lanes2": ("admm_chunk", "8a", ",lanes2,"),
-    "admm_chunk_lanes4": ("admm_chunk", "8b", ",lanes4,"),
-    "admm_chunk_minv_lanes2": ("admm_chunk_minv", "8f", ",lanes2,"),
-    "prox_chunk_high": ("prox_chunk", "8e", ",high,"),
-    "prox_chunk_default": ("prox_chunk", "8e", ",default,"),
-    "prox_chunk_lanes2": ("prox_chunk", "8e", ",lanes2,"),
-    "prox_chunk_minv_lanes2": ("prox_chunk_minv", "8g", ",lanes2,"),
+    "admm_chunk_high": ("admm_chunk_cluster", "8a", ",high,"),
+    "admm_chunk_default": ("admm_chunk_cluster", "8a", ",default,"),
+    "admm_chunk_split": ("admm_chunk_cluster", "8c", ",split,"),
+    "admm_chunk_slab": ("admm_chunk_cluster", "8a", ",slab,"),
+    "admm_chunk_lanes2": ("admm_chunk_cluster", "8a", ",lanes2,"),
+    "admm_chunk_lanes4": ("admm_chunk_cluster", "8b", ",lanes4,"),
+    "admm_chunk_minv_lanes2": ("admm_chunk_minv_cluster", "8f", ",lanes2,"),
+    "prox_chunk_high": ("prox_chunk_cluster", "8e", ",high,"),
+    "prox_chunk_default": ("prox_chunk_cluster", "8e", ",default,"),
+    "prox_chunk_lanes2": ("prox_chunk_cluster", "8e", ",lanes2,"),
+    "prox_chunk_minv_lanes2": ("prox_chunk_minv_cluster", "8g", ",lanes2,"),
 }
 #: Rows 7-10 and 3b: each pivot formulation and the bf16x3 level (a
 #: kernels-JSON entry of its own) -> (its source, the TPU kernel it
@@ -579,18 +594,27 @@ def limit_or_witness(label, name, kern_fn, plain_fn, args, failures, k=None):
 
 
 def variant(out, failures, name, kern_fn, plain_fn, args, kw, nbytes, flops,
-            witness_outs=None, same_as=None, limit=False):
-    """One chunk variant of row 4c or 5c against its plain version: by the
+            witness_outs=None, same_as=None, limit=False, *, stream_fn, extra):
+    """One chunk variant of row 4c or 5c, launched through the solver's
+    dispatching wrapper ``kern_fn``, which must send it to a cluster kernel
+    (its launch key ends in ",cluster"), against its plain version: by the
     f64 witness (``witness_outs``: "high" and "default", where a 1-ulp
     difference can flip a bf16 rounding), by LIMIT (``limit``: FP32
-    variants), and bit for bit against ``same_as``, the outputs of the
-    variant it must equal (lanes 1, a contiguous G, G split in registers).
+    variants), bit for bit against ``same_as``, the outputs of the variant
+    it must equal (lanes 1, a contiguous G, G split in registers), and bit
+    for bit against ``stream_fn``, the streaming kernel of the same variant
+    (its witness), timed in turns beside it (``extra[name]["stream_ms"]``).
     ``flops``: (FP32 FLOPs, bf16 FLOPs) for the bound. Records (max |kernel
     - plain|, kernel ms, plain ms, None, bound) in ``out`` and returns the
     kernel's outputs."""
     import torch
 
+    before = dict(kern_fn.variants)
     k = kern_fn(*args, **kw)
+    keys = [key for key, v in kern_fn.variants.items() if v != before.get(key, 0)]
+    log(f"[phase 2] {name}: launched as {keys}")
+    if not (len(keys) == 1 and keys[0].endswith(",cluster")):
+        failures.append(f"{name}: not launched as a cluster kernel: {keys}")
     p = plain_fn(*args, **kw)
     if limit:
         err = compare(name, k, p, failures)
@@ -606,8 +630,17 @@ def variant(out, failures, name, kern_fn, plain_fn, args, kw, nbytes, flops,
         log(f"[phase 2] {name}: bit for bit equal to its identity: {same}")
         if not same:
             failures.append(f"{name}: not bit for bit equal to its identity")
-    out[name] = (err, cuda_ms(lambda: kern_fn(*args, **kw)),
-                 cuda_ms(lambda: plain_fn(*args, **kw)), None,
+    ws = stream_fn(*args, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(k, ws))
+    ms_s, ms_k = in_turns(lambda: stream_fn(*args, **kw),
+                          lambda: kern_fn(*args, **kw))
+    log(f"[phase 2] {name}: bit for bit the streaming kernel of the same "
+        f"variant: {same}; cluster {ms_k:.4f} ms, streaming {ms_s:.4f} ms "
+        f"({ms_s / ms_k:.2f}x, in turns)")
+    if not same:
+        failures.append(f"{name}: not the streaming kernel's bits")
+    extra.setdefault(name, {})["stream_ms"] = ms_s
+    out[name] = (err, ms_k, cuda_ms(lambda: plain_fn(*args, **kw)), None,
                  bound(nbytes, *flops))
     return k
 
@@ -1069,26 +1102,27 @@ def phase_kernels(torch, extra):
     admm_outs = ("x", "z", "y", "x_prev", "z_prev", "Ax", "ATy")
     run, run_plain = fused_admm.fused_admm_chunk, fused_admm.fused_admm_chunk_plain
     Ghi, Glo = linalg.bf16_split(G)
+    wk = dict(stream_fn=stream, extra=extra)
     high = variant(out, failures, "admm_chunk_high", run, run_plain,
                    cargs, dict(kw, dot_precision="high"), admm_bytes, hi_flops,
-                   witness_outs=admm_outs)
+                   witness_outs=admm_outs, **wk)
     variant(out, failures, "admm_chunk_default", run, run_plain, cargs,
             dict(kw, dot_precision="default"), admm_bytes, (0, admm_flops),
-            witness_outs=admm_outs)
+            witness_outs=admm_outs, **wk)
     default_check("admm_chunk_default", run, run_plain, cargs, kw, admm_outs,
                   failures)
     variant(out, failures, "admm_chunk_split", run, run_plain,
             (Ghi, qp.A, gv, *vecs), dict(kw, dot_precision="high", Glo=Glo),
-            admm_bytes, hi_flops, same_as=high)
+            admm_bytes, hi_flops, same_as=high, **wk)
     variant(out, failures, "admm_chunk_slab", run, run_plain, (S, qp.A, gv, *vecs),
             dict(kw, dot_precision="high", slab=True), admm_bytes, hi_flops,
-            same_as=high)
+            same_as=high, **wk)
     variant(out, failures, "admm_chunk_lanes2", run, run_plain, cargs,
             dict(kw, dot_precision="high", lanes=2), admm_bytes, hi_flops,
-            same_as=high)
+            same_as=high, **wk)
     variant(out, failures, "admm_chunk_lanes4", run, run_plain, cargs,
             dict(kw, lanes=4), admm_bytes, (admm_flops, 0), same_as=ck,
-            limit=True)
+            limit=True, **wk)
     del qp, S, G, gv, Ghi, Glo, cargs, ck, cp, high, rho_row
 
     # The prox family's shapes: the two-block build, then the prox chunk.
@@ -1153,17 +1187,18 @@ def phase_kernels(torch, extra):
     # Row 5c: the prox variants ("high" runs G t, C x and A x as three bf16
     # passes, "default" as one).
     run, run_plain = fused_proxqp.fused_proxqp_chunk, fused_proxqp.fused_proxqp_chunk_plain
+    wk = dict(stream_fn=pstream, extra=extra)
     high = variant(out, failures, "prox_chunk_high", run, run_plain, pargs,
                    dict(K=K_PROX, dot_precision="high"), prox_bytes,
-                   (0, 3 * prox_flops), witness_outs="xsyz")
+                   (0, 3 * prox_flops), witness_outs="xsyz", **wk)
     variant(out, failures, "prox_chunk_default", run, run_plain, pargs,
             dict(K=K_PROX, dot_precision="default"), prox_bytes,
-            (0, prox_flops), witness_outs="xsyz")
+            (0, prox_flops), witness_outs="xsyz", **wk)
     default_check("prox_chunk_default", run, run_plain, pargs, dict(K=K_PROX),
                   "xsyz", failures)
     variant(out, failures, "prox_chunk_lanes2", run, run_plain, pargs,
             dict(K=K_PROX, dot_precision="high", lanes=2), prox_bytes,
-            (0, 3 * prox_flops), same_as=high)
+            (0, 3 * prox_flops), same_as=high, **wk)
     del G, gv, pargs, pk, pp, pc, high
 
     # The M^{-1}-form prox chunk: M = P + sigma*I + rho(A'A + C'C).
@@ -1188,7 +1223,9 @@ def phase_kernels(torch, extra):
     variant(out, failures, "prox_chunk_minv_lanes2",
             fused_proxqp.fused_proxqp_chunk_minv,
             fused_proxqp.fused_proxqp_chunk_minv_plain, qargs,
-            dict(qkw, lanes=2), qbytes, (qflops, 0), same_as=qk, limit=True)
+            dict(qkw, lanes=2), qbytes, (qflops, 0), same_as=qk, limit=True,
+            stream_fn=fused_proxqp.fused_proxqp_chunk_minv_streaming,
+            extra=extra)
     del Minv, qargs, qk
     # The f64 witness at these penalties and at 7c's starting rho0 = 0.1.
     for rho_w, tag in ((rho, "rho 0.0125-0.025"),
@@ -1225,7 +1262,8 @@ def phase_kernels(torch, extra):
     variant(out, failures, "admm_chunk_minv_lanes2",
             fused_admm.fused_admm_chunk_minv,
             fused_admm.fused_admm_chunk_minv_plain, margs, dict(mkw, lanes=2),
-            mbytes, (mflops, 0), same_as=mk, limit=True)
+            mbytes, (mflops, 0), same_as=mk, limit=True,
+            stream_fn=fused_admm.fused_admm_chunk_minv_streaming, extra=extra)
     witness("phase 2 witness, rho 0.4", "admm_chunk_minv_cluster",
             fused_admm.fused_admm_chunk_minv_cluster,
             fused_admm.fused_admm_chunk_minv_plain, margs, mkw,
@@ -1258,6 +1296,79 @@ def admm_chunk_bound(B, n_act, K):
     nbytes = 4 * (n_act * N * M + B * M * N + B * (2 * N + 5 * M)
                   + B * (3 * N + 4 * M))
     return bound(nbytes, 4 * N * M * (n_act * K + B))
+
+
+def variant_pairs(torch, stream, cluster, occupancy, cases, args_of, kw, highest,
+                  work, failures, res):
+    """Phase 2b, rows 4c and 5c: each cluster variant (``cases``: name ->
+    (G source, keyword arguments)) of the one-kernel wrapper ``cluster``
+    beside ``stream``, the streaming kernel of the same variant (its
+    witness), at B=512 and B_REDESIGN with every lane active: bit for bit,
+    timed in turns (old, new, new, old), beside its bound (``work(b, kw)``
+    -> (bytes, FP32 FLOPs, bf16 FLOPs)) and the "highest" cluster kernel's
+    time at that B (``highest``: tag -> ms), with the clusters resident at
+    once (``occupancy(precision)``); at B_REDESIGN also what an iteration
+    costs a cluster (from K=1 against kw's K), the "highest" kernel's
+    beside it."""
+    K = kw["K"]
+
+    def iteration_us(ms, ms_k1, resident):
+        return (ms - ms_k1) / (K - 1) / (B_REDESIGN / resident) * 1e3
+
+    base = args_of("G")
+    top_k1 = cuda_ms(lambda: cluster(*base, **dict(kw, K=1)))
+    top_us = iteration_us(highest[f"b{B_REDESIGN}"], top_k1, occupancy("highest"))
+    for name, (src, vkw) in cases.items():
+        args, k = args_of(src), dict(kw, **vkw)
+        resident = occupancy(k.get("dot_precision", "highest"))
+        ref = stream(*args, **k)
+        for b in (B_KERNEL, B_REDESIGN):
+            sub = tuple(a[:b] for a in args)
+            kb = {key: v[:b] if torch.is_tensor(v) else v for key, v in k.items()}
+            bms, by = bound(*work(b, k))
+            ms_s, ms_c = in_turns(lambda: stream(*sub, **kb),
+                                  lambda: cluster(*sub, **kb))
+            same = all(torch.equal(u_, v_[:b])
+                       for u_, v_ in zip(cluster(*sub, **kb), ref))
+            if not same:
+                failures.append(f"phase 2b: {name} (B={b}) is not the "
+                                "streaming kernel's bits")
+            tag = f"b{b}" if b != B_KERNEL else "b512_all_active"
+            log(f"[phase 2b] B={b} {name} (every lane active): cluster "
+                f"{ms_c:.4f} ms, streaming {ms_s:.4f} ms ({ms_s / ms_c:.2f}x); "
+                f"\"highest\" cluster {highest[tag]:.4f} ms; bound {bms:.4f} ms "
+                f"({by}); {resident} clusters resident; bit for bit: {same}")
+            res.setdefault(name, {})[tag] = {
+                "ms": ms_c, "stream_ms": ms_s, "highest_cluster_ms": highest[tag],
+                "bound_ms": bms}
+        ms_k1 = cuda_ms(lambda: cluster(*args, **dict(k, K=1)))
+        it_us = iteration_us(res[name][f"b{B_REDESIGN}"]["ms"], ms_k1, resident)
+        log(f"[phase 2b] B={B_REDESIGN} {name}: K=1 {ms_k1:.4f} ms; a cluster's "
+            f"iteration {it_us:.3f} us against \"highest\"'s {top_us:.3f} us "
+            f"(K=1 {top_k1:.4f} ms)")
+        res[name][f"b{B_REDESIGN}"].update(k1_ms=ms_k1, iteration_us=it_us,
+                                           highest_iteration_us=top_us)
+        res[name]["clusters_resident"] = resident
+
+
+def admm_variant_work(b, kw):
+    """(bytes, FP32 FLOPs, bf16 FLOPs) of a sigma-free ADMM variant at B=b,
+    K_CHUNK, every lane active: admm_chunk_bound's bytes; "high" runs its
+    iterate products as three bf16 passes and its check products in FP32,
+    "default" all of them as one bf16 pass."""
+    nbytes = 4 * (b * N * M + b * M * N + b * (2 * N + 5 * M) + b * (3 * N + 4 * M))
+    it, chk = 4 * N * M * b * K_CHUNK, 4 * N * M * b
+    if kw.get("dot_precision") == "high":
+        return nbytes, chk, 3 * it
+    return nbytes, 0, it + chk
+
+
+def prox_variant_work(b, kw):
+    """(bytes, FP32 FLOPs, bf16 FLOPs) of a sigma-free prox variant at B=b,
+    K_PROX, every lane active: three bf16 passes at "high", one at
+    "default" (no product stays FP32)."""
+    nbytes, flops = prox_chunk_work(b, b, K_PROX)
+    return nbytes, 0, (3 if kw.get("dot_precision") == "high" else 1) * flops
 
 
 def admm_minv_work(B, n_act):
@@ -1300,10 +1411,13 @@ def phase_redesigns(torch):
     sigma-free prox chunk (K=25, phase 6's shape) from their factors, every
     lane active, each bit for bit its witness and timed in turns, at B=512
     and B=4096; each cluster chunk's clusters resident at once
-    (cudaOccupancyMaxActiveClusters). Returns each kernel's numbers for the
-    kernels JSON."""
+    (cudaOccupancyMaxActiveClusters); then rows 4c and 5c, each cluster
+    variant ("high" and "default" from G, "high" from the bf16 halves and
+    the slab window; prox "high" and "default") beside the streaming
+    kernel of the same variant (``variant_pairs``). Returns each kernel's
+    numbers for the kernels JSON."""
     from quadraticprogramsolver_tpu_torch.ops import (
-        fused_admm, fused_factor, fused_proxqp, spd_kernels)
+        fused_admm, fused_factor, fused_proxqp, linalg, spd_kernels)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
         device_random_qp_fleet)
     from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
@@ -1347,7 +1461,6 @@ def phase_redesigns(torch):
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
     G, gv = S[..., :M].contiguous(), S[..., M].contiguous()
-    del S
     x, z, y = (torch.randn((B, w), generator=g, device=DEVICE)
                for w in (N, M, M))
     act = torch.ones(B, dtype=torch.bool, device=DEVICE)
@@ -1379,7 +1492,18 @@ def phase_redesigns(torch):
         res.setdefault("admm_chunk_cluster", {})[tag] = {"ms": ms_c,
                                                          "bound_ms": bms}
     res["admm_chunk_cluster"]["clusters_resident"] = resident
-    del qp, G, gv, cargs, ref
+    highest = {t: v["ms"] for t, v in res["admm_chunk_cluster"].items()
+               if isinstance(v, dict)}
+    Ghi, Glo = linalg.bf16_split(G)
+    variant_pairs(
+        torch, stream, cluster, lambda prec: fused_admm.cluster_occupancy(N, M, prec),
+        {"admm_chunk_high": ("G", dict(dot_precision="high")),
+         "admm_chunk_default": ("G", dict(dot_precision="default")),
+         "admm_chunk_split": ("split", dict(dot_precision="high", Glo=Glo)),
+         "admm_chunk_slab": ("slab", dict(dot_precision="high", slab=True))},
+        lambda src: ({"G": G, "split": Ghi, "slab": S}[src], *cargs[1:]), kw,
+        highest, admm_variant_work, failures, res)
+    del qp, S, G, gv, Ghi, Glo, cargs, ref
 
     prob = device_prox_fleet(B, N, ME, MI, generator=g)
     r = 0.0125 * (1.0 + torch.rand(B, generator=g, device=DEVICE))
@@ -1427,6 +1551,15 @@ def phase_redesigns(torch):
         res.setdefault("prox_chunk_cluster", {})[tag] = {"ms": ms_c,
                                                          "bound_ms": bms}
     res["prox_chunk_cluster"]["clusters_resident"] = resident
+    highest = {t: v["ms"] for t, v in res["prox_chunk_cluster"].items()
+               if isinstance(v, dict)}
+    variant_pairs(
+        torch, stream, cluster,
+        lambda prec: fused_proxqp.cluster_occupancy(N, ME, MI, prec),
+        {"prox_chunk_high": ("G", dict(dot_precision="high")),
+         "prox_chunk_default": ("G", dict(dot_precision="default"))},
+        lambda src: pargs, dict(K=K_PROX), highest, prox_variant_work,
+        failures, res)
     del prob, G, gv, pargs, ref, it
     for name, numbers in minv_redesigns(torch, failures).items():
         res.setdefault(name, {}).update(numbers)
@@ -1527,7 +1660,7 @@ def time_chunks(torch):
     main path's shapes (B=4096, every lane active; ADMM n=512, m=256, K=11
     from its slab; prox n=512, me = mi = 128, K=25), kernel ms (median of
     5, CUDA events); the variants through the solver's dispatch (the
-    cluster chunks at none of them)."""
+    cluster chunks at every one of them)."""
     from quadraticprogramsolver_tpu_torch.ops import (
         fused_admm, fused_factor, fused_proxqp, linalg)
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
@@ -2130,7 +2263,9 @@ def phase_minv(torch, pkg, cnt, profile):
 
 def read_variants(cnt, name, want, label):
     """Launches of each variant of chunk ``name`` in one counted run; every
-    variant in ``want`` must have launched, and every launch is a variant."""
+    variant in ``want`` must have launched, every launch is a variant, and
+    every one ran a cluster kernel (its key ends in ",cluster"): the stacks'
+    lanes fit one."""
     variants = dict(cnt[name].variants)
     log(f"[{label}] {name} launches by variant: {variants}")
     require(all(variants.get(k, 0) > 0 for k in want),
@@ -2138,7 +2273,47 @@ def read_variants(cnt, name, want, label):
             f"expected {want}")
     require(sum(variants.values()) == cnt[name].launches,
             f"{label}: {name} launches outside its variants")
+    require(all(k.endswith(",cluster") for k in variants),
+            f"{label}: a {name} launch streamed: {variants}")
     return variants
+
+
+@contextlib.contextmanager
+def streaming_witness(cnt, name, label):
+    """Inside the block every chunk of both families runs its streaming
+    kernel, the cluster kernels' witness: each module's dispatch rules
+    (``chunk_kernel``, ``minv_chunk_kernel``) answer "stream" (this script
+    alone does this; no solver can). The block's launches of chunk ``name``
+    are counted apart, reset before and read after it, and every one must
+    have streamed (no ",cluster" key)."""
+    from quadraticprogramsolver_tpu_torch.ops import fused_admm, fused_proxqp
+
+    saved = [(mod, rule, getattr(mod, rule)) for mod in (fused_admm, fused_proxqp)
+             for rule in ("chunk_kernel", "minv_chunk_kernel")]
+    reset(cnt)
+    for mod, rule, _ in saved:
+        setattr(mod, rule, lambda *a, **k: "stream")
+    try:
+        yield
+    finally:
+        for mod, rule, fn in saved:
+            setattr(mod, rule, fn)
+    variants = dict(cnt[name].variants)
+    log(f"[{label}] witness solve: {name} launches by variant {variants}")
+    require(variants and not any(k.endswith(",cluster") for k in variants),
+            f"{label}: the witness solve did not stream: {variants}")
+    reset(cnt)
+
+
+def same_solve(a, b, label):
+    """The cluster solve ``a`` against its streaming witness ``b``: the same
+    statuses and iterations, x bit for bit."""
+    dx = float((a.x - b.x).abs().max())
+    same = (bool((a.info.status == b.info.status).all())
+            and bool((a.info.iterations == b.info.iterations).all()) and dx == 0.0)
+    log(f"[{label}] cluster chunks against their streaming witness: statuses "
+        f"and iterations equal, max |dx| {dx:.3e}: {same}")
+    require(same, f"{label}: the cluster chunks changed the solve")
 
 
 #: Phase 8: bench.py's tuned stacks (bench.py:200-206 headline_settings on
@@ -2148,15 +2323,16 @@ SLAB_SETTINGS = dict(slab_cache=True, chunk_lanes=2, chunk_dot_precision="high",
                      first_chunk_dot_precision="default")
 STACKS = {
     "8a slab_settings": ((N, M), SLAB_SETTINGS,
-                         ("default,slab,lanes2", "high,slab,lanes2")),
+                         ("default,slab,lanes2,cluster", "high,slab,lanes2,cluster")),
     "8b slab_hi": ((N, M), dict(slab_cache=True, chunk_lanes=4,
                                 first_chunk_dot_precision="default"),
-                   ("default,slab,lanes4", "highest,slab,lanes4")),
+                   ("default,slab,lanes4,cluster", "highest,slab,lanes4,cluster")),
     "8c split_cache": ((N, M), dict(split_cache=True, chunk_lanes=2,
                                     chunk_dot_precision="high"),
-                       ("high,split,lanes2",)),
+                       ("high,split,lanes2,cluster",)),
     "8d baseline_shape 500/250": ((500, 250), SLAB_SETTINGS,
-                                  ("default,slab,lanes2", "high,slab,lanes2")),
+                                  ("default,slab,lanes2,cluster",
+                                   "high,slab,lanes2,cluster")),
 }
 #: The prox headline stack (benchmarks/proxqp_fleet.py --headline).
 PROX_HEADLINE = dict(max_iterations=2000, rho=0.0125, adaptive_rho=False,
@@ -2213,7 +2389,12 @@ def phase_stacks(torch, pkg, cnt, profile):
         report_solve(qp, sol, dt, fdt, f"phase {tag}, eps {eps:.0e}")
         log(f"[phase {tag}] eps {eps:.0e}, audit {dev:.3e}, peak device "
             f"memory {peak:.2f} GB")
-        del sol
+        with streaming_witness(cnt, "admm_chunk", f"phase {tag}"):
+            wsol, wdt = run_main(torch, lambda: pkg.solve(qp, settings))
+        log(f"[phase {tag}] streaming witness solve {wdt * 1e3:.2f} ms "
+            f"(best of 3) against the cluster solve's {dt * 1e3:.2f} ms")
+        same_solve(sol, wsol, f"phase {tag}")
+        del sol, wsol
         runs[tag[:2]] = {"kernels": counts, "variants": variants}
         if profile and tag.startswith("8a"):
             profile_solve(torch, lambda: pkg.solve(qp, settings), "phase 8a profile")
@@ -2231,9 +2412,8 @@ def phase_stacks(torch, pkg, cnt, profile):
         torch.cuda.synchronize()
         counts = read(cnt, PROX_PATH, label)
         variants = read_variants(cnt, "prox_chunk",
-                                 ("default,lanes2", "high,lanes2"), label)
-        require(not any(k.endswith(",cluster") for k in variants),
-                f"{label}: the headline stack's chunks must stream: {variants}")
+                                 ("default,lanes2,cluster", "high,lanes2,cluster"),
+                                 label)
         peak = torch.cuda.max_memory_allocated() / 1e9
         report_prox(prob, sol, None, None, f"{label} counted")
         dev = prox_audit(pkg, prob, sol, label)
@@ -2247,23 +2427,29 @@ def phase_stacks(torch, pkg, cnt, profile):
     report_prox(prob, sol, dt, fdt, f"phase 8e prox headline, eps {eps:.0e}")
     log(f"[phase 8e] eps {eps:.0e}, audit {dev:.3e}, peak device memory "
         f"{peak:.2f} GB")
-    del sol
+    with streaming_witness(cnt, "prox_chunk", "phase 8e"):
+        wsol, wdt = run_main(torch, lambda: pkg.solve_proxqp(prob, settings))
+    log(f"[phase 8e] streaming witness solve {wdt * 1e3:.2f} ms (best of 3) "
+        f"against the cluster solve's {dt * 1e3:.2f} ms")
+    same_solve(sol, wsol, "phase 8e")
+    del sol, wsol
     runs["8e"] = {"kernels": counts, "variants": variants}
     if profile:
         profile_solve(torch, lambda: pkg.solve_proxqp(prob, settings),
                       "phase 8e profile")
     del prob
-    runs.update(phase_minv_lanes(torch, pkg, cnt))
+    runs.update(phase_minv_lanes(torch, pkg, cnt, profile))
     return runs
 
 
-def phase_minv_lanes(torch, pkg, cnt):
+def phase_minv_lanes(torch, pkg, cnt, profile):
     """8f, 8g: phase 7b's and 7c's stacks (at the eps their audits passed)
-    with chunk_lanes=2 against chunk_lanes=1, each timed in this call: the
-    same statuses and iterations, the same x bit for bit. Lanes 1 runs the
-    M^{-1} cluster kernels and lanes 2 the streaming ones (every launch
-    under its key), so this holds the cluster kernels to their witnesses
-    through whole solves."""
+    with chunk_lanes=2 against chunk_lanes=1, each timed in this call, and
+    the lanes-2 solve again with every chunk on its streaming witness
+    (``streaming_witness``): the same statuses and iterations, the same x
+    bit for bit. Both lane counts run the M^{-1} cluster kernels (every
+    launch under its ",cluster" key), so this holds them to their witnesses
+    through whole solves. ``profile`` traces 8f's lanes-2 solve."""
     from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
         device_random_qp_fleet)
     from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
@@ -2294,8 +2480,7 @@ def phase_minv_lanes(torch, pkg, cnt):
             sols[lanes] = solve(fleet, settings)
             torch.cuda.synchronize()
             counts = read(cnt, path, label)
-            # Lanes 1 runs the cluster kernel, lanes 2 the streaming one.
-            want = "lanes1,cluster" if lanes == 1 else f"lanes{lanes}"
+            want = f"lanes{lanes},cluster"
             variants = read_variants(cnt, name, (want,), label)
             require(set(variants) == {want},
                     f"{label}: expected only {want} launches; got {variants}")
@@ -2305,14 +2490,23 @@ def phase_minv_lanes(torch, pkg, cnt):
                 f"{info.status.numel() / dt:.1f} solves/s, iterations p50 "
                 f"{float(info.iterations.float().median()):.0f} max "
                 f"{int(info.iterations.max())}")
+        with streaming_witness(cnt, name, f"phase {tag}"):
+            wsol = solve(fleet, settings)
+            _, wdt = run_main(torch, lambda: solve(fleet, settings))
+        log(f"[phase {tag} {name} lanes 2] streaming witness solve "
+            f"{wdt * 1e3:.2f} ms (best of 3)")
         a, b = sols[1], sols[2]
         dx = float((a.x - b.x).abs().max())
         log(f"[phase {tag}] lanes 2 vs lanes 1: max |dx| {dx:.3e}")
         require(torch.equal(a.info.status, b.info.status)
                 and torch.equal(a.info.iterations, b.info.iterations)
                 and dx == 0.0, f"phase {tag}: lanes 2 changed the solve")
+        same_solve(b, wsol, f"phase {tag}")
+        if profile and tag == "8f":
+            profile_solve(torch, lambda: solve(fleet, settings),
+                          "phase 8f profile")
         runs[tag] = {"kernels": counts, "variants": variants}
-        del sols, a, b
+        del sols, a, b, wsol
     return runs
 
 
@@ -3155,7 +3349,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"{PKG}/{src}",
                 "replaces": rep, "variant_of": base, "stack": f"phase {stack}",
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                "bound_ms": bms, "bound_by": by, "library_ms": lms}
+                "bound_ms": bms, "bound_by": by, "library_ms": lms,
+                **extra.get(name, {})}
 
     def factor_entry(name, src, rep, stack, key):
         err, ms, pms, lms, (bms, by) = kstats[name]

@@ -6,6 +6,7 @@ that two checkouts can be compared on one card in turns.
     git archive <parent> | tar -x -C _archive/parent   # a git-ignored directory
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r; done
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --minv; done
+    for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --stacks; done
 
 Each run builds ROOT's kernels, generates phase 3's fleet (B=4096, n=512,
 m=256, seed 1234, the sigma-free fused FP32 knobs at static rho 0.4, eps
@@ -17,8 +18,14 @@ device memory of the warm call. ``--minv`` takes phase 7b's fleet (B=2048,
 and 7c's (B=2048, 512/128/128, seed 1236, rho0 0.1 adaptive, refinement
 1, check_interval 50, eps 2e-5, where its audit passes) instead, each also
 profiled once after a warm-up step: the M^{-1} chunk kernels' device
-time, every kernel's device time and the chunk's launches. Needs a CUDA
-card.
+time, every kernel's device time and the chunk's launches. ``--stacks``
+takes chip_smoke.py's phase-8 stacks instead, each at the eps where its
+audit passes: 8a-8c bench.py's ``slab_settings``, ``slab_hi`` and the split
+stack on phase 3's fleet, 8d ``slab_settings`` on the 500/250 fleet (seed
+1234), 8e the ``proxqp_fleet.py --headline`` stack on phase 6's fleet (eps
+5e-5), 8f and 8g phase 7b's and 7c's stacks at ``chunk_lanes=2``; each
+solve's best of 3 after a warm call and its peak device memory. Needs a
+CUDA card.
 """
 
 import json
@@ -69,6 +76,56 @@ def chunk_profile(torch, fn):
     return chunk, launches, total
 
 
+def stacks(torch, pkg, run):
+    """The phase-8 stacks through ``run(tag, solve)``."""
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    base = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
+                check_interval=11, kkt_refinement_steps=0, sigma_free_rhs=True,
+                fused_factor=True, fused_chunk=True, require_fused=True,
+                adaptive_rho=False)
+    slab = dict(slab_cache=True, chunk_lanes=2, chunk_dot_precision="high",
+                first_chunk_dot_precision="default")
+    knobs = {"8a": slab,
+             "8b": dict(slab_cache=True, chunk_lanes=4,
+                        first_chunk_dot_precision="default"),
+             "8c": dict(split_cache=True, chunk_lanes=2, chunk_dot_precision="high"),
+             "8d": slab}
+    for n, m, tags in ((512, 256, ("8a", "8b", "8c")), (500, 250, ("8d",))):
+        g = torch.Generator(device="cuda").manual_seed(1234)
+        qp = device_random_qp_fleet(4096, n, m, generator=g)
+        for tag in tags:
+            st = pkg.Settings(**base, **knobs[tag])
+            run(tag, lambda: pkg.solve(qp, st))
+        del qp
+    g = torch.Generator(device="cuda").manual_seed(1236)
+    prob = device_prox_fleet(4096, 512, 128, 128, generator=g)
+    ps = pkg.ProxQPSettings(max_iterations=2000, eps_abs=5e-5, eps_rel=5e-5,
+                            rho=0.0125, adaptive_rho=False, check_interval=25,
+                            kkt_warm_start=False, kkt_refinement_steps=0,
+                            sigma_free_rhs=True, fused_chunk=True, chunk_lanes=2,
+                            chunk_dot_precision="high",
+                            first_chunk_dot_precision="default", require_fused=True)
+    run("8e", lambda: pkg.solve_proxqp(prob, ps))
+    del prob
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    qp = device_random_qp_fleet(2048, 512, 256, generator=g)
+    st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                      fused_chunk=True, require_fused=True, chunk_lanes=2)
+    run("8f", lambda: pkg.solve(qp, st))
+    del qp
+    g = torch.Generator(device="cuda").manual_seed(1236)
+    prob = device_prox_fleet(2048, 512, 128, 128, generator=g)
+    ps = pkg.ProxQPSettings(max_iterations=2000, eps_abs=2e-5, eps_rel=2e-5,
+                            rho=0.1, adaptive_rho=True, kkt_refinement_steps=1,
+                            check_interval=50, kkt_warm_start=False,
+                            fused_chunk=True, require_fused=True, chunk_lanes=2)
+    run("8g", lambda: pkg.solve_proxqp(prob, ps))
+
+
 def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     root = os.path.abspath(args[0] if args else ".")
@@ -91,24 +148,28 @@ def main() -> int:
     out = {"root": args[0] if args else ".",
            "device": torch.cuda.get_device_name(0)}
 
-    def run(tag, solve, factor=None):
+    def run(tag, solve, factor=None, profile=False):
         torch.cuda.reset_peak_memory_stats()
         solve()
         torch.cuda.synchronize()
         out[f"{tag}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out[f"{tag}_solve_ms"] = best_ms(torch, solve, 3)
-        if factor is None:
+        if profile:
             (out[f"{tag}_chunk_ms"], out[f"{tag}_chunk_launches"],
              out[f"{tag}_device_ms"]) = chunk_profile(torch, solve)
-        else:
+        if factor is not None:
             out[f"{tag}_factor_ms"] = best_ms(torch, factor, 4)
 
+    if "--stacks" in sys.argv[1:]:
+        stacks(torch, pkg, run)
+        print(json.dumps(out), flush=True)
+        return 0
     if "--minv" in sys.argv[1:]:
         g = torch.Generator(device="cuda").manual_seed(1234)
         qp = device_random_qp_fleet(2048, 512, 256, generator=g)
         st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
                           fused_chunk=True, require_fused=True)
-        run("phase7b", lambda: pkg.solve(qp, st))
+        run("phase7b", lambda: pkg.solve(qp, st), profile=True)
         del qp
         g = torch.Generator(device="cuda").manual_seed(1236)
         prob = device_prox_fleet(2048, 512, 128, 128, generator=g)
@@ -116,7 +177,7 @@ def main() -> int:
                                 rho=0.1, adaptive_rho=True, kkt_refinement_steps=1,
                                 check_interval=50, kkt_warm_start=False,
                                 fused_chunk=True, require_fused=True)
-        run("phase7c", lambda: pkg.solve_proxqp(prob, ps))
+        run("phase7c", lambda: pkg.solve_proxqp(prob, ps), profile=True)
         print(json.dumps(out), flush=True)
         return 0
     g = torch.Generator(device="cuda").manual_seed(1234)

@@ -43,11 +43,11 @@ _SIGNATURES = {
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     "qps_slab_level_strip": (_P, _P, _I, _I, _I, _I, _I, _P),
     "qps_admm_chunk": (_P,) * 19 + (_I,) * 7 + (_F, _P),
-    "qps_admm_chunk_cluster": (_P,) * 17 + (_I,) * 5 + (_F, _P),
-    "qps_admm_chunk_cluster_occupancy": (_I, _I, _P),
+    "qps_admm_chunk_cluster": (_P,) * 19 + (_I,) * 6 + (_F, _P),
+    "qps_admm_chunk_cluster_occupancy": (_I, _I, _I, _P),
     "qps_prox_chunk": (_P,) * 16 + (_I,) * 7 + (_P,),
-    "qps_prox_chunk_cluster": (_P,) * 16 + (_I,) * 5 + (_P,),
-    "qps_prox_chunk_cluster_occupancy": (_I, _I, _P),
+    "qps_prox_chunk_cluster": (_P,) * 16 + (_I,) * 6 + (_P,),
+    "qps_prox_chunk_cluster_occupancy": (_I, _I, _I, _P),
     "qps_admm_chunk_minv": (_P,) * 18 + (_I,) * 6 + (_F, _F, _P),
     "qps_prox_chunk_minv": (_P,) * 17 + (_I,) * 7 + (_F, _P),
     "qps_admm_chunk_minv_cluster": (_P,) * 18 + (_I,) * 5 + (_F, _F, _P),

@@ -30,8 +30,10 @@
 // 16-byte coalesced loads and a shuffle reduction (common.cuh: rows_dot);
 // __syncthreads() separates the dependent products. A'y is a column
 // reduction (cols_dot). Each CTA reads its lanes' active flags (the TPU
-// kernel's scalar prefetch). Keeping G resident across a cluster is later
-// work.
+// kernel's scalar prefetch). Where a lane fits a thread-block cluster the
+// solver runs admm_chunk_cluster.cu instead, which holds G and A on chip
+// in every variant below (the same bits); this kernel serves the other
+// shapes and is that kernel's witness.
 //
 // What each TPU knob means here (none changes the bytes streamed):
 //   lanes: L lanes per CTA, grid B / L. Each stage issues the row dots of
@@ -323,10 +325,11 @@ extern "C" int qps_admm_chunk(const float* G, const void* Ghi, const void* Glo,
 // lane. Design: that of the sigma-free kernel, one CTA of 8 warps for all K
 // iterations, vectors in shared memory, every matrix streamed from device
 // memory each time it is used: row products one warp per row (warp_rows_dot),
-// A' products as column reductions with 16-byte loads (cols_dot). At lanes 1
-// the solver runs admm_chunk_minv_cluster.cu instead, which holds Minv, A
-// and P on chip across a cluster (the same bits); this kernel serves lanes
-// >= 2, the other shapes, and is that kernel's witness.
+// A' products as column reductions with 16-byte loads (cols_dot). Where a
+// lane fits a cluster, at any lanes, the solver runs
+// admm_chunk_minv_cluster.cu instead, which holds Minv, A and P on chip
+// across a cluster (the same bits); this kernel serves the other shapes
+// and is that kernel's witness.
 namespace {
 __host__ __device__ constexpr int minv_lane_floats(int n, int m) { return 6 * n + 8 * m; }
 

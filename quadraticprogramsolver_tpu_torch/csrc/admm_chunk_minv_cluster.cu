@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel quadraticprogramsolver_tpu/ops/fused_admm.py:
 // _chunk_kernel, M^{-1} branch with its refinement loop (fused_admm.py:71-79,
-// 167-178) at lanes 1, which admm_chunk.cu's admm_chunk_minv_kernel also runs
-// (and runs still at lanes >= 2). Per lane and iteration, with M = P +
+// 167-178) at every `lanes` (one lane a cluster: the outputs do not depend
+// on how JAX interleaves lanes), which admm_chunk.cu's admm_chunk_minv_kernel
+// also runs (and runs still at the shapes that do not fit a cluster). Per
+// lane and iteration, with M = P +
 // sigma*I + A' diag(rho) A and its cached inverse Minv:
 //
 //   t   = rho*z - y

@@ -5,8 +5,10 @@
 // the M^{-1} form, shared memory), vectors exchanged between the CTAs with
 // st.async into distributed shared memory and counted by the receiver's
 // mbarrier, matrix rows brought into shared memory by cp.async; the row dots
-// in rows_dot's order (reg_dot, smem_dot) and the A' products in cols_dot's
-// at the streaming chunks' 256 threads (col_chains, col_sum).
+// in rows_dot's order (reg_dot, smem_dot; at the sigma-free chunks' bf16
+// precisions reg_dots over the operand forms of common.cuh's Prec) and the
+// A' products in cols_dot's at the streaming chunks' 256 threads
+// (col_chains, col_sum).
 
 #pragma once
 
@@ -57,10 +59,21 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 
 // Stores v[0..W) at the cluster address `a` and counts their bytes on the
 // receiver's mbarrier `bar` (a cluster address too): one 8- or 16-byte
-// store for W = 2 or 4 (a aligned to it), else W 4-byte stores.
+// store for W = 2 or 4 (a aligned to it), two 16-byte stores for W = 8 (a
+// 16-byte aligned), three 8-byte ones for W = 6 (a 8-byte aligned), else W
+// 4-byte stores.
 template <int W>
 __device__ __forceinline__ void send(unsigned a, const float (&v)[W], unsigned bar) {
-  if constexpr (W == 4) {
+  if constexpr (W == 8 || W == 6) {  // bf16x3 operand pairs: 2 v4 or 3 v2
+    constexpr int S = W == 8 ? 4 : 2;
+#pragma unroll
+    for (int q = 0; q < W / S; ++q) {
+      float part[S];
+#pragma unroll
+      for (int e = 0; e < S; ++e) part[e] = v[q * S + e];
+      send(a + 4 * S * q, part, bar);
+    }
+  } else if constexpr (W == 4) {
     asm volatile(
         "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
         "[%5];\n" ::"r"(a),
@@ -135,6 +148,148 @@ __device__ __forceinline__ float reg_dot(const float4 (&row)[KW], const float* v
     s = fmaf(a.w, b.w, s);
   }
   return warp_sum(s);
+}
+
+// The sigma-free cluster chunks' operand forms at precision P (common.cuh:
+// Prec). A matrix row held in registers is, element for element, the f32
+// value at kHighest, its bf16 rounding at kDefault, and at kHigh its two
+// bf16 halves packed into one 32-bit word (the high half's bits in the low
+// 16, the low half's in the high 16: __nv_bfloat162 order), split once a
+// lane as the row moves into registers. A vector in an exchange buffer is
+// likewise v, bf16(v), or at kHigh the interleaved pair (vh, vl) of each
+// element (2 floats an element), written by its sender (operand_pairs).
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+// a's packed halves: ah = bf16(a), al = bf16(a - ah) (split_store's).
+__device__ __forceinline__ float pack_halves(float a) {
+  const float h = bf16r(a);
+  return __uint_as_float(bf16_bits(h) | (bf16_bits(a - h) << 16));
+}
+
+// The register form at precision P of four f32 matrix elements.
+template <Prec P>
+__device__ __forceinline__ float4 row_operand(float4 a) {
+  if constexpr (P == Prec::kHighest) {
+    return a;
+  } else if constexpr (P == Prec::kDefault) {
+    return make_float4(bf16r(a.x), bf16r(a.y), bf16r(a.z), bf16r(a.w));
+  } else {
+    return make_float4(pack_halves(a.x), pack_halves(a.y), pack_halves(a.z),
+                       pack_halves(a.w));
+  }
+}
+
+// A warp's R register rows in their operand form at P: row r's float4s
+// lane + 32 k at base + (row0 + r) * pitch (shared memory). Below
+// kHighest the elements are converted in place first, each by the thread
+// that then reads it back, so no other thread is involved; the compiler
+// barrier between makes the rows come back from shared memory, and the
+// conversion's temporaries do not compete with the rows for registers.
+template <Prec P, int R, int KW>
+__device__ __forceinline__ void load_reg_rows(float4 (&rows)[R][KW], float* base,
+                                              int pitch, int row0, int lane) {
+  if constexpr (P != Prec::kHighest) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int k = 0; k < KW; ++k) {
+        float4* e = reinterpret_cast<float4*>(base + (row0 + r) * pitch) + lane + 32 * k;
+        *e = row_operand<P>(*e);
+      }
+    asm volatile("" ::: "memory");
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int k = 0; k < KW; ++k)
+      rows[r][k] = reinterpret_cast<const float4*>(base + (row0 + r) * pitch)[lane + 32 * k];
+}
+
+// The packed form of four elements that arrive split: h and l hold four
+// bf16 high and low halves each (element 0 in the low bits).
+__device__ __forceinline__ float4 pack_split(uint2 h, uint2 l) {
+  return make_float4(__uint_as_float(__byte_perm(h.x, l.x, 0x5410)),
+                     __uint_as_float(__byte_perm(h.x, l.x, 0x7632)),
+                     __uint_as_float(__byte_perm(h.y, l.y, 0x5410)),
+                     __uint_as_float(__byte_perm(h.y, l.y, 0x7632)));
+}
+
+// Floats an element of a vector takes in an exchange buffer at P.
+template <Prec P>
+__host__ __device__ constexpr int operand_width() {
+  return P == Prec::kHigh ? 2 : 1;
+}
+
+// The exchange form at precision P of W f32 values (split_store's halves
+// at kHigh, interleaved: out[2e] = vh, out[2e + 1] = vl).
+template <Prec P, int W>
+__device__ __forceinline__ void operand_pairs(const float (&v)[W],
+                                              float (&out)[W * operand_width<P>()]) {
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    if constexpr (P == Prec::kHighest) {
+      out[e] = v[e];
+    } else if constexpr (P == Prec::kDefault) {
+      out[e] = bf16r(v[e]);
+    } else {
+      const float h = bf16r(v[e]);
+      out[2 * e] = h;
+      out[2 * e + 1] = bf16r(v[e] - h);
+    }
+  }
+}
+
+// s + the bf16x3 product of a register element w with the pair (vh, vl),
+// in rows_dot<kHigh>'s order (fma3): w packed (row_operand), or with
+// SPLIT_AT_USE an f32 element split here, as madd<kHigh> splits it.
+template <bool SPLIT_AT_USE>
+__device__ __forceinline__ float fma3_elem(float w, float vh, float vl, float s) {
+  if constexpr (SPLIT_AT_USE) {
+    const float h = bf16r(w);
+    return fma3(h, bf16r(w - h), vh, vl, s);
+  } else {
+    const unsigned u = __float_as_uint(w);
+    return fma3(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u), vh, vl, s);
+  }
+}
+
+// reg_dot at precision P for each of a warp's NR register rows (in their
+// operand form, row_operand) against the exchange buffer v (in its,
+// operand_pairs), into out[0..NR): rows_dot<P>'s lane mapping, element
+// order and shuffle tree, so rows_dot<P>'s bits. With SPLIT_AT_USE (kHigh
+// only) the rows hold f32 elements, split as they are used, as
+// rows_dot<kHigh> splits the elements it loads. At kHigh the rows advance
+// together, chunk by chunk, so that a chunk's pairs (twice the floats of
+// an f32 chunk) are read once and dropped rather than held for every row;
+// each row's sum keeps its own order.
+template <Prec P, bool SPLIT_AT_USE = false, int NR, int KW>
+__device__ __forceinline__ void reg_dots(const float4 (&rows)[NR][KW], const float* v,
+                                         int lane, float (&out)[NR]) {
+  if constexpr (P != Prec::kHigh) {
+#pragma unroll
+    for (int q = 0; q < NR; ++q) out[q] = reg_dot(rows[q], v, lane);
+  } else {
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    float s[NR];
+#pragma unroll
+    for (int q = 0; q < NR; ++q) s[q] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KW; ++k) {
+      const float4 b0 = v4[2 * (lane + 32 * k)], b1 = v4[2 * (lane + 32 * k) + 1];
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        const float4 a = rows[q][k];
+        s[q] = fma3_elem<SPLIT_AT_USE>(a.x, b0.x, b0.y, s[q]);
+        s[q] = fma3_elem<SPLIT_AT_USE>(a.y, b0.z, b0.w, s[q]);
+        s[q] = fma3_elem<SPLIT_AT_USE>(a.z, b1.x, b1.y, s[q]);
+        s[q] = fma3_elem<SPLIT_AT_USE>(a.w, b1.z, b1.w, s[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NR; ++q) out[q] = warp_sum(s[q]);
+  }
 }
 
 // reg_dot with the row in shared memory (the same float4s, the same order).

@@ -34,7 +34,10 @@
 // lane's bits those of L = 1; "high" = G t, C x and A x as bf16x3 (matrix
 // elements split in registers, t and x split once per iteration in shared
 // memory; fused_proxqp.py:93-164); "default" = the same three products at
-// one bf16 pass (fused_proxqp.py:85-91).
+// one bf16 pass (fused_proxqp.py:85-91). Where a lane fits a thread-block
+// cluster the solver runs prox_chunk_cluster.cu instead, which holds G, A
+// and C on chip in every variant (the same bits); this kernel serves the
+// other shapes and is that kernel's witness.
 
 #include "common.cuh"
 
@@ -264,10 +267,10 @@ extern "C" int qps_prox_chunk(const float* G, const float* A, const float* C,
 // me = mi = 128. Design: that of the sigma-free kernel (one CTA of 8 warps for
 // all K iterations, vectors in shared memory, every matrix streamed each time
 // it is used), with the A' and C' products as column reductions (cols_dot).
-// Frozen lanes pass their inputs through bit for bit. At lanes 1 the solver
-// runs prox_chunk_minv_cluster.cu instead (Minv, [A; C] and P on chip across
-// a cluster, the same bits); this kernel serves lanes >= 2, the other
-// shapes, and is that kernel's witness.
+// Frozen lanes pass their inputs through bit for bit. Where a lane fits a
+// cluster, at any lanes, the solver runs prox_chunk_minv_cluster.cu instead
+// (Minv, [A; C] and P on chip across a cluster, the same bits); this kernel
+// serves the other shapes and is that kernel's witness.
 namespace {
 __host__ __device__ constexpr int minv_lane_floats(int n, int me, int mi) {
   return 4 * n + 4 * me + 5 * mi;

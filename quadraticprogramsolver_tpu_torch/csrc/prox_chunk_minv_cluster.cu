@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel quadraticprogramsolver_tpu/ops/fused_proxqp.py:
 // _chunk_kernel, M^{-1} branch with its refinement loop (fused_proxqp.py:
-// 45-53, 141-157) at lanes 1, which prox_chunk.cu's prox_chunk_minv_kernel
-// also runs (and runs still at lanes >= 2). Per lane and iteration, with one
+// 45-53, 141-157) at every `lanes` (one lane a cluster: the outputs do not
+// depend on how JAX interleaves lanes), which prox_chunk.cu's
+// prox_chunk_minv_kernel also runs (and runs still at the shapes that do not
+// fit a cluster). Per lane and iteration, with one
 // scalar rho, M = P + sigma*I + rho(A'A + C'C) and its cached inverse Minv:
 //
 //   r = -q + sigma*x + A'(rho*b - y) + C'(rho*(d - s) - z)

@@ -74,7 +74,7 @@ def _require_dense(prob) -> None:
     if not isinstance(prob, ProxQPProblem):
         raise NotImplementedError(
             "the matrix-free (SparseProxQP) prox path is not implemented by "
-            "the PyTorch port yet (ROADMAP Queue 1 item 10)")
+            "the PyTorch port yet (ROADMAP Queue 1 item 6)")
 
 
 def _bcast(t: torch.Tensor, batch, *shape) -> torch.Tensor:
@@ -109,7 +109,7 @@ def warm_start_operator(prob, settings: ProxQPSettings):
     """The matrix-free warm start (Jacobi-CG) is not ported yet."""
     raise NotImplementedError(
         "warm_start_operator belongs to the matrix-free prox path, which the "
-        "PyTorch port does not implement yet (ROADMAP Queue 1 item 10)")
+        "PyTorch port does not implement yet (ROADMAP Queue 1 item 6)")
 
 
 def _gram(prob: ProxQPProblem) -> torch.Tensor:

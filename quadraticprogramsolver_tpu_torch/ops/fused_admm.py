@@ -16,20 +16,21 @@ a CPU tensor it runs its plain version, which rounds to bf16 only float32
 operands (float64 runs in full, as the JAX package's f64 solve does) and
 runs any lane grouping as lanes=1 (the kernels give the same bits).
 
-A sigma-free launch at "highest", lanes 1, from a contiguous G or the slab
-window whose lane fits a cluster (:func:`chunk_kernel`) runs the cluster
-kernel, csrc/admm_chunk_cluster.cu, which holds each lane's G and A in the
-registers of a cluster of :data:`CLUSTER` CTAs for all K iterations; every
-other variant streams them (admm_chunk.cu). Both give the same bits.
+A sigma-free launch whose lane fits a cluster (:func:`chunk_kernel`), at
+any ``lanes``, precision and G source, runs the cluster kernel,
+csrc/admm_chunk_cluster.cu, which holds each lane's G and A in the
+registers of a cluster of :data:`CLUSTER` CTAs for all K iterations (one
+lane a cluster: ``lanes`` changes no bit, so it changes no kernel); the
+other shapes stream them (admm_chunk.cu). Both give the same bits.
 :func:`fused_admm_chunk_streaming` and :func:`fused_admm_chunk_cluster`
 launch one kernel whatever the rule says (each other's witness on the card).
 
-An M^{-1}-form launch at lanes 1 whose lane fits a cluster
-(:func:`minv_chunk_kernel`) runs csrc/admm_chunk_minv_cluster.cu, which
+An M^{-1}-form launch whose lane fits a cluster, at any ``lanes``
+(:func:`minv_chunk_kernel`), runs csrc/admm_chunk_minv_cluster.cu, which
 holds each lane's M^{-1} and A rows in a cluster's registers and A's
-columns and P's rows in its shared memory for all K iterations; lanes >= 2
-and other shapes stream them (admm_chunk.cu: admm_chunk_minv_kernel). Both
-give the same bits; :func:`fused_admm_chunk_minv_streaming` and
+columns and P's rows in its shared memory for all K iterations; other
+shapes stream them (admm_chunk.cu: admm_chunk_minv_kernel). Both give the
+same bits; :func:`fused_admm_chunk_minv_streaming` and
 :func:`fused_admm_chunk_minv_cluster` are the one-kernel witnesses.
 """
 
@@ -116,30 +117,36 @@ def _plain_chunk(kkt_solve, A, l, u, x, z, y, rho_row, active, *, K, alpha,
     return x, z, y, xp, zp, Ax, ATy
 
 
-def cluster_smem_bytes(n: int, m: int) -> int:
-    """Shared memory one CTA of the cluster chunk needs at (n, m): the next
+def cluster_smem_bytes(n: int, m: int, dot_precision: str = "highest") -> int:
+    """Shared memory one CTA of the cluster chunk needs at (n, m) and
+    ``dot_precision`` (the split source holds what "high" holds): the next
     lane's n/8 rows of G and m/8 rows of A and this lane's n/8 columns of A,
-    t and xx twice, the x and y gathers twice, its own vector rows, A'y's
-    partial sums and four mbarriers (csrc/admm_chunk_cluster.cu:
-    cluster_floats)."""
+    t and xx twice in their exchange form (two floats an element at
+    "high"), the x and y gathers twice, its own vector rows, A'y's partial
+    sums and four mbarriers (csrc/admm_chunk_cluster.cu: cluster_floats)."""
     nr, mr = n // CLUSTER, m // CLUSTER
     groups = 256 // (n // 4)
-    return 4 * (16 + 3 * nr * m + 4 * (m + n) + 3 * nr + 7 * mr + groups * nr)
+    width = 2 if dot_precision == "high" else 1
+    return 4 * (16 + 3 * nr * m + 2 * width * (m + n) + 2 * (m + n) + 3 * nr
+                + 7 * mr + groups * nr)
 
 
 def chunk_kernel(n: int, m: int, lanes: int, dot_precision: str, source: str,
                  smem_per_cta: int = SMEM_PER_CTA) -> str:
     """The kernel a sigma-free chunk launch runs: "cluster" (one lane per
     cluster of :data:`CLUSTER` CTAs, G and A held in registers, the next
-    lane's rows loaded into shared memory meanwhile) at ``dot_precision``
-    "highest", ``lanes`` 1 and ``source`` "G" (contiguous) or "slab" (the
-    window), when the lane fits the cluster (:func:`.cluster.fits`: n and
-    m multiples of 128 up to 512 with (n/128)(m/128) <= 8, and
-    :func:`cluster_smem_bytes` within ``smem_per_cta``); else "stream"
-    (admm_chunk.cu, the matrices read from device memory every
-    iteration)."""
-    if (dot_precision == "highest" and source in ("G", "slab") and lanes == 1
-            and fits(n, m, lambda: cluster_smem_bytes(n, m), smem_per_cta)):
+    lane's rows loaded into shared memory meanwhile) at every
+    ``dot_precision`` ("highest", "high", "default"), G ``source`` ("G"
+    contiguous, "slab" the window, "split" the bf16 halves) and ``lanes``
+    (ignored: one lane a cluster, and the outputs do not depend on it),
+    when the lane fits the cluster (:func:`.cluster.fits`: n and m
+    multiples of 128 up to 512 with (n/128)(m/128) <= 8, and
+    :func:`cluster_smem_bytes` at ``dot_precision`` within
+    ``smem_per_cta``); else "stream" (admm_chunk.cu, the matrices read
+    from device memory every iteration)."""
+    if (dot_precision in PRECISIONS and source in ("G", "slab", "split")
+            and fits(n, m, lambda: cluster_smem_bytes(n, m, dot_precision),
+                     smem_per_cta)):
         return "cluster"
     return "stream"
 
@@ -179,17 +186,16 @@ def _launch_sigma_free(wrapper, kernel, G, A, g, l, u, x, z, y, rho_row,
     vecs = (A.data_ptr(), g.data_ptr(), l.data_ptr(), u.data_ptr(),
             rho_row.data_ptr(), x.data_ptr(), z.data_ptr(), y.data_ptr(),
             act.data_ptr(), *(o.data_ptr() for o in outs))
+    ptrs = (None if split else G.data_ptr(), G.data_ptr() if split else None,
+            Glo.data_ptr() if split else None, *vecs, B, n, m, G.shape[-1], K)
     if kernel == "cluster":
-        _build.launch(wrapper, "qps_admm_chunk_cluster", G.data_ptr(), *vecs,
-                      B, n, m, G.shape[-1], K, float(alpha),
+        _build.launch(wrapper, "qps_admm_chunk_cluster", *ptrs,
+                      PRECISIONS[dot_precision], float(alpha),
                       _build.stream_ptr(x), variant=variant)
     else:
-        _build.launch(
-            wrapper, "qps_admm_chunk",
-            None if split else G.data_ptr(), G.data_ptr() if split else None,
-            Glo.data_ptr() if split else None, *vecs, B, n, m, G.shape[-1], K,
-            lanes, PRECISIONS[dot_precision], float(alpha),
-            _build.stream_ptr(x), variant=variant)
+        _build.launch(wrapper, "qps_admm_chunk", *ptrs, lanes,
+                      PRECISIONS[dot_precision], float(alpha),
+                      _build.stream_ptr(x), variant=variant)
     return tuple(outs)
 
 
@@ -212,8 +218,9 @@ def fused_admm_chunk(G, A, g, l, u, x, z, y, rho_row, active, *,
     frozen lanes too.
 
     On a CUDA tensor the launch runs the kernel :func:`chunk_kernel` names
-    and counts under its :func:`chunk_variant` key, e.g. "high,slab,lanes2"
-    or "highest,G,lanes1,cluster".
+    and counts under its :func:`chunk_variant` key, e.g.
+    "high,slab,lanes2,cluster" or "highest,G,lanes1" (a lane that does not
+    fit a cluster).
     """
     if not _build.launches_kernel("fused_admm_chunk", x):
         return fused_admm_chunk_plain(G, A, g, l, u, x, z, y, rho_row, active,
@@ -257,37 +264,45 @@ fused_admm_chunk_streaming.launches = 0
 
 
 def fused_admm_chunk_cluster(G, A, g, l, u, x, z, y, rho_row, active, *,
-                             K: int, alpha: float, slab: bool = False):
-    """:func:`fused_admm_chunk` at "highest", lanes 1, through the cluster
-    kernel (csrc/admm_chunk_cluster.cu), whatever the solver's rule would
-    pick. Raises ValueError where :func:`chunk_kernel` refuses the shape.
-    Counts on its own ``launches``; on a CPU tensor the plain version."""
+                             K: int, alpha: float,
+                             dot_precision: str = "highest",
+                             slab: bool = False, Glo=None):
+    """:func:`fused_admm_chunk` through the cluster kernel
+    (csrc/admm_chunk_cluster.cu) at ``dot_precision`` from any G source,
+    whatever the solver's rule would pick (it takes no ``lanes``: one lane
+    a cluster). Raises ValueError where :func:`chunk_kernel` refuses the
+    shape. Counts on its own ``launches``; on a CPU tensor the plain
+    version."""
     n, m = x.shape[-1], l.shape[-1]
-    source = "slab" if slab else "G"
-    if chunk_kernel(n, m, 1, "highest", source) != "cluster":
+    source = "split" if Glo is not None else "slab" if slab else "G"
+    if chunk_kernel(n, m, 1, dot_precision, source) != "cluster":
         raise ValueError(f"fused_admm_chunk_cluster: n={n}, m={m} do not fit "
-                         f"a cluster of {CLUSTER} CTAs")
+                         f"a cluster of {CLUSTER} CTAs at {dot_precision!r}")
     if not _build.launches_kernel("fused_admm_chunk_cluster", x):
         return fused_admm_chunk_plain(G, A, g, l, u, x, z, y, rho_row, active,
-                                      K=K, alpha=alpha, slab=slab)
+                                      K=K, alpha=alpha,
+                                      dot_precision=dot_precision, slab=slab,
+                                      Glo=Glo)
     return _launch_sigma_free(
         fused_admm_chunk_cluster, "cluster", G, A, g, l, u, x, z, y, rho_row,
-        active, K=K, alpha=alpha, lanes=1, dot_precision="highest", slab=slab,
-        Glo=None)
+        active, K=K, alpha=alpha, lanes=1, dot_precision=dot_precision,
+        slab=slab, Glo=Glo)
 
 
 fused_admm_chunk_cluster.launches = 0
 
 
-def cluster_occupancy(n: int, m: int) -> int:
-    """How many clusters of the cluster chunk at (n, m) the current card
-    holds at once (cudaOccupancyMaxActiveClusters): the lanes in flight,
-    and the clusters a launch starts (each walks B / that many lanes)."""
+def cluster_occupancy(n: int, m: int, dot_precision: str = "highest") -> int:
+    """How many clusters of the cluster chunk at (n, m) and
+    ``dot_precision`` the current card holds at once
+    (cudaOccupancyMaxActiveClusters): the lanes in flight, and the clusters
+    a launch starts (each walks B / that many lanes)."""
     import ctypes
 
     out = ctypes.c_int(0)
     _build.check(_build.load().lib.qps_admm_chunk_cluster_occupancy(
-        n, m, ctypes.byref(out)), "qps_admm_chunk_cluster_occupancy")
+        n, m, PRECISIONS[dot_precision], ctypes.byref(out)),
+        "qps_admm_chunk_cluster_occupancy")
     return out.value
 
 
@@ -330,14 +345,14 @@ def minv_chunk_kernel(n: int, m: int, lanes: int, refine: int,
     """The kernel an M^{-1}-form chunk launch runs: "cluster" (one lane per
     cluster of :data:`CLUSTER` CTAs, M^{-1} and A rows in registers, A's
     columns and, with refinement, P's rows in shared memory, for all K
-    iterations) at ``lanes`` 1 when the lane fits the cluster
+    iterations) at any ``lanes`` (ignored: one lane a cluster) when the
+    lane fits the cluster
     (:func:`.cluster.fits` at (n, m), whose register rule keeps a thread's
     4 (n/128)(n/128 + m/128) floats of M^{-1} and A rows within 96, and
     :func:`minv_cluster_smem_bytes` within ``smem_per_cta``); else "stream"
     (admm_chunk.cu: admm_chunk_minv_kernel, every matrix read from device
     memory each time it is used)."""
-    if lanes == 1 and fits(n, m, lambda: minv_cluster_smem_bytes(n, m, refine),
-                           smem_per_cta):
+    if fits(n, m, lambda: minv_cluster_smem_bytes(n, m, refine), smem_per_cta):
         return "cluster"
     return "stream"
 
@@ -401,7 +416,7 @@ def fused_admm_chunk_minv(Minv, A, P, q, l, u, x, z, y, rho_row, active, *,
 
     On a CUDA tensor the launch runs the kernel :func:`minv_chunk_kernel`
     names and counts under its :func:`minv_chunk_variant` key, e.g.
-    "lanes2" or "lanes1,cluster".
+    "lanes2,cluster" or "lanes1" (a lane that does not fit a cluster).
     """
     if not _build.launches_kernel("fused_admm_chunk_minv", x):
         return fused_admm_chunk_minv_plain(Minv, A, P, q, l, u, x, z, y,
@@ -445,11 +460,11 @@ fused_admm_chunk_minv_streaming.launches = 0
 def fused_admm_chunk_minv_cluster(Minv, A, P, q, l, u, x, z, y, rho_row,
                                   active, *, K: int, alpha: float,
                                   sigma: float, refine: int):
-    """:func:`fused_admm_chunk_minv` at lanes 1 through the cluster kernel
-    (csrc/admm_chunk_minv_cluster.cu), whatever the solver's rule would
-    pick. Raises ValueError where :func:`minv_chunk_kernel` refuses the
-    shape. Counts on its own ``launches``; on a CPU tensor the plain
-    version."""
+    """:func:`fused_admm_chunk_minv` through the cluster kernel
+    (csrc/admm_chunk_minv_cluster.cu, one lane a cluster), whatever the
+    solver's rule would pick. Raises ValueError where
+    :func:`minv_chunk_kernel` refuses the shape. Counts on its own
+    ``launches``; on a CPU tensor the plain version."""
     n, m = x.shape[-1], l.shape[-1]
     if minv_chunk_kernel(n, m, 1, refine) != "cluster":
         raise ValueError(f"fused_admm_chunk_minv_cluster: n={n}, m={m}, "

@@ -16,18 +16,19 @@ a CPU tensor it runs its plain version, which rounds to bf16 only float32
 operands and runs any lane grouping as lanes=1 (the kernels give the same
 bits).
 
-A sigma-free launch at "highest", lanes 1, whose lane fits a cluster
-(:func:`chunk_kernel`) runs the cluster kernel, csrc/prox_chunk_cluster.cu,
-which holds each lane's G, A and C in the registers of a cluster of
-:data:`CLUSTER` CTAs for all K iterations; every other variant streams them
-(prox_chunk.cu). Both give the same bits. :func:`fused_proxqp_chunk_streaming`
-and :func:`fused_proxqp_chunk_cluster` launch one kernel whatever the rule
-says (each other's witness on the card).
+A sigma-free launch whose lane fits a cluster (:func:`chunk_kernel`), at
+any ``lanes`` and precision, runs the cluster kernel,
+csrc/prox_chunk_cluster.cu, which holds each lane's G, A and C in the
+registers of a cluster of :data:`CLUSTER` CTAs for all K iterations (one
+lane a cluster: ``lanes`` changes no bit, so it changes no kernel); the
+other shapes stream them (prox_chunk.cu). Both give the same bits.
+:func:`fused_proxqp_chunk_streaming` and :func:`fused_proxqp_chunk_cluster`
+launch one kernel whatever the rule says (each other's witness on the card).
 
-An M^{-1}-form launch at lanes 1 whose lane fits a cluster
-(:func:`minv_chunk_kernel`) runs csrc/prox_chunk_minv_cluster.cu (M^{-1}
+An M^{-1}-form launch whose lane fits a cluster, at any ``lanes``
+(:func:`minv_chunk_kernel`), runs csrc/prox_chunk_minv_cluster.cu (M^{-1}
 and [A; C] rows in a cluster's registers, [A; C]'s columns and P's rows in
-its shared memory); lanes >= 2 and other shapes stream them (prox_chunk.cu:
+its shared memory); other shapes stream them (prox_chunk.cu:
 prox_chunk_minv_kernel). Both give the same bits;
 :func:`fused_proxqp_chunk_minv_streaming` and
 :func:`fused_proxqp_chunk_minv_cluster` are the one-kernel witnesses.
@@ -89,29 +90,36 @@ def _plain_chunk(kkt_solve, A, C, b, d, x, s, y, z, rho, active, *, K,
             torch.where(act, y, y0), torch.where(act, z, z0))
 
 
-def cluster_smem_bytes(n: int, me: int, mi: int) -> int:
-    """Shared memory one CTA of the prox cluster chunk needs at (n, me, mi):
-    the next lane's n/8 rows of G and (me + mi)/8 rows of [A; C], t and x
-    twice, its n/8 rows of g and three vectors of its stacked rows, four
-    mbarriers (csrc/prox_chunk_cluster.cu: prox_cluster_floats)."""
+def cluster_smem_bytes(n: int, me: int, mi: int,
+                       dot_precision: str = "highest") -> int:
+    """Shared memory one CTA of the prox cluster chunk needs at (n, me, mi)
+    and ``dot_precision``: the next lane's n/8 rows of G and (me + mi)/8
+    rows of [A; C], t and x twice in their exchange form (two floats an
+    element at "high"), its n/8 rows of g (and, below "highest", of the f32
+    x) and three vectors of its stacked rows, four mbarriers
+    (csrc/prox_chunk_cluster.cu: prox_cluster_floats)."""
     mt = me + mi
     nr, mr = n // CLUSTER, mt // CLUSTER
-    return 4 * (16 + nr * mt + mr * n + 2 * (mt + n) + nr + 3 * mr)
+    width = 2 if dot_precision == "high" else 1
+    own = 1 if dot_precision == "highest" else 2
+    return 4 * (16 + nr * mt + mr * n + 2 * width * (mt + n) + own * nr
+                + 3 * mr)
 
 
 def chunk_kernel(n: int, me: int, mi: int, lanes: int, dot_precision: str,
                  smem_per_cta: int = SMEM_PER_CTA) -> str:
     """The kernel a sigma-free prox chunk launch runs: "cluster" (one lane
     per cluster of :data:`CLUSTER` CTAs, G, A and C held in registers, the
-    next lane's rows loaded into shared memory meanwhile) at
-    ``dot_precision`` "highest" and ``lanes`` 1, when the lane fits the
-    cluster (:func:`.cluster.fits` at (n, me + mi), with
-    :func:`cluster_smem_bytes` within ``smem_per_cta``); else "stream"
-    (prox_chunk.cu, the matrices read from device memory every
-    iteration)."""
-    if (dot_precision == "highest" and lanes == 1
-            and fits(n, me + mi, lambda: cluster_smem_bytes(n, me, mi),
-                     smem_per_cta)):
+    next lane's rows loaded into shared memory meanwhile) at every
+    ``dot_precision`` ("highest", "high", "default") and ``lanes``
+    (ignored: one lane a cluster, and the outputs do not depend on it),
+    when the lane fits the cluster (:func:`.cluster.fits` at (n, me + mi),
+    with :func:`cluster_smem_bytes` at ``dot_precision`` within
+    ``smem_per_cta``); else "stream" (prox_chunk.cu, the matrices read
+    from device memory every iteration)."""
+    if dot_precision in PRECISIONS and fits(
+            n, me + mi, lambda: cluster_smem_bytes(n, me, mi, dot_precision),
+            smem_per_cta):
         return "cluster"
     return "stream"
 
@@ -156,7 +164,8 @@ def _launch_sigma_free(wrapper, kernel, G, A, C, g, b, d, x, s, y, z, rho,
             *(o.data_ptr() for o in outs))
     if kernel == "cluster":
         _build.launch(wrapper, "qps_prox_chunk_cluster", *ptrs, B, n, me, mi,
-                      K, _build.stream_ptr(x), variant=variant)
+                      K, PRECISIONS[dot_precision], _build.stream_ptr(x),
+                      variant=variant)
     else:
         _build.launch(wrapper, "qps_prox_chunk", *ptrs, B, n, me, mi, K, lanes,
                       PRECISIONS[dot_precision], _build.stream_ptr(x),
@@ -176,8 +185,9 @@ def fused_proxqp_chunk(G, A, C, g, b, d, x, s, y, z, rho, active, *, K: int,
     its inputs through unchanged.
 
     On a CUDA tensor the launch runs the kernel :func:`chunk_kernel` names
-    and counts under its :func:`chunk_variant` key, e.g. "high,lanes2" or
-    "highest,lanes1,cluster".
+    and counts under its :func:`chunk_variant` key, e.g.
+    "high,lanes2,cluster" or "highest,lanes1" (a lane that does not fit a
+    cluster).
     """
     if not _build.launches_kernel("fused_proxqp_chunk", x):
         return fused_proxqp_chunk_plain(G, A, C, g, b, d, x, s, y, z, rho,
@@ -216,35 +226,41 @@ fused_proxqp_chunk_streaming.launches = 0
 
 
 def fused_proxqp_chunk_cluster(G, A, C, g, b, d, x, s, y, z, rho, active, *,
-                               K: int):
-    """:func:`fused_proxqp_chunk` at "highest", lanes 1, through the cluster
-    kernel (csrc/prox_chunk_cluster.cu), whatever the solver's rule would
-    pick. Raises ValueError where :func:`chunk_kernel` refuses the shape.
-    Counts on its own ``launches``; on a CPU tensor the plain version."""
+                               K: int, dot_precision: str = "highest"):
+    """:func:`fused_proxqp_chunk` through the cluster kernel
+    (csrc/prox_chunk_cluster.cu) at ``dot_precision``, whatever the
+    solver's rule would pick (it takes no ``lanes``: one lane a cluster).
+    Raises ValueError where :func:`chunk_kernel` refuses the shape. Counts
+    on its own ``launches``; on a CPU tensor the plain version."""
     n, me, mi = x.shape[-1], b.shape[-1], d.shape[-1]
-    if chunk_kernel(n, me, mi, 1, "highest") != "cluster":
+    if chunk_kernel(n, me, mi, 1, dot_precision) != "cluster":
         raise ValueError(f"fused_proxqp_chunk_cluster: n={n}, me={me}, "
-                         f"mi={mi} do not fit a cluster of {CLUSTER} CTAs")
+                         f"mi={mi} do not fit a cluster of {CLUSTER} CTAs at "
+                         f"{dot_precision!r}")
     if not _build.launches_kernel("fused_proxqp_chunk_cluster", x):
         return fused_proxqp_chunk_plain(G, A, C, g, b, d, x, s, y, z, rho,
-                                        active, K=K)
+                                        active, K=K,
+                                        dot_precision=dot_precision)
     return _launch_sigma_free(
         fused_proxqp_chunk_cluster, "cluster", G, A, C, g, b, d, x, s, y, z,
-        rho, active, K=K, lanes=1, dot_precision="highest")
+        rho, active, K=K, lanes=1, dot_precision=dot_precision)
 
 
 fused_proxqp_chunk_cluster.launches = 0
 
 
-def cluster_occupancy(n: int, me: int, mi: int) -> int:
-    """How many clusters of the prox cluster chunk at (n, me + mi) the
-    current card holds at once (cudaOccupancyMaxActiveClusters): the lanes
-    in flight, and the clusters a launch starts."""
+def cluster_occupancy(n: int, me: int, mi: int,
+                      dot_precision: str = "highest") -> int:
+    """How many clusters of the prox cluster chunk at (n, me + mi) and
+    ``dot_precision`` the current card holds at once
+    (cudaOccupancyMaxActiveClusters): the lanes in flight, and the clusters
+    a launch starts."""
     import ctypes
 
     out = ctypes.c_int(0)
     _build.check(_build.load().lib.qps_prox_chunk_cluster_occupancy(
-        n, me + mi, ctypes.byref(out)), "qps_prox_chunk_cluster_occupancy")
+        n, me + mi, PRECISIONS[dot_precision], ctypes.byref(out)),
+        "qps_prox_chunk_cluster_occupancy")
     return out.value
 
 
@@ -291,14 +307,13 @@ def minv_chunk_kernel(n: int, me: int, mi: int, lanes: int, refine: int,
     """The kernel an M^{-1}-form prox chunk launch runs: "cluster" (one
     lane per cluster of :data:`CLUSTER` CTAs, M^{-1} and [A; C] rows in
     registers, [A; C]'s columns and, with refinement, P's rows in shared
-    memory, for all K iterations) at ``lanes`` 1 when the lane fits the
-    cluster (:func:`.cluster.fits` at (n, me + mi), and
-    :func:`minv_cluster_smem_bytes` within ``smem_per_cta``); else "stream"
-    (prox_chunk.cu: prox_chunk_minv_kernel, every matrix read from device
-    memory each time it is used)."""
-    if lanes == 1 and fits(n, me + mi,
-                           lambda: minv_cluster_smem_bytes(n, me, mi, refine),
-                           smem_per_cta):
+    memory, for all K iterations) at any ``lanes`` (ignored: one lane a
+    cluster) when the lane fits the cluster (:func:`.cluster.fits` at
+    (n, me + mi), and :func:`minv_cluster_smem_bytes` within
+    ``smem_per_cta``); else "stream" (prox_chunk.cu: prox_chunk_minv_kernel,
+    every matrix read from device memory each time it is used)."""
+    if fits(n, me + mi, lambda: minv_cluster_smem_bytes(n, me, mi, refine),
+            smem_per_cta):
         return "cluster"
     return "stream"
 
@@ -364,7 +379,7 @@ def fused_proxqp_chunk_minv(Minv, A, C, P, q, b, d, x, s, y, z, rho, active,
 
     On a CUDA tensor the launch runs the kernel :func:`minv_chunk_kernel`
     names and counts under its :func:`minv_chunk_variant` key, e.g.
-    "lanes2" or "lanes1,cluster".
+    "lanes2,cluster" or "lanes1" (a lane that does not fit a cluster).
     """
     if not _build.launches_kernel("fused_proxqp_chunk_minv", x):
         return fused_proxqp_chunk_minv_plain(Minv, A, C, P, q, b, d, x, s, y,
@@ -405,11 +420,11 @@ fused_proxqp_chunk_minv_streaming.launches = 0
 def fused_proxqp_chunk_minv_cluster(Minv, A, C, P, q, b, d, x, s, y, z, rho,
                                     active, *, K: int, sigma: float,
                                     refine: int):
-    """:func:`fused_proxqp_chunk_minv` at lanes 1 through the cluster kernel
-    (csrc/prox_chunk_minv_cluster.cu), whatever the solver's rule would
-    pick. Raises ValueError where :func:`minv_chunk_kernel` refuses the
-    shape. Counts on its own ``launches``; on a CPU tensor the plain
-    version."""
+    """:func:`fused_proxqp_chunk_minv` through the cluster kernel
+    (csrc/prox_chunk_minv_cluster.cu, one lane a cluster), whatever the
+    solver's rule would pick. Raises ValueError where
+    :func:`minv_chunk_kernel` refuses the shape. Counts on its own
+    ``launches``; on a CPU tensor the plain version."""
     n, me, mi = x.shape[-1], b.shape[-1], d.shape[-1]
     if minv_chunk_kernel(n, me, mi, 1, refine) != "cluster":
         raise ValueError(f"fused_proxqp_chunk_minv_cluster: n={n}, me={me}, "

@@ -30,7 +30,7 @@ from quadraticprogramsolver_tpu.ops.spd_kernels import pallas_spd_inverse_unroll
 
 from quadraticprogramsolver_tpu_torch import _build
 from quadraticprogramsolver_tpu_torch.ops import (cluster, fused_admm, fused_proxqp,
-                                                  spd_kernels)
+                                                  linalg, spd_kernels)
 
 # (n, m, lanes, dot_precision, source) -> the kernel the rule picks.
 RULE = {
@@ -40,16 +40,38 @@ RULE = {
     (256, 384, 1, "highest", "G"): "cluster",      # m != n / 2
     (256, 512, 1, "highest", "slab"): "cluster",   # 8 (n/128)(m/128) = 64
     (384, 256, 1, "highest", "G"): "cluster",
-    (512, 256, 2, "highest", "G"): "stream",       # lanes 2
-    (512, 256, 4, "highest", "slab"): "stream",    # bench.py's slab_hi
-    (512, 256, 1, "high", "G"): "stream",          # bf16x3
-    (512, 256, 1, "default", "slab"): "stream",    # one bf16 pass
-    (512, 256, 1, "high", "split"): "stream",      # bf16 halves
+    (512, 256, 2, "highest", "G"): "cluster",      # lanes 2: one lane a cluster
+    (512, 256, 4, "highest", "slab"): "cluster",   # bench.py's slab_hi
+    (512, 256, 1, "high", "G"): "cluster",         # bf16x3
+    (512, 256, 1, "default", "slab"): "cluster",   # one bf16 pass
+    (512, 256, 1, "high", "split"): "cluster",     # bf16 halves
+    (512, 256, 2, "high", "slab"): "cluster",      # bench.py's slab_settings
+    (512, 256, 2, "default", "slab"): "cluster",   # its first chunk
+    (512, 256, 2, "high", "split"): "cluster",     # the split stack
+    (256, 512, 4, "high", "G"): "cluster",         # "high" at m = 512
+    (384, 256, 8, "default", "G"): "cluster",
     (512, 512, 1, "highest", "G"): "stream",       # over the registers
+    (512, 512, 2, "high", "slab"): "stream",
     (640, 128, 1, "highest", "G"): "stream",       # n over 512
+    (640, 128, 2, "high", "split"): "stream",
     (1024, 1024, 1, "highest", "G"): "stream",
     (500, 256, 1, "highest", "G"): "stream",       # not a multiple of 128
+    (500, 256, 2, "default", "slab"): "stream",
 }
+# Lanes 2, 4 and 8 at every precision and source run the kernel lanes 1
+# runs, on a shape that fits a cluster and on three that do not.
+SOURCES = (("highest", "G"), ("highest", "slab"), ("high", "G"), ("high", "slab"),
+           ("high", "split"), ("default", "G"), ("default", "slab"))
+LANES_RULE = {(n, m, lanes, prec, src): kernel
+              for (n, m), kernel in (((512, 256), "cluster"), ((640, 128), "stream"),
+                                     ((512, 512), "stream"), ((500, 256), "stream"))
+              for lanes in (2, 4, 8) for prec, src in SOURCES}
+
+
+@pytest.mark.parametrize("case", list(LANES_RULE), ids=lambda c: ",".join(map(str, c)))
+def test_chunk_kernel_rule_ignores_lanes(case):
+    assert fused_admm.chunk_kernel(*case) == LANES_RULE[case]
+    assert fused_admm.chunk_kernel(case[0], case[1], 1, *case[3:]) == LANES_RULE[case]
 
 
 @pytest.mark.parametrize("case", list(RULE), ids=lambda c: ",".join(map(str, c)))
@@ -63,6 +85,19 @@ def test_chunk_kernel_rule_reads_the_shared_memory_a_cta_has():
                                    smem_per_cta=need) == "cluster"
     assert fused_admm.chunk_kernel(512, 256, 1, "highest", "G",
                                    smem_per_cta=need - 4) == "stream"
+    # Each precision asks its own need: a CTA that holds "highest"'s lane
+    # but not "high"'s (two floats an exchanged element) sends "high", from
+    # every source, to the streaming kernel.
+    high = fused_admm.cluster_smem_bytes(512, 256, "high")
+    assert high > need
+    for lanes in (1, 2):
+        assert fused_admm.chunk_kernel(512, 256, lanes, "default", "slab",
+                                       smem_per_cta=need) == "cluster"
+        for src in ("G", "slab", "split"):
+            assert fused_admm.chunk_kernel(512, 256, lanes, "high", src,
+                                           smem_per_cta=high - 4) == "stream"
+            assert fused_admm.chunk_kernel(512, 256, lanes, "high", src,
+                                           smem_per_cta=high) == "cluster"
 
 
 def test_cluster_smem_bytes():
@@ -72,11 +107,24 @@ def test_cluster_smem_bytes():
     every shape the rule takes fits a CTA."""
     assert fused_admm.cluster_smem_bytes(512, 256) == 4 * (
         16 + 3 * 64 * 256 + 4 * 768 + 3 * 64 + 7 * 32 + 2 * 64)
-    taken = [(n, m) for n in range(128, 1025, 128) for m in range(128, 1025, 128)
-             if fused_admm.chunk_kernel(n, m, 1, "highest", "G") == "cluster"]
-    assert len(taken) == 12
-    assert all(fused_admm.cluster_smem_bytes(n, m) <= fused_admm.SMEM_PER_CTA
-               for n, m in taken)
+    for prec in ("highest", "high", "default"):
+        taken = [(n, m) for n in range(128, 1025, 128)
+                 for m in range(128, 1025, 128)
+                 if fused_admm.chunk_kernel(n, m, 1, prec, "G") == "cluster"]
+        assert len(taken) == 12, prec
+        assert all(fused_admm.cluster_smem_bytes(n, m, prec)
+                   <= fused_admm.SMEM_PER_CTA for n, m in taken), prec
+
+
+def test_cluster_smem_bytes_by_precision():
+    """The hand count in csrc/admm_chunk_cluster.cu's header at 512/256:
+    211,136 bytes a CTA at "highest" and "default" (t and xx exchanged as
+    one float an element), 217,280 at "high" (their (vh, vl) pairs: two
+    more floats a t and an xx element, twice), whatever the G source."""
+    assert fused_admm.cluster_smem_bytes(512, 256) == 211_136
+    assert fused_admm.cluster_smem_bytes(512, 256, "default") == 211_136
+    assert fused_admm.cluster_smem_bytes(512, 256, "high") == 217_280 == (
+        211_136 + 4 * 2 * (256 + 512))
 
 
 # (n, m, smem_bytes) -> whether the lane fits the cluster (ops/cluster.py).
@@ -105,29 +153,33 @@ def test_cluster_fits(case):
 
 def test_both_families_take_the_cluster_rule_from_one_module():
     """Over every 128-multiple shape up to 1024 (and 64-multiples for the
-    prox split), each family's chunk_kernel at "highest", lanes 1 says
+    prox split), each family's chunk_kernel at every precision says
     "cluster" exactly where ``cluster.fits`` takes the shape with the
-    family's own shared memory."""
+    family's own shared memory at that precision."""
     assert fused_admm.CLUSTER == fused_proxqp.CLUSTER == cluster.CLUSTER == 8
-    for n in range(128, 1025, 128):
-        for m in range(128, 1025, 128):
-            admm = cluster.fits(n, m, lambda: fused_admm.cluster_smem_bytes(n, m))
-            assert (fused_admm.chunk_kernel(n, m, 1, "highest", "G")
-                    == ("cluster" if admm else "stream")), (n, m)
-            for me in range(64, m, 64):
-                prox = cluster.fits(
-                    n, m, lambda: fused_proxqp.cluster_smem_bytes(n, me, m - me))
-                assert (fused_proxqp.chunk_kernel(n, me, m - me, 1, "highest")
-                        == ("cluster" if prox else "stream")), (n, me, m - me)
+    for prec in ("highest", "high", "default"):
+        for n in range(128, 1025, 128):
+            for m in range(128, 1025, 128):
+                admm = cluster.fits(
+                    n, m, lambda: fused_admm.cluster_smem_bytes(n, m, prec))
+                assert (fused_admm.chunk_kernel(n, m, 1, prec, "G")
+                        == ("cluster" if admm else "stream")), (prec, n, m)
+                for me in range(64, m, 64):
+                    prox = cluster.fits(n, m, lambda: fused_proxqp.cluster_smem_bytes(
+                        n, me, m - me, prec))
+                    assert (fused_proxqp.chunk_kernel(n, me, m - me, 1, prec)
+                            == ("cluster" if prox else "stream")), (prec, n, me)
 
 
 VARIANT_KEYS = {
     (512, 256, 1, "highest", "G"): "highest,G,lanes1,cluster",
     (512, 256, 1, "highest", "slab"): "highest,slab,lanes1,cluster",
-    (512, 256, 2, "high", "slab"): "high,slab,lanes2",
-    (512, 256, 4, "highest", "slab"): "highest,slab,lanes4",
-    (512, 256, 2, "high", "split"): "high,split,lanes2",
+    (512, 256, 2, "high", "slab"): "high,slab,lanes2,cluster",
+    (512, 256, 4, "highest", "slab"): "highest,slab,lanes4,cluster",
+    (512, 256, 2, "high", "split"): "high,split,lanes2,cluster",
+    (512, 256, 2, "default", "slab"): "default,slab,lanes2,cluster",
     (1024, 512, 1, "highest", "G"): "highest,G,lanes1",
+    (640, 128, 2, "high", "slab"): "high,slab,lanes2",
 }
 
 
@@ -181,6 +233,32 @@ def test_one_kernel_wrappers_match_jax_on_cpu(slab):
         assert all(torch.equal(o[i], outs[0][i]) for o in outs[1:]), name
     frozen = torch.from_numpy(~active)
     assert torch.equal(outs[2][0][frozen], args[5][frozen])
+
+
+@pytest.mark.parametrize("variant", ["high", "default", "split", "high,slab",
+                                     "default,slab"])
+def test_cluster_wrapper_precisions_are_the_plain_version_on_cpu(variant):
+    """The cluster wrapper at "high" and "default", from G, the slab window
+    or the bf16 halves, runs on the CPU the plain version of the variant the
+    dispatching chunk runs at lanes 2, bit for bit; the frozen lane passes
+    through."""
+    qp, G, g, x, z, y, rho_row, active = _chunk_case()
+    prec, _, src = variant.partition(",")
+    kw = dict(K=3, alpha=1.6, dot_precision="high" if prec == "split" else prec)
+    G = _t(G)
+    if prec == "split":
+        G, kw["Glo"] = linalg.bf16_split(G)
+    if src == "slab":
+        G = torch.cat([G, torch.ones_like(G)], dim=-1)
+        kw["slab"] = True
+    vecs = (_t(g), *(_t(v) for v in (qp.l, qp.u, x, z, y, rho_row)),
+            torch.from_numpy(active))
+    out = fused_admm.fused_admm_chunk_cluster(G, _t(qp.A), *vecs, **kw)
+    ref = fused_admm.fused_admm_chunk(G, _t(qp.A), *vecs, lanes=2, **kw)
+    plain = fused_admm.fused_admm_chunk_plain(G, _t(qp.A), *vecs, **kw)
+    for o, r, p in zip(out, ref, plain):
+        assert torch.equal(o, r) and torch.equal(o, p)
+    assert torch.equal(out[0][3], vecs[3][3])
 
 
 def test_cluster_wrapper_refuses_what_the_rule_sends_elsewhere():
@@ -252,15 +330,23 @@ PROX_RULE = {
     (128, 32, 96, 1, "highest", None): "cluster",      # the A/C boundary in a CTA
     (256, 128, 256, 1, "highest", None): "cluster",    # 8 (n/128)(mt/128) = 48
     (384, 128, 128, 1, "highest", None): "cluster",
-    (512, 128, 128, 2, "highest", None): "stream",     # lanes 2
-    (512, 128, 128, 4, "highest", None): "stream",
-    (512, 128, 128, 1, "high", None): "stream",        # bf16x3
-    (512, 128, 128, 1, "default", None): "stream",     # one bf16 pass
+    (512, 128, 128, 2, "highest", None): "cluster",    # lanes 2: one lane a cluster
+    (512, 128, 128, 4, "highest", None): "cluster",
+    (512, 128, 128, 1, "high", None): "cluster",       # bf16x3
+    (512, 128, 128, 1, "default", None): "cluster",    # one bf16 pass
+    (512, 128, 128, 2, "high", None): "cluster",       # the --headline stack
+    (512, 128, 128, 2, "default", None): "cluster",    # its first chunk
+    (512, 128, 128, 8, "high", None): "cluster",
+    (512, 128, 128, 1, "high", PROX_SMEM): "stream",   # holds "highest", not "high"
+    (512, 128, 128, 2, "default", PROX_SMEM): "stream",  # nor "default"'s x rows
     (512, 256, 256, 1, "highest", None): "stream",     # over the registers
+    (512, 256, 256, 2, "high", None): "stream",
     (384, 128, 256, 1, "highest", None): "stream",     # 3 x 3 > 8
     (640, 64, 64, 1, "highest", None): "stream",       # n over 512
+    (640, 64, 64, 4, "default", None): "stream",
     (256, 64, 32, 1, "highest", None): "stream",       # me + mi not 128k
     (500, 128, 128, 1, "highest", None): "stream",     # n not 128k
+    (500, 128, 128, 2, "high", None): "stream",
 }
 
 
@@ -279,21 +365,36 @@ def test_prox_cluster_smem_bytes():
     assert fused_proxqp.cluster_smem_bytes(512, 128, 128) == PROX_SMEM
     assert (fused_proxqp.cluster_smem_bytes(512, 64, 192)
             == fused_proxqp.cluster_smem_bytes(512, 128, 128))
-    taken = [(n, mt) for n in range(128, 1025, 128) for mt in range(128, 1025, 128)
-             if fused_proxqp.chunk_kernel(n, mt // 2, mt // 2, 1, "highest") == "cluster"]
-    assert len(taken) == 12
-    assert all(fused_proxqp.cluster_smem_bytes(n, mt // 2, mt // 2)
-               <= fused_admm.SMEM_PER_CTA for n, mt in taken)
+    for prec in ("highest", "high", "default"):
+        taken = [(n, mt) for n in range(128, 1025, 128)
+                 for mt in range(128, 1025, 128)
+                 if fused_proxqp.chunk_kernel(n, mt // 2, mt // 2, 1, prec) == "cluster"]
+        assert len(taken) == 12, prec
+        assert all(fused_proxqp.cluster_smem_bytes(n, mt // 2, mt // 2, prec)
+                   <= fused_admm.SMEM_PER_CTA for n, mt in taken), prec
+
+
+def test_prox_cluster_smem_bytes_by_precision():
+    """The hand count in csrc/prox_chunk_cluster.cu's header at n=512,
+    me = mi = 128: 137,920 bytes a CTA at "highest", 138,176 at "default"
+    (the CTA's 64 rows of the f32 x besides the bf16 exchanges), 144,320
+    at "high" (t's and x's (vh, vl) pairs, twice, and the 64 x rows)."""
+    assert fused_proxqp.cluster_smem_bytes(512, 128, 128) == 137_920 == PROX_SMEM
+    assert fused_proxqp.cluster_smem_bytes(512, 128, 128, "default") == 138_176 == (
+        PROX_SMEM + 4 * 64)
+    assert fused_proxqp.cluster_smem_bytes(512, 128, 128, "high") == 144_320 == (
+        PROX_SMEM + 4 * (2 * (256 + 512) + 64))
 
 
 PROX_VARIANT_KEYS = {
     (512, 128, 128, 1, "highest"): "highest,lanes1,cluster",
     (128, 32, 96, 1, "highest"): "highest,lanes1,cluster",
-    (512, 128, 128, 2, "high"): "high,lanes2",
-    (512, 128, 128, 2, "default"): "default,lanes2",
-    (512, 128, 128, 1, "high"): "high,lanes1",
-    (512, 128, 128, 2, "highest"): "highest,lanes2",
+    (512, 128, 128, 2, "high"): "high,lanes2,cluster",
+    (512, 128, 128, 2, "default"): "default,lanes2,cluster",
+    (512, 128, 128, 1, "high"): "high,lanes1,cluster",
+    (512, 128, 128, 2, "highest"): "highest,lanes2,cluster",
     (1024, 256, 256, 1, "highest"): "highest,lanes1",
+    (640, 64, 64, 2, "high"): "high,lanes2",
 }
 
 
@@ -392,3 +493,22 @@ def test_prox_one_kernel_wrappers_match_jax_on_cpu(prox_case, wrapper):
         assert np.abs(o.numpy() - r).max() <= 1e-5 * max(np.abs(r).max(), 1.0), name
         assert torch.equal(o[~active], v0[~active]), name
     assert not torch.equal(out[0][active], args[6][active])
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_prox_cluster_wrapper_precisions_are_the_plain_version_on_cpu(prox_case, prec):
+    """The prox cluster wrapper at "high" and "default" runs on the CPU the
+    plain version the dispatching chunk runs at lanes 2, bit for bit, the
+    frozen lane passed through, and differs from "highest"."""
+    args, active, _ = prox_case
+    out = fused_proxqp.fused_proxqp_chunk_cluster(*args, active, K=PROX_K,
+                                                  dot_precision=prec)
+    ref = fused_proxqp.fused_proxqp_chunk(*args, active, K=PROX_K, lanes=2,
+                                          dot_precision=prec)
+    plain = fused_proxqp.fused_proxqp_chunk_plain(*args, active, K=PROX_K,
+                                                  dot_precision=prec)
+    top = fused_proxqp.fused_proxqp_chunk_plain(*args, active, K=PROX_K)
+    for name, o, r, p, v0 in zip("xsyz", out, ref, plain, args[6:10]):
+        assert torch.equal(o, r) and torch.equal(o, p), name
+        assert torch.equal(o[~active], v0[~active]), name
+    assert not torch.equal(out[0], top[0])

@@ -541,9 +541,9 @@ def test_headline_stacks_run_their_variants_on_card(dev):
                 check_interval=11, kkt_refinement_steps=0, sigma_free_rhs=True,
                 fused_factor=True, fused_chunk=True, require_fused=True,
                 adaptive_rho=False, chunk_lanes=2, chunk_dot_precision="high")
-    stacks = {"high,slab,lanes2": dict(slab_cache=True,
-                                       first_chunk_dot_precision="default"),
-              "high,split,lanes2": dict(split_cache=True)}
+    stacks = {"high,slab,lanes2,cluster": dict(
+                  slab_cache=True, first_chunk_dot_precision="default"),
+              "high,split,lanes2,cluster": dict(split_cache=True)}
     for key, knobs in stacks.items():
         st = pt.Settings(**base, **knobs)
         fused_admm.fused_admm_chunk.variants.clear()
@@ -551,7 +551,7 @@ def test_headline_stacks_run_their_variants_on_card(dev):
         counts = fused_admm.fused_admm_chunk.variants
         assert counts[key] > 0, counts
         if "slab" in key:
-            assert counts["default,slab,lanes2"] == 1, counts
+            assert counts["default,slab,lanes2,cluster"] == 1, counts
         ref = pt.solve(qp.to("cpu"), st)
         assert (sol.info.status.cpu() >= 2).all() and (ref.info.status >= 2).all()
         assert float((sol.x.cpu() - ref.x).abs().max()) <= 1e-3
@@ -567,7 +567,8 @@ def test_headline_stacks_run_their_variants_on_card(dev):
     fused_proxqp.fused_proxqp_chunk.variants.clear()
     psol = pt.solve_proxqp(prob, pst)
     counts = fused_proxqp.fused_proxqp_chunk.variants
-    assert counts["default,lanes2"] == 1 and counts["high,lanes2"] > 0, counts
+    assert (counts["default,lanes2,cluster"] == 1
+            and counts["high,lanes2,cluster"] > 0), counts
     pref = pt.solve_proxqp(prob.to("cpu"), pst)
     assert (psol.info.status == 3).all() and (pref.info.status == 3).all()
     assert float((psol.x.cpu() - pref.x).abs().max()) <= 1e-3
@@ -941,10 +942,45 @@ def test_cluster_chunk_matches_streaming_kernel(dev, n, m, K):
         assert torch.equal(out[4][~active], z[~active])
 
 
+#: The sigma-free cluster variants beside "highest": (precision, G source).
+CLUSTER_VARIANTS = [("high", "G"), ("high", "slab"), ("high", "split"),
+                    ("default", "G"), ("default", "slab")]
+
+
+@pytest.mark.parametrize("K", [1, 11])
+@pytest.mark.parametrize("n,m", [(512, 256), (256, 384), (384, 256)])
+@pytest.mark.parametrize("prec,src", CLUSTER_VARIANTS)
+def test_cluster_chunk_variants_match_streaming_kernel(dev, prec, src, n, m, K):
+    """Each "high" and "default" cluster instance (G packed as bf16 halves
+    or rounded to bf16 in registers, t and xx exchanged in their operand
+    form) against the streaming kernel of the same variant, bit for bit on
+    all seven outputs, every fourth lane frozen, with more lanes than twice
+    the clusters resident at once (not a multiple of them)."""
+    resident = fused_admm.cluster_occupancy(n, m, prec)
+    assert resident >= 1
+    S, G, rest = _chunk_operands(dev, 34, 2 * resident + 3, n, m)
+    x, z, active = rest[4], rest[5], rest[8]
+    kw = dict(K=K, alpha=1.6, dot_precision=prec)
+    if src == "split":
+        G, kw["Glo"] = linalg.bf16_split(G)
+    elif src == "slab":
+        G, kw["slab"] = S, True
+    stream = fused_admm.fused_admm_chunk_streaming(G, *rest, **kw)
+    fused_admm.fused_admm_chunk_cluster.launches = 0
+    out = fused_admm.fused_admm_chunk_cluster(G, *rest, **kw)
+    assert fused_admm.fused_admm_chunk_cluster.launches == 1
+    for o, r in zip(out, stream):
+        assert torch.equal(o, r)
+    assert torch.equal(out[0][~active], x[~active])
+    assert torch.equal(out[4][~active], z[~active])
+    assert bool(torch.isfinite(out[5]).all() and torch.isfinite(out[6]).all())
+
+
 def test_chunk_dispatch_on_card(dev):
-    """The solver's chunk runs the cluster kernel only at "highest", lanes
-    1, from G or the slab window, within a cluster's shared memory: lanes
-    2, "high" and a lane over capacity count under the streaming keys."""
+    """The solver's chunk runs the cluster kernel wherever the lane fits a
+    cluster's registers and shared memory, at any lanes and precision and
+    from any G source (lanes 2 giving lanes 1's bits); a lane over
+    capacity counts under the streaming key."""
     S, G, rest = _chunk_operands(dev, 32, 4, 256, 128)
     run, counts = fused_admm.fused_admm_chunk, fused_admm.fused_admm_chunk.variants
     counts.clear()
@@ -954,7 +990,8 @@ def test_chunk_dispatch_on_card(dev):
     run(G, *rest, K=3, alpha=1.6, dot_precision="high")
     assert dict(counts) == {"highest,G,lanes1,cluster": 1,
                             "highest,slab,lanes1,cluster": 1,
-                            "highest,G,lanes2": 1, "high,G,lanes1": 1}
+                            "highest,G,lanes2,cluster": 1,
+                            "high,G,lanes1,cluster": 1}
     assert all(torch.equal(o, r) for o, r in zip(lanes2, base))
     # Over the cluster's registers: random operands (the fleet's factor
     # is not needed to hold one kernel against another).
@@ -1023,10 +1060,33 @@ def test_prox_cluster_chunk_matches_streaming_kernel(dev, n, me, mi, K):
         assert torch.equal(o[~active], v[~active])
 
 
+@pytest.mark.parametrize("K", [1, 25])
+@pytest.mark.parametrize("n,me,mi", [(512, 128, 128), (128, 64, 64),
+                                     (512, 64, 192), (256, 128, 256)])
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_prox_cluster_chunk_variants_match_streaming_kernel(dev, prec, n, me, mi, K):
+    """The prox cluster kernel at "high" (G and [A; C] packed as bf16
+    halves) and "default" against the streaming kernel of the same
+    precision, bit for bit on x, s, y and z, every fourth lane frozen, more
+    lanes than twice the clusters resident (not a multiple of them)."""
+    resident = fused_proxqp.cluster_occupancy(n, me, mi, prec)
+    assert resident >= 1
+    args = _prox_chunk_operands(dev, 42, 2 * resident + 3, n, me, mi)
+    active = args[-1]
+    stream = fused_proxqp.fused_proxqp_chunk_streaming(*args, K=K,
+                                                       dot_precision=prec)
+    fused_proxqp.fused_proxqp_chunk_cluster.launches = 0
+    out = fused_proxqp.fused_proxqp_chunk_cluster(*args, K=K, dot_precision=prec)
+    assert fused_proxqp.fused_proxqp_chunk_cluster.launches == 1
+    for o, r, v in zip(out, stream, args[6:10]):
+        assert torch.equal(o, r)
+        assert torch.equal(o[~active], v[~active])
+
+
 def test_prox_solve_runs_the_cluster_chunk(dev):
-    """The prox solve's chunk runs the cluster kernel at "highest" (n=200,
-    me=100, mi=60 padded to 256/128/128), the streaming one at "high"; the
-    cluster solve's statuses are the CPU solve's, x within 1e-3."""
+    """The prox solve's chunk runs the cluster kernel at "highest" and at
+    "high" (n=200, me=100, mi=60 padded to 256/128/128); the cluster
+    solve's statuses are the CPU solve's, x within 1e-3."""
     prob, _ = _prox_fleet(dev, 41, n=200, me=100, mi=60)
     base = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.05,
                 adaptive_rho=False, check_interval=25, kkt_warm_start=False,
@@ -1039,7 +1099,7 @@ def test_prox_solve_runs_the_cluster_chunk(dev):
     assert set(counts) == {"highest,lanes1,cluster"}, counts
     counts.clear()
     pt.solve_proxqp(prob, pt.ProxQPSettings(chunk_dot_precision="high", **base))
-    assert set(counts) == {"high,lanes1"}, counts
+    assert set(counts) == {"high,lanes1,cluster"}, counts
     ref = pt.solve_proxqp(prob.to("cpu"), st)
     assert (ref.info.status == 3).all()
     assert torch.equal(sol.info.status.cpu(), ref.info.status)
@@ -1316,15 +1376,15 @@ def test_prox_minv_cluster_chunk_matches_streaming_kernel(dev, n, me, mi, rho0, 
 
 
 def test_minv_chunk_dispatch_on_card(dev):
-    """The solver's M^{-1} chunks run the cluster kernels at lanes 1 and
-    stream at lanes 2 (the same bits), and off the cluster's shapes."""
+    """The solver's M^{-1} chunks run the cluster kernels at lanes 1 and 2
+    (the same bits), and stream off the cluster's shapes."""
     args = _minv_operands(dev, 52, 4, 256, 128)
     run, counts = fused_admm.fused_admm_chunk_minv, fused_admm.fused_admm_chunk_minv.variants
     counts.clear()
     kw = dict(K=3, alpha=1.6, sigma=1e-4, refine=1)
     one = run(*args, **kw)
     two = run(*args, lanes=2, **kw)
-    assert dict(counts) == {"lanes1,cluster": 1, "lanes2": 1}
+    assert dict(counts) == {"lanes1,cluster": 1, "lanes2,cluster": 1}
     assert all(torch.equal(o, r) for o, r in zip(one, two))
     pargs = _prox_minv_operands(dev, 53, 4, 256, 128, 128)
     prun, pcounts = (fused_proxqp.fused_proxqp_chunk_minv,
@@ -1333,7 +1393,7 @@ def test_minv_chunk_dispatch_on_card(dev):
     pkw = dict(K=3, sigma=1e-2, refine=1)
     one = prun(*pargs, **pkw)
     two = prun(*pargs, lanes=2, **pkw)
-    assert dict(pcounts) == {"lanes1,cluster": 1, "lanes2": 1}
+    assert dict(pcounts) == {"lanes1,cluster": 1, "lanes2,cluster": 1}
     assert all(torch.equal(o, r) for o, r in zip(one, two))
     # n = 640 is over the cluster's registers: the streaming kernel.
     args = _minv_operands(dev, 54, 2, 640, 128)

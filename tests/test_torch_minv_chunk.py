@@ -110,14 +110,23 @@ def _prox_inputs(seed):
     return sigma, f32 + [ACTIVE], np.linalg.inv(Mn)
 
 
+#: ``lanes`` of the parity tests: at 2 the first pack holds the frozen lane
+#: 1 beside the active lane 0, so JAX interleaves an active and a frozen
+#: lane (fused_admm.py:197, fused_proxqp.py's pack) and the port, whose
+#: kernels run one lane a cluster, must still give each lane its lanes-1
+#: result.
+LANES = [1, 2]
+
+
+@pytest.mark.parametrize("lanes", LANES)
 @pytest.mark.parametrize("refine", [0, 1])
-def test_plain_admm_minv_chunk_matches_jax_interpret(refine):
+def test_plain_admm_minv_chunk_matches_jax_interpret(refine, lanes):
     sigma, arrs, _ = _admm_inputs(refine)
-    kw = dict(K=K, alpha=1.6, sigma=sigma, refine=refine)
+    kw = dict(K=K, alpha=1.6, sigma=sigma, refine=refine, lanes=lanes)
     ref = jax_admm_chunk(*arrs, interpret=True, **kw)
     ins = _t(*arrs)
     out = fused_admm_chunk_minv(*ins, **kw)
-    plain = fused_admm_chunk_minv_plain(*ins, **kw)
+    plain = fused_admm_chunk_minv_plain(*ins, **dict(kw, lanes=1))
     for name, o, p, r in zip(("x", "z", "y", "x_prev", "z_prev", "Ax", "ATy"),
                              out, plain, ref):
         assert torch.equal(o, p), name       # on the CPU the wrapper is plain
@@ -129,14 +138,15 @@ def test_plain_admm_minv_chunk_matches_jax_interpret(refine):
     assert not np.array_equal(out[0].numpy()[ACTIVE], x[ACTIVE])
 
 
+@pytest.mark.parametrize("lanes", LANES)
 @pytest.mark.parametrize("refine", [0, 1])
-def test_plain_prox_minv_chunk_matches_jax_interpret(refine):
+def test_plain_prox_minv_chunk_matches_jax_interpret(refine, lanes):
     sigma, arrs, _ = _prox_inputs(10 + refine)
-    kw = dict(K=K, sigma=sigma, refine=refine)
+    kw = dict(K=K, sigma=sigma, refine=refine, lanes=lanes)
     ref = jax_prox_chunk(*arrs, interpret=True, **kw)
     ins = _t(*arrs)
     out = fused_proxqp_chunk_minv(*ins, **kw)
-    plain = fused_proxqp_chunk_minv_plain(*ins, **kw)
+    plain = fused_proxqp_chunk_minv_plain(*ins, **dict(kw, lanes=1))
     for name, o, p, r, v0 in zip("xsyz", out, plain, ref, arrs[7:11]):
         assert torch.equal(o, p), name
         _assert_rel(name, o.numpy(), r)

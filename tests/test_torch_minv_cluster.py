@@ -33,8 +33,12 @@ RULE = {
     (256, 384, 1, 1): "cluster",    # m != n / 2
     (384, 256, 1, 1): "cluster",
     (256, 512, 1, 0): "cluster",
-    (512, 256, 2, 1): "stream",     # lanes 2 (8f)
-    (512, 256, 4, 0): "stream",
+    (512, 256, 2, 1): "cluster",    # lanes 2 (8f): one lane a cluster
+    (512, 256, 4, 0): "cluster",
+    (512, 256, 8, 1): "cluster",
+    (256, 384, 2, 0): "cluster",
+    (512, 512, 2, 1): "stream",     # lanes 2 over the registers
+    (640, 128, 4, 1): "stream",
     (512, 512, 1, 1): "stream",     # over the registers
     (384, 384, 1, 0): "stream",     # (n/128)(m/128) = 9 > 8
     (640, 128, 1, 1): "stream",     # n over 512
@@ -55,7 +59,11 @@ PROX_RULE = {
     (512, 128, 128, 1, 2): "cluster",
     (256, 128, 256, 1, 1): "cluster",   # me + mi = 384
     (128, 128, 128, 1, 1): "cluster",
-    (512, 128, 128, 2, 1): "stream",    # lanes 2 (8g)
+    (512, 128, 128, 2, 1): "cluster",   # lanes 2 (8g): one lane a cluster
+    (512, 128, 128, 4, 0): "cluster",
+    (512, 128, 128, 8, 1): "cluster",
+    (512, 256, 256, 2, 1): "stream",    # lanes 2 over the registers
+    (500, 128, 128, 4, 1): "stream",
     (512, 256, 256, 1, 1): "stream",    # over the registers
     (384, 128, 256, 1, 0): "stream",    # 3 x 3 > 8
     (640, 128, 128, 1, 1): "stream",    # n over 512
@@ -129,10 +137,13 @@ def test_prox_minv_cluster_smem_bytes():
 
 KEYS = {
     ("admm", (512, 256, 1, 1)): "lanes1,cluster",
-    ("admm", (512, 256, 2, 1)): "lanes2",
+    ("admm", (512, 256, 2, 1)): "lanes2,cluster",
+    ("admm", (512, 256, 4, 0)): "lanes4,cluster",
+    ("admm", (640, 128, 2, 1)): "lanes2",
     ("admm", (640, 128, 1, 1)): "lanes1",
     ("prox", (512, 128, 128, 1, 1)): "lanes1,cluster",
-    ("prox", (512, 128, 128, 2, 1)): "lanes2",
+    ("prox", (512, 128, 128, 2, 1)): "lanes2,cluster",
+    ("prox", (640, 128, 128, 2, 1)): "lanes2",
     ("prox", (512, 256, 256, 1, 0)): "lanes1",
 }
 
