@@ -73,10 +73,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    where FP32 rounding fills it; beside ``torch.linalg.inv``), the Schur
    inverse of the 128-blocks, and the fused normal-matrix inverse of the
    phase's n=512, m=256 fleet with per-lane rho (beside the library
-   Cholesky inverse of a torch-built M and the port's M^{-1} route).
+   Cholesky inverse of a torch-built M and the port's M^{-1} route). Rows
+   6, 7 and 12's kernels (the unscaled sweep in v3's register layout, the
+   normal inverse in place on sgemm.cuh) are also held bit for bit against
+   their first ports, kept as witnesses (``pivot_sweep_2d_prev`` also under
+   its zero-pivot guard, ``pivot_sweep_ref_prev``, ``normal_inverse_prev``),
+   and timed in turns beside them.
 2b. Rows 1, 2, 3, 4a and 5a at the main paths' B=4096 beside their previous
    kernels (the build of both families and the level at j=3 as in phase 2,
-   with the yardstick; the pivot sweep on the fleet's last pivot blocks, the ADMM chunk
+   with the yardstick; the pivot sweep on the fleet's last pivot blocks,
+   and rows 6 and 7 on the same blocks beside their witnesses, the ADMM chunk
    at K=11 and the prox chunk at K=25 with every lane active, also at
    B=512), bit for bit and timed in turns, with each cluster chunk's
    clusters resident at once; rows 4c and 5c, each "high" and "default"
@@ -163,12 +169,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     ``spd_inverse_nb``, ``spd_inverse_128_schur``, ``torch.linalg.inv`` and
     the Cholesky inverse, each the best of 3 after a warm call with its
     error against f64 on three lanes (rows 6 and 11 must reach the probe's
-    1e-5); 10b ``spd_inverse_sweep`` beside ``spd_inverse_sweep_fused`` on
-    phase 7a's normal matrices (B=2048, n=512; 4 row-6 launches a call);
-    10c ``normal_inverse`` on phase 7a's P and A with one rho a lane (0.1,
-    sigma 1e-6) beside the M^{-1} route's build and sweep of the same M,
-    with peak memory, held by the f64 witness and against f64 on three
-    lanes; 10d phase 7a's defaults solve on 64 lanes with
+    1e-5); 10b ``spd_inverse_sweep`` beside the same sweep on row 6's
+    witness (bit for bit) and ``spd_inverse_sweep_fused`` on phase 7a's
+    normal matrices (B=2048, n=512; 4 row-6 launches a call); 10c
+    ``normal_inverse`` on phase 7a's P and A with one rho a lane (0.1,
+    sigma 1e-6) beside its witness (bit for bit) and the M^{-1} route's
+    build and sweep of the same M, with peak memory, held by the f64
+    witness and against f64 on three lanes; the device kernels of one
+    call and of one witness call as torch.profiler traces them (1 + 3 n/128
+    each) with their device time by launch kind (gram, pivot, CD, strip;
+    the witness's gram, pivot, products, update); 10d phase 7a's defaults
+    solve on 64 lanes with
     ``allow_tf32 = True`` globally, whose x must equal the TF32-off x bit
     for bit (the solve scopes its products to FP32).
 11. The large sparse path, BASELINE config 4 (``benchmarks/large_sparse.py``:
@@ -216,8 +227,9 @@ main path's B=4096 with every lane active (``time_chunks``).
 The last lines are the total wall time, the kernels JSON (the seven kernels,
 the four cluster chunks and the previous build, level and v3 kernels, the eleven variants of
 rows 4c and 5c, the six pivot formulations and the bf16x3 level of rows
-7-10 and 3b, the three kernels of rows 6, 11 and 12, and the SpMV kernels
-of rows 13, 14a, 14b and 15 with row 13's previous kernel), the nvidia-smi
+7-10 and 3b, the three kernels of rows 6, 11 and 12 and the first kernels
+of rows 6, 7 and 12, and the SpMV kernels of rows 13, 14a, 14b and 15 with
+row 13's previous kernel), the nvidia-smi
 line, and
 {"ok": true, "device": {...}}.
 """
@@ -324,7 +336,10 @@ WITNESSES = {"slab_build_prev": "slab_build",
              "prox_chunk": "prox_chunk_cluster",
              "admm_chunk_minv": "admm_chunk_minv_cluster",
              "prox_chunk_minv": "prox_chunk_minv_cluster",
-             "ell_matvec_prev": "ell_matvec"}
+             "ell_matvec_prev": "ell_matvec",
+             "pivot_sweep_2d_prev": "pivot_sweep_2d",
+             "pivot_sweep_ref_prev": "pivot_sweep_ref",
+             "normal_inverse_prev": "normal_inverse"}
 #: The counters (see counters()) of the wrappers that launch a kept previous
 #: kernel, or one chunk kernel whatever the dispatch rule says: witnesses
 #: and timing baselines only. Every path run reads them after its reset and
@@ -337,7 +352,9 @@ WITNESS_WRAPPERS = ("slab_build_prev", "slab_level_prev",
                     "fused_admm_chunk_minv_streaming",
                     "fused_admm_chunk_minv_cluster",
                     "fused_proxqp_chunk_minv_streaming",
-                    "fused_proxqp_chunk_minv_cluster")
+                    "fused_proxqp_chunk_minv_cluster",
+                    "pivot_sweep_2d_prev", "pivot_sweep_ref_prev",
+                    "normal_inverse_prev")
 #: Phase 2b: the redesigns and their witnesses at the main path's B.
 B_REDESIGN = B_MAIN
 #: The triangle build's gram part against the previous kernel's: max |new -
@@ -397,6 +414,21 @@ ENTRY_KERNELS = {
                         "quadraticprogramsolver_tpu/ops/spd_kernels.py:407"),
     "normal_inverse": ("csrc/normal_inverse.cu",
                        "quadraticprogramsolver_tpu/ops/spd_kernels.py:709"),
+}
+#: The first ports of rows 6, 7 and 12, kept beside their redesigns as
+#: bit-for-bit witnesses (a kernels-JSON entry each): witness -> (its
+#: source, the TPU kernel it replaces, the counted runs whose witness count
+#: it reports: phase 10's counted call of its successor, or phase 9a).
+ENTRY_WITNESSES = {
+    "pivot_sweep_2d_prev": ("csrc/pivot_sweep_2d.cu",
+                            "quadraticprogramsolver_tpu/ops/spd_kernels.py:84",
+                            "phase 10"),
+    "pivot_sweep_ref_prev": ("csrc/pivot_variants.cu",
+                             "quadraticprogramsolver_tpu/ops/spd_kernels.py:199",
+                             "phase 9a"),
+    "normal_inverse_prev": ("csrc/normal_inverse.cu",
+                            "quadraticprogramsolver_tpu/ops/spd_kernels.py:709",
+                            "phase 10"),
 }
 #: Phase 10a: benchmarks/pivot_inverse_probe.py's defaults (B=3072 blocks
 #: Dm'Dm/128 + 0.05 I) and its usability mark against an f64 inverse.
@@ -671,11 +703,31 @@ def spread_blocks(torch, B, g):
     return (D * s[:, :, None] * s[:, None, :]).float()
 
 
-def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures):
+def sweep_pair(torch, label, name, new, prev, blocks, failures):
+    """A redesigned sweep (``new``) against its witness (``prev``, the
+    first port) on each of ``blocks`` (kind -> (B, 128, 128) blocks), bit
+    for bit; then both timed in turns on the first kind. Returns (new ms,
+    previous ms)."""
+    for kind, D in blocks.items():
+        same = torch.equal(new(D), prev(D))
+        log(f"[{label}] {name} ({kind} blocks): bit for bit {name}_prev: {same}")
+        if not same:
+            failures.append(f"{label}: {name} ({kind} blocks) is not the "
+                            "previous kernel's bits")
+    D = next(iter(blocks.values()))
+    ms_prev, ms_new = in_turns(lambda: prev(D), lambda: new(D))
+    log(f"[{label}] B={D.shape[0]} {name} {ms_new:.4f} ms, {name}_prev "
+        f"{ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x, in turns)")
+    return ms_new, ms_prev
+
+
+def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, extra, failures):
     """Rows 7-10 and 3b: each pivot formulation against its plain version
     (LIMIT; "ref", unscaled, by the f64 witness where FP32 rounding alone
     fills LIMIT) and "value" bit for bit against v3, on the slab's pivot
-    blocks ``D`` and on spread-diagonal blocks; then the bf16x3 level at
+    blocks ``D`` and on spread-diagonal blocks; "ref" also bit for bit its
+    first port (``pivot_sweep_ref_prev``) and timed beside it in turns,
+    its numbers beyond ``out``'s in ``extra``; then the bf16x3 level at
     level ``j`` against its plain version (LIMIT) and apart from its own
     FP32 level on the pivot rows (HIGH_GAP)."""
     from quadraticprogramsolver_tpu_torch.ops import fused_factor, spd_kernels
@@ -708,9 +760,22 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures):
                                     failures))
         # On the slab's blocks: the kernel, its plain version ("value":
         # v3's) and the library inverse.
-        out[name] = (errs[0], cuda_ms(lambda v=variant: inv(D, variant=v)),
-                     cuda_ms(lambda v=variant: spd_kernels.pivot_sweep_plain(D, v)),
-                     cuda_ms(lambda: torch.linalg.inv(D)), pivot_bound(D.shape[0]))
+        plain_ms = cuda_ms(lambda v=variant: spd_kernels.pivot_sweep_plain(D, v))
+        lib_ms = cuda_ms(lambda: torch.linalg.inv(D))
+        if variant == "ref":
+            prev = spd_kernels.pivot_sweep_ref_prev
+            ms, ms_prev = sweep_pair(torch, "phase 2", name,
+                                     lambda x: inv(x, variant="ref"), prev,
+                                     blocks, failures)
+            out[f"{name}_prev"] = (
+                limit_or_witness(f"{name}_prev (slab blocks)", f"{name}_prev",
+                                 prev, spd_kernels.pivot_sweep_ref_plain, (D,),
+                                 failures),
+                ms_prev, plain_ms, lib_ms, pivot_bound(D.shape[0]))
+            extra[name] = {"witness_ms": ms_prev}
+        else:
+            ms = cuda_ms(lambda v=variant: inv(D, variant=v))
+        out[name] = (errs[0], ms, plain_ms, lib_ms, pivot_bound(D.shape[0]))
 
     rows = slice(j * 128, (j + 1) * 128)
     Sh, Sf, Sq = Sp.clone(), Sp.clone(), Sp.clone()
@@ -745,8 +810,11 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures):
 def phase_entry_kernels(torch, D, qp, out, extra, failures):
     """Rows 6, 11 and 12 at phase 2's shapes, each against its plain version
     (LIMIT, or the f64 witness where FP32 rounding alone fills it) and timed
-    beside its library call: the round-1 sweep on the slab's pivot blocks
-    ``D`` (and on spread-diagonal blocks) beside ``torch.linalg.inv``; the
+    beside its library call, rows 6 and 12 also bit for bit their first
+    ports (``pivot_sweep_2d_prev``, ``normal_inverse_prev``) and timed
+    beside them in turns: the round-1 sweep on the slab's pivot blocks
+    ``D`` (and on spread-diagonal blocks, and under its zero-pivot guard)
+    beside ``torch.linalg.inv``; the
     paired-64 sweep on their leading 64-blocks beside ``torch.linalg.inv`` on
     those, and the Schur inverse of ``D``; the normal-matrix inverse of
     ``qp``'s P and A with per-lane rho in [0.1, 10] beside the library
@@ -763,9 +831,21 @@ def phase_entry_kernels(torch, D, qp, out, extra, failures):
     errs = [limit_or_witness(f"pivot_sweep_2d ({kind} blocks)", "pivot_sweep_2d",
                              sk.spd_inverse_nb, nb_plain, (Dk,), failures)
             for kind, Dk in (("slab", D), ("spread", spread))]
-    out["pivot_sweep_2d"] = (errs[0], cuda_ms(lambda: sk.spd_inverse_nb(D)),
-                             cuda_ms(lambda: nb_plain(D)),
-                             cuda_ms(lambda: torch.linalg.inv(D)), pivot_bound(B))
+    zero = D.clone()
+    zero[:, 5, :] = 0.0
+    zero[:, :, 5] = 0.0
+    ms_new, ms_prev = sweep_pair(
+        torch, "phase 2", "pivot_sweep_2d", sk.spd_inverse_nb,
+        sk.pivot_sweep_2d_prev,
+        {"slab": D, "spread": spread, "zero-pivot": zero}, failures)
+    del zero
+    plain_ms, lib_ms = cuda_ms(lambda: nb_plain(D)), cuda_ms(lambda: torch.linalg.inv(D))
+    out["pivot_sweep_2d"] = (errs[0], ms_new, plain_ms, lib_ms, pivot_bound(B))
+    out["pivot_sweep_2d_prev"] = (
+        limit_or_witness("pivot_sweep_2d_prev (slab blocks)", "pivot_sweep_2d_prev",
+                         sk.pivot_sweep_2d_prev, nb_plain, (D,), failures),
+        ms_prev, plain_ms, lib_ms, pivot_bound(B))
+    extra["pivot_sweep_2d"] = {"witness_ms": ms_prev}
 
     D64 = D[:, :64, :64]
     errs = [limit_or_witness(f"pivot_sweep_v3p ({kind} blocks)", "pivot_sweep_v3p",
@@ -795,18 +875,30 @@ def phase_entry_kernels(torch, D, qp, out, extra, failures):
     args = (qp.P, qp.A, rho)
     ni_plain = lambda *a: sk.normal_inverse_plain(*a, sigma)  # noqa: E731
     ni = lambda *a: sk.normal_inverse(*a, sigma=sigma)  # noqa: E731
+    ni_prev = lambda *a: sk.normal_inverse_prev(*a, sigma=sigma)  # noqa: E731
     err = limit_or_witness("normal_inverse", "normal_inverse", ni, ni_plain,
                            args, failures)
+    err_prev = limit_or_witness("normal_inverse_prev", "normal_inverse_prev",
+                                ni_prev, ni_plain, args, failures)
+    same = torch.equal(ni(*args), ni_prev(*args))
+    log(f"[phase 2] normal_inverse (B={B}, n={n}, m={m}, per-lane rho): bit "
+        f"for bit normal_inverse_prev: {same}")
+    if not same:
+        failures.append("normal_inverse is not the previous kernels' bits")
+    ms_prev, ms_new = in_turns(lambda: ni_prev(*args), lambda: ni(*args))
+    log(f"[phase 2] B={B} normal_inverse {ms_new:.4f} ms, normal_inverse_prev "
+        f"{ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x, in turns)")
     eye = torch.eye(n, device=DEVICE)
     library = lambda: torch.cholesky_inverse(torch.linalg.cholesky(  # noqa: E731
         qp.P + sigma * eye + rho[:, None, None] * (qp.A.transpose(1, 2) @ qp.A)))
     rho_row = rho[:, None].expand(B, m).contiguous()
     route = lambda: linalg.spd_inverse(  # noqa: E731
         kkt._build_normal_matrix(qp, rho_row, sigma))
-    out["normal_inverse"] = (
-        err, cuda_ms(lambda: ni(*args)), cuda_ms(lambda: ni_plain(*args)),
-        cuda_ms(library), normal_inverse_bound(B, n, m))
-    extra["normal_inverse"] = {"route_ms": cuda_ms(route)}
+    plain_ms, lib_ms = cuda_ms(lambda: ni_plain(*args)), cuda_ms(library)
+    bnd = normal_inverse_bound(B, n, m)
+    out["normal_inverse"] = (err, ms_new, plain_ms, lib_ms, bnd)
+    out["normal_inverse_prev"] = (err_prev, ms_prev, plain_ms, lib_ms, bnd)
+    extra["normal_inverse"] = {"route_ms": cuda_ms(route), "witness_ms": ms_prev}
     log(f"[phase 2] normal_inverse: the port's M^-1 route (build + sweep) "
         f"{extra['normal_inverse']['route_ms']:.4f} ms (median of 5)")
 
@@ -1038,7 +1130,7 @@ def phase_kernels(torch, extra):
     out["slab_level_prev"] = (err_prev, ms_prev, level_plain_ms, None, bnd)
     extra["slab_level"] = redesign_line("phase 2", "slab_level", B_KERNEL,
                                         ms_new, ms_prev, yard["slab_level"], bnd)
-    phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, failures)
+    phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, extra, failures)
     phase_entry_kernels(torch, D, qp, out, extra, failures)
     del Sp, D, Dk, Dp
 
@@ -1407,7 +1499,8 @@ def prox_chunk_work(B, n_act, K):
 def phase_redesigns(torch):
     """Phase 2b: rows 2, 4a and 5a at the main path's B=4096 beside their
     previous kernels: the pivot sweep on the fleet's last pivot blocks (read
-    through the slab's strides), the sigma-free ADMM chunk (K=11) and the
+    through the slab's strides; rows 6 and 7, the unscaled sweeps, on the
+    same blocks), the sigma-free ADMM chunk (K=11) and the
     sigma-free prox chunk (K=25, phase 6's shape) from their factors, every
     lane active, each bit for bit its witness and timed in turns, at B=512
     and B=4096; each cluster chunk's clusters resident at once
@@ -1457,6 +1550,18 @@ def phase_redesigns(torch):
                         "kernel's bits")
     res["pivot_sweep_v3"] = {"b4096": {"ms": ms_new, "bound_ms": bms}}
     res["pivot_sweep_v3_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bms}}
+    # Rows 6 and 7 (the unscaled sweeps) on the same blocks.
+    for name, new_fn, prev_fn in (
+            ("pivot_sweep_2d", spd_kernels.spd_inverse_nb,
+             spd_kernels.pivot_sweep_2d_prev),
+            ("pivot_sweep_ref",
+             lambda x: spd_kernels.spd_inverse_unrolled(x, variant="ref"),
+             spd_kernels.pivot_sweep_ref_prev)):
+        ms_new, ms_prev = sweep_pair(torch, "phase 2b", name, new_fn, prev_fn,
+                                     {"slab": D}, failures)
+        res[name] = {"b4096": {"ms": ms_new, "witness_ms": ms_prev,
+                               "bound_ms": bms}}
+        res[f"{name}_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bms}}
     del Sp, D
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
@@ -1742,6 +1847,9 @@ def counters():
             "slab_level_prev": fused_factor.slab_level_prev,
             "pivot_sweep_v3_prev": spd_kernels.pivot_sweep_v3_prev,
             "ell_matvec_prev": spmv.ell_matvec_prev,
+            "pivot_sweep_2d_prev": spd_kernels.pivot_sweep_2d_prev,
+            "pivot_sweep_ref_prev": spd_kernels.pivot_sweep_ref_prev,
+            "normal_inverse_prev": spd_kernels.normal_inverse_prev,
             "fused_admm_chunk_streaming": fused_admm.fused_admm_chunk_streaming,
             "fused_admm_chunk_cluster": fused_admm.fused_admm_chunk_cluster,
             "fused_proxqp_chunk_streaming":
@@ -1982,6 +2090,12 @@ def on_device(e):
             and not e.key.startswith("ProfilerStep"))
 
 
+def event_ms(e):
+    """An averaged trace event's device time in ms."""
+    v = getattr(e, "self_device_time_total", None)
+    return (v if v is not None else e.self_cuda_time_total) / 1e3
+
+
 #: The fused factor's device kernels as torch.profiler names them: the
 #: redesigns (one triangle build, LEVELS strip levels a factor) and the
 #: previous kernels, which a solve must not run.
@@ -1996,15 +2110,10 @@ def profile_solve(torch, solve, label, factor=False):
     kernels as often as it says and none of PREV_TRACE's."""
     solve()
     prof, wall = traced(torch, solve)
-
-    def dev_ms(e):
-        v = getattr(e, "self_device_time_total", None)
-        return (v if v is not None else e.self_cuda_time_total) / 1e3
-
     # Device-side events only (kernels, copies): the host ops that launched
     # them carry the same time again.
-    rows = sorted(((dev_ms(e), e.count, e.key) for e in prof.key_averages()
-                   if on_device(e) and dev_ms(e) > 0),
+    rows = sorted(((event_ms(e), e.count, e.key) for e in prof.key_averages()
+                   if on_device(e) and event_ms(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"[{label}] profiled solve: wall {wall:.2f} ms, device kernels "
@@ -2547,6 +2656,7 @@ def phase_factor_knobs(torch, pkg, cnt, base, profile):
             finally:
                 builds.close()
             counts = read(cnt, ADMM_PATH, label)
+            idle = {k: cnt[k].launches for k in WITNESS_WRAPPERS}
             piv = dict(spd_kernels.spd_inverse_unrolled.variants)
             lev = dict(fused_factor.slab_level.variants)
             peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2571,7 +2681,8 @@ def phase_factor_knobs(torch, pkg, cnt, base, profile):
             f"memory {peak:.2f} GB")
         del sol
         runs[tag[:2]] = {"kernels": counts, "pivot": piv, "level": lev,
-                         "settings": settings, "ms": dt * 1e3}
+                         "witnesses": idle, "settings": settings,
+                         "ms": dt * 1e3}
     if profile:
         tag = min(runs, key=lambda k: runs[k]["ms"])
         st = runs[tag]["settings"]
@@ -2593,20 +2704,32 @@ def rel_f64(out, ref, idx):
     return float((out[idx].double() - ref).abs().max() / ref.abs().max())
 
 
-#: The device kernels of csrc/normal_inverse.cu's fixed sequence.
-NORMAL_INVERSE_KERNELS = ("normal_gram_kernel", "normal_level_products_kernel",
-                          "sweep_block_kernel", "normal_level_update_kernel")
+#: The device kernels of csrc/normal_inverse.cu's fixed sequence by launch
+#: kind, and those of its witness (the first port's sequence).
+NORMAL_INVERSE_KERNELS = {"gram": "normal_gram_kernel",
+                          "pivot": "sweep_block_kernel",
+                          "CD": "normal_cd_kernel",
+                          "strip": "normal_strip_kernel"}
+NORMAL_INVERSE_PREV_KERNELS = {"gram": "normal_gram_prev_kernel",
+                               "pivot": "sweep_block_prev_kernel",
+                               "products": "normal_level_products_prev_kernel",
+                               "update": "normal_level_update_prev_kernel"}
 
 
 def device_kernels(torch, fn):
-    """The device kernels that one call of fn ran, counted by name, as
-    torch.profiler traced them."""
+    """The device kernels that one call of fn ran, as torch.profiler traced
+    them: name -> (launches, device ms)."""
     prof, _ = traced(torch, fn)
-    names = {}
-    for e in prof.events():
-        if on_device(e):
-            names[e.name] = names.get(e.name, 0) + 1
-    return names
+    return {e.key: (e.count, event_ms(e)) for e in prof.key_averages()
+            if on_device(e)}
+
+
+def by_kind(traced_kernels, kinds):
+    """A traced call's launches and device ms summed by launch kind
+    (``kinds``: kind -> a kernel name its trace names contain)."""
+    return {kind: (sum(c for k, (c, _) in traced_kernels.items() if name in k),
+                   sum(ms for k, (_, ms) in traced_kernels.items() if name in k))
+            for kind, name in kinds.items()}
 
 
 def counted_call(torch, cnt, fn, name, label):
@@ -2671,7 +2794,16 @@ def phase_entry_points(torch, pkg, cnt, extra):
     idx = [0, B_DEFAULTS // 2, B_DEFAULTS - 1]
     ref = torch.linalg.inv(Mn[idx].double())
     sweeps = {}
+    prev_sweep = lambda: sk.spd_inverse_sweep(  # noqa: E731
+        Mn, pivot_inverse=sk.pivot_sweep_2d_prev)
+    same = torch.equal(sk.spd_inverse_sweep(Mn), prev_sweep())
+    log(f"[phase 10b] spd_inverse_sweep bit for bit the same sweep on "
+        f"pivot_sweep_2d_prev: {same}")
+    if not same:
+        failures.append("phase 10b: the sweep's row-6 kernel is not its "
+                        "witness's bits")
     for name, fn in (("spd_inverse_sweep", lambda: sk.spd_inverse_sweep(Mn)),
+                     ("spd_inverse_sweep on pivot_sweep_2d_prev", prev_sweep),
                      ("spd_inverse_sweep_fused",
                       lambda: sk.spd_inverse_sweep_fused(Mn))):
         ms = best_ms(torch, fn)
@@ -2682,9 +2814,10 @@ def phase_entry_points(torch, pkg, cnt, extra):
     _, launches["pivot_sweep_2d"] = counted_call(
         torch, cnt, lambda: sk.spd_inverse_sweep(Mn), "pivot_sweep_2d",
         "phase 10b spd_inverse_sweep")
+    launches["pivot_sweep_2d_prev"] = cnt["pivot_sweep_2d_prev"].launches
     require(launches["pivot_sweep_2d"] == LEVELS, "phase 10b: "
             f"{launches['pivot_sweep_2d']} row-6 launches, not {LEVELS}")
-    extra["pivot_sweep_2d"] = {"sweep": sweeps}
+    extra.setdefault("pivot_sweep_2d", {})["sweep"] = sweeps
     del ref
 
     # 10c: the fused normal-matrix inverse on the same fleet, one rho a lane.
@@ -2695,6 +2828,8 @@ def phase_entry_points(torch, pkg, cnt, extra):
     peaks = {}
     for name, fn in (
             ("normal_inverse", lambda: sk.normal_inverse(qp.P, qp.A, rho, sigma=sigma)),
+            ("normal_inverse_prev", lambda: sk.normal_inverse_prev(
+                qp.P, qp.A, rho, sigma=sigma)),
             ("M^-1 route (build + sweep)", lambda: linalg.spd_inverse(
                 kkt._build_normal_matrix(qp, row, sigma)))):
         torch.cuda.synchronize()
@@ -2708,19 +2843,30 @@ def phase_entry_points(torch, pkg, cnt, extra):
     out, launches["normal_inverse"] = counted_call(
         torch, cnt, lambda: sk.normal_inverse(qp.P, qp.A, rho, sigma=sigma),
         "normal_inverse", "phase 10c normal_inverse")
+    launches["normal_inverse_prev"] = cnt["normal_inverse_prev"].launches
     require(launches["normal_inverse"] == 1, "phase 10c: "
             f"{launches['normal_inverse']} counted launches for one call")
-    traced = device_kernels(
-        torch, lambda: sk.normal_inverse(qp.P, qp.A, rho, sigma=sigma))
-    per_kernel = {k: sum(v for name, v in traced.items() if k in name)
-                  for k in NORMAL_INVERSE_KERNELS}
-    device_launches = sum(per_kernel.values())
-    log(f"[phase 10c] normal_inverse: one call ran {device_launches} device "
-        f"kernels of its sequence ({per_kernel}; traced, all kernels: "
-        f"{sum(traced.values())})")
-    require(device_launches == 1 + 3 * (N // 128) == sum(traced.values()),
-            f"phase 10c: one normal_inverse call traced {traced}, not the "
-            f"1 + 3 n/128 = {1 + 3 * (N // 128)} kernels of its sequence")
+    same = torch.equal(out, sk.normal_inverse_prev(qp.P, qp.A, rho, sigma=sigma))
+    log(f"[phase 10c] normal_inverse bit for bit normal_inverse_prev: {same}")
+    if not same:
+        failures.append("phase 10c: normal_inverse is not the previous "
+                        "kernels' bits")
+    split = {}
+    for name, kinds in (("normal_inverse", NORMAL_INVERSE_KERNELS),
+                        ("normal_inverse_prev", NORMAL_INVERSE_PREV_KERNELS)):
+        fn = getattr(sk, name)
+        traced = device_kernels(torch, lambda: fn(qp.P, qp.A, rho, sigma=sigma))
+        split[name] = by_kind(traced, kinds)
+        device_launches = sum(c for c, _ in split[name].values())
+        total = sum(c for c, _ in traced.values())
+        log(f"[phase 10c] {name}: one call ran {device_launches} device "
+            f"kernels of its sequence (traced, all kernels: {total}); device "
+            "ms by launch kind: " + ", ".join(
+                f"{kind} {ms:.3f} ({c})" for kind, (c, ms) in split[name].items()))
+        require(device_launches == 1 + 3 * (N // 128) == total,
+                f"phase 10c: one {name} call traced {traced}, not the "
+                f"1 + 3 n/128 = {1 + 3 * (N // 128)} kernels of its sequence")
+    device_launches = sum(c for c, _ in split["normal_inverse"].values())
     Mf = (qp.P[idx].double() + sigma * torch.eye(N, device=DEVICE, dtype=torch.float64)
           + rho_v * qp.A[idx].double().transpose(1, 2) @ qp.A[idx].double())
     ref = torch.linalg.inv(Mf)
@@ -2739,7 +2885,10 @@ def phase_entry_points(torch, pkg, cnt, extra):
     extra["normal_inverse"].update(
         {"fleet": peaks, "rel_err_f64": err, "residual": resid,
          "witness_rel_err": worst,
-         "device_launches_per_call": device_launches})
+         "device_launches_per_call": device_launches,
+         "device_ms_by_kind": {k: ms for k, (_, ms) in split["normal_inverse"].items()},
+         "witness_device_ms_by_kind": {
+             k: ms for k, (_, ms) in split["normal_inverse_prev"].items()}})
 
     # 10d: phase 7a's solve at small B with TF32 on globally.
     lanes = pkg.QP(*(t[:64].contiguous() for t in qp.tensors()))
@@ -3361,7 +3510,7 @@ def main() -> int:
                 "variant_of": "slab_level" if key == "high" else "pivot_sweep_v3",
                 "stack": f"phase {stack}", "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                "library_ms": lms}
+                "library_ms": lms, **extra.get(name, {})}
 
     kernels = [entry(name, src, rep) for name, (src, rep) in KERNELS.items()]
     kernels += [variant_entry(name, *v) for name, v in VARIANTS.items()]
@@ -3373,6 +3522,16 @@ def main() -> int:
                         "launches": entry_launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
                         "bound_by": by, "library_ms": lms, **extra[name]})
+    for name, (src, rep, stack) in ENTRY_WITNESSES.items():
+        err, ms, pms, lms, (bms, by) = kstats[name]
+        n = (knobs["9a"]["witnesses"][name] if stack == "phase 9a"
+             else entry_launches[name])
+        kernels.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
+                        "replaces": rep, "witness_of": WITNESSES[name],
+                        "stack": stack, "launches": n, "max_abs_err": err,
+                        "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                        "bound_by": by, "library_ms": lms,
+                        **extra.get(name, {})})
     kernels += sparse_entries
     log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@ that two checkouts can be compared on one card in turns.
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r; done
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --minv; done
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --stacks; done
+    for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --ref; done
 
 Each run builds ROOT's kernels, generates phase 3's fleet (B=4096, n=512,
 m=256, seed 1234, the sigma-free fused FP32 knobs at static rho 0.4, eps
@@ -24,9 +25,15 @@ audit passes: 8a-8c bench.py's ``slab_settings``, ``slab_hi`` and the split
 stack on phase 3's fleet, 8d ``slab_settings`` on the 500/250 fleet (seed
 1234), 8e the ``proxqp_fleet.py --headline`` stack on phase 6's fleet (eps
 5e-5), 8f and 8g phase 7b's and 7c's stacks at ``chunk_lanes=2``; each
-solve's best of 3 after a warm call and its peak device memory. Needs a
-CUDA card.
+solve's best of 3 after a warm call and its peak device memory. ``--ref``
+takes phase 9a instead: phase 3's fleet and knobs with
+``pivot_variant="ref"`` (eps 1e-4, where its audit passes), the solve and
+its factor timed as phase 3's, with the statuses and iterations counted and
+a SHA-256 of x's bytes, so that two checkouts' solves can be held bit for
+bit. Needs a CUDA card.
 """
+
+import hashlib
 
 import json
 import os
@@ -160,6 +167,27 @@ def main() -> int:
         if factor is not None:
             out[f"{tag}_factor_ms"] = best_ms(torch, factor, 4)
 
+    if "--ref" in sys.argv[1:]:
+        g = torch.Generator(device="cuda").manual_seed(1234)
+        qp = device_random_qp_fleet(4096, 512, 256, generator=g)
+        st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                          rho=0.4, check_interval=11, kkt_refinement_steps=0,
+                          sigma_free_rhs=True, fused_factor=True,
+                          fused_chunk=True, require_fused=True,
+                          adaptive_rho=False, pivot_variant="ref")
+        rho = torch.full(qp.batch_shape, st.rho, device="cuda")
+        run("phase9a", lambda: pkg.solve(qp, st),
+            lambda: kkt.cholesky_init(qp, rho, st.sigma_for(qp.dtype), st))
+        sol = pkg.solve(qp, st)
+        its = sol.info.iterations
+        out["phase9a_status"] = {int(k): int(v) for k, v in zip(
+            *torch.unique(sol.info.status, return_counts=True))}
+        out["phase9a_iterations_p50_max"] = [int(its.float().median()),
+                                             int(its.max())]
+        out["phase9a_x_sha256"] = hashlib.sha256(
+            sol.x.cpu().numpy().tobytes()).hexdigest()
+        print(json.dumps(out), flush=True)
+        return 0
     if "--stacks" in sys.argv[1:]:
         stacks(torch, pkg, run)
         print(json.dumps(out), flush=True)

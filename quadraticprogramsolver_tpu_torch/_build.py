@@ -36,10 +36,13 @@ _SIGNATURES = {
     "qps_pivot_sweep_v3": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_v3_prev": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_ref": (_P, _L, _L, _P, _I, _P),
+    "qps_pivot_sweep_ref_prev": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_group": (_P, _L, _L, _P, _I, _I, _I, _P),
     "qps_pivot_sweep_2d": (_P, _L, _L, _P, _I, _P),
+    "qps_pivot_sweep_2d_prev": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_v3p": (_P, _L, _L, _P, _I, _P),
-    "qps_normal_inverse": (_P,) * 8 + (_I, _I, _I, _F, _P),
+    "qps_normal_inverse": (_P,) * 6 + (_I, _I, _I, _F, _P),
+    "qps_normal_inverse_prev": (_P,) * 8 + (_I, _I, _I, _F, _P),
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     "qps_slab_level_strip": (_P, _P, _I, _I, _I, _I, _I, _P),
     "qps_admm_chunk": (_P,) * 19 + (_I,) * 7 + (_F, _P),

@@ -10,6 +10,9 @@
 // their own (a one-hot dot adds zeros), so on Hopper each block is one CTA
 // and `lanes` has no counterpart. The arithmetic, the layout and what bounds
 // it are sweep_block.cuh's, with GUARD = true: a zero pivot reads as 1.
+// qps_pivot_sweep_2d runs sweep_block_kernel (pivot_sweep.cu's v3 layout), and
+// qps_pivot_sweep_2d_prev the first port, sweep_block_prev_kernel, kept as
+// its bit-for-bit witness.
 
 #include "sweep_block.cuh"
 
@@ -19,7 +22,13 @@ using qps::i64;
 // out: contiguous (B, 128, 128).
 extern "C" int qps_pivot_sweep_2d(const float* D, i64 d_batch, i64 d_row,
                                   float* out, int B, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  qps::sweep_block_kernel<true, false><<<B, qps::kSweepThreads, 0, s>>>(D, d_batch, d_row, out);
-  return (int)cudaGetLastError();
+  return qps::launch_sweep_block<true, false>(D, d_batch, d_row, out, B,
+                                              static_cast<cudaStream_t>(stream));
+}
+
+// The same arguments, through the witness sweep_block_prev_kernel.
+extern "C" int qps_pivot_sweep_2d_prev(const float* D, i64 d_batch, i64 d_row,
+                                       float* out, int B, void* stream) {
+  return qps::launch_sweep_block<true, false, true>(
+      D, d_batch, d_row, out, B, static_cast<cudaStream_t>(stream));
 }

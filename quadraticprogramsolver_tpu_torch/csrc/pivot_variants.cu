@@ -14,14 +14,17 @@
 // non-contracting intrinsics (__fmul_rn, __fadd_rn, __fsub_rn) wherever the
 // TPU kernel rounds a product before it adds it, so the kernel and its plain
 // PyTorch version round alike; only the panel's V.U product is a dot, summed
-// by FMAs. Layout as in pivot_sweep.cu: one CTA of 512 threads per block, the
-// block in registers (thread (ty, tx) holds rows ty*8..ty*8+7 at columns
-// tx + 32c), D read through strides, the output a contiguous (B, 128, 128).
+// by FMAs. Layout of the group kernels as in pivot_sweep_v3_prev: one CTA of 512
+// threads per block, the block in registers (thread (ty, tx) holds rows
+// ty*8..ty*8+7 at columns tx + 32c), D read through strides, the output a
+// contiguous (B, 128, 128).
 //
 // "ref": no Jacobi scaling. Step j, with the column C and row r read before
 // it: W -= (C dinv)(r - e_j), row j = r dinv, (j, j) = -dinv; out = -W. One
 // barrier per step, as v3. Its kernel is the unscaled sweep that rows 6 and
-// 12 share, with the e_j fix folded into the row (sweep_block.cuh, FOLD).
+// 12 share, with the e_j fix folded into the row (sweep_block.cuh, FOLD), in
+// pivot_sweep.cu's v3 register layout; qps_pivot_sweep_ref_prev runs the first
+// port (sweep_block_prev_kernel), kept as its bit-for-bit witness.
 //
 // "r<q>" and "panel" (q = 8): v3's scaling and folded fixes, the 128 steps
 // taken q at a time. Step t of a group needs the group's pivot row and column
@@ -203,10 +206,15 @@ pivot_sweep_group_kernel(const float* __restrict__ D, i64 d_batch, i64 d_row,
 // out: contiguous (B, 128, 128).
 extern "C" int qps_pivot_sweep_ref(const float* D, i64 d_batch, i64 d_row,
                                    float* out, int B, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  qps::sweep_block_kernel<false, true><<<B, qps::kSweepThreads, 0, s>>>(
-      D, d_batch, d_row, out);
-  return (int)cudaGetLastError();
+  return qps::launch_sweep_block<false, true>(D, d_batch, d_row, out, B,
+                                              static_cast<cudaStream_t>(stream));
+}
+
+// The same arguments, through the witness sweep_block_prev_kernel.
+extern "C" int qps_pivot_sweep_ref_prev(const float* D, i64 d_batch, i64 d_row,
+                                        float* out, int B, void* stream) {
+  return qps::launch_sweep_block<false, true, true>(
+      D, d_batch, d_row, out, B, static_cast<cudaStream_t>(stream));
 }
 
 // q: the group size, 2 <= q <= 128 dividing 128 (the panel: q = 8, panel = 1).

@@ -15,7 +15,10 @@ that copies the JAX kernel's arithmetic, and a CUDA kernel: "v3" and "value"
 (the same arithmetic, so one kernel; the port's first v3 kernel stays beside
 it as its bit-for-bit witness, :func:`pivot_sweep_v3_prev`), "ref", "r<q>",
 "panel", the round-1 sweep, the paired-64 sweep and the normal-matrix
-inverse. Every public
+inverse. The first kernels of "ref", the round-1 sweep and the normal-matrix
+inverse stay beside theirs as witnesses in the same way
+(:func:`pivot_sweep_ref_prev`, :func:`pivot_sweep_2d_prev`,
+:func:`normal_inverse_prev`). Every public
 entry point here that computes torch products around the kernels
 (``spd_inverse_sweep_fused``, ``gj_solve_sweep``, ``spd_inverse_sweep``,
 ``spd_inverse_128_schur``, ``normal_inverse_plain``) runs them in full FP32
@@ -228,6 +231,57 @@ def pivot_sweep_v3_prev(D: torch.Tensor) -> torch.Tensor:
 
 
 pivot_sweep_v3_prev.launches = 0
+
+
+def _witness_operands(name: str, *tensors: torch.Tensor) -> bool:
+    """A witness wrapper's rule: float32 (or, for the plain versions on the
+    CPU, float64) tensors on the CPU or a CUDA card; True where the wrapper
+    launches its kernel."""
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"{name}: takes float32 (float64 on the CPU); "
+                             f"got {t.dtype}")
+    return _build.launches_kernel(name, tensors[0])
+
+
+def _witness_blocks(wrapper, D: torch.Tensor) -> bool:
+    """:func:`_witness_operands` for the witness sweeps' (B, 128, 128)
+    blocks."""
+    if D.ndim != 3 or D.shape[1:] != (NB, NB):
+        raise ValueError(f"blocks must be ({NB}, {NB}); got {tuple(D.shape)}")
+    return _witness_operands(wrapper.__name__, D)
+
+
+def pivot_sweep_2d_prev(D: torch.Tensor) -> torch.Tensor:
+    """The round-1 sweep on (B, 128, 128) blocks through the port's first
+    kernel of it (csrc/sweep_block.cuh: sweep_block_prev_kernel<GUARD>),
+    which :func:`spd_inverse_nb`'s kernel must equal bit for bit: its witness
+    and timing baseline (no entry point calls it). On a CUDA tensor
+    (float32, unit column stride, any B >= 1) it launches that kernel and
+    counts it in ``pivot_sweep_2d_prev.launches``; on a CPU tensor it runs
+    :func:`sweep_inverse_block_plain` with ``guard_zero``."""
+    if not _witness_blocks(pivot_sweep_2d_prev, D):
+        return sweep_inverse_block_plain(D, guard_zero=True)
+    return _blocks_cuda(pivot_sweep_2d_prev, "qps_pivot_sweep_2d_prev", D)
+
+
+pivot_sweep_2d_prev.launches = 0
+
+
+def pivot_sweep_ref_prev(D: torch.Tensor) -> torch.Tensor:
+    """The "ref" sweep on (B, 128, 128) blocks through the port's first
+    kernel of it (csrc/sweep_block.cuh: sweep_block_prev_kernel<FOLD>), which
+    :func:`spd_inverse_unrolled`'s "ref" kernel must equal bit for bit: its
+    witness and timing baseline (no solver calls it). On a CUDA tensor
+    (float32, unit column stride, any B >= 1) it launches that kernel and
+    counts it in ``pivot_sweep_ref_prev.launches``; on a CPU tensor it runs
+    :func:`pivot_sweep_ref_plain`."""
+    if not _witness_blocks(pivot_sweep_ref_prev, D):
+        return pivot_sweep_ref_plain(D)
+    return _blocks_cuda(pivot_sweep_ref_prev, "qps_pivot_sweep_ref_prev", D)
+
+
+pivot_sweep_ref_prev.launches = 0
 
 
 def _check_sweep_shape(M: torch.Tensor) -> int:
@@ -475,6 +529,20 @@ def normal_inverse_plain(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor,
     return spd_inverse_sweep(M, pivot_inverse=sweep_inverse_block_plain)
 
 
+def _check_normal_args(name: str, P: torch.Tensor, A: torch.Tensor,
+                       rho: torch.Tensor):
+    """(B, n, m) of the normal inverse's operands, or ValueError."""
+    B, n, m = P.shape[0], P.shape[-1], A.shape[-2]
+    if n % NB or m % NB:
+        raise ValueError(f"n, m must be multiples of {NB}; got {(n, m)}")
+    if (P.ndim != 3 or P.shape[1] != n or tuple(A.shape) != (B, m, n)
+            or tuple(rho.shape) != (B,)):
+        raise ValueError(f"{name} takes P (B, n, n), A (B, m, n) and "
+                         f"rho (B,); got {tuple(P.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(rho.shape)}")
+    return B, n, m
+
+
 def normal_inverse(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, *,
                    sigma: float) -> torch.Tensor:
     """(P + sigma I + rho_b A'A)^-1 per lane (the JAX package's
@@ -483,26 +551,19 @@ def normal_inverse(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, *,
 
     On CUDA tensors (contiguous float32) this launches
     csrc/normal_inverse.cu's fixed sequence (the gram, then per 128-block
-    level the pivot sweep, the level products and the level update:
-    1 + 3 n/128 kernels, hand-written products throughout) and counts one
-    launch per call in ``normal_inverse.launches``; on CPU tensors it runs
-    :func:`normal_inverse_plain`.
+    level the pivot sweep, CD = X[:, s] Dinv and the in-place strip update:
+    1 + 3 n/128 kernels, hand-written products throughout; the working
+    matrix is the output, with a (B, n, 128) and a (B, 128, 128) workspace)
+    and counts one launch per call in ``normal_inverse.launches``; on CPU
+    tensors it runs :func:`normal_inverse_plain`.
     """
-    B, n, m = P.shape[0], P.shape[-1], A.shape[-2]
-    if n % NB or m % NB:
-        raise ValueError(f"n, m must be multiples of {NB}; got {(n, m)}")
-    if (P.ndim != 3 or P.shape[1] != n or tuple(A.shape) != (B, m, n)
-            or tuple(rho.shape) != (B,)):
-        raise ValueError(f"normal_inverse takes P (B, n, n), A (B, m, n) and "
-                         f"rho (B,); got {tuple(P.shape)}, {tuple(A.shape)}, "
-                         f"{tuple(rho.shape)}")
+    B, n, m = _check_normal_args("normal_inverse", P, A, rho)
     if not _build.launches_kernel("normal_inverse", P):
         return normal_inverse_plain(P, A, rho, sigma)
     kw = dict(dtype=torch.float32, device=P.device)
-    out, ws = torch.empty((B, n, n), **kw), torch.empty((B, n, n), **kw)
-    CD, DR = torch.empty((B, n, NB), **kw), torch.empty((B, NB, n), **kw)
+    out, CD = torch.empty((B, n, n), **kw), torch.empty((B, n, NB), **kw)
     Dinv = torch.empty((B, NB, NB), **kw)
-    bufs = (P, A, rho, out, ws, CD, DR, Dinv)
+    bufs = (P, A, rho, out, CD, Dinv)
     _build.require_cuda_f32("normal_inverse", *bufs)
     _build.launch(normal_inverse, "qps_normal_inverse",
                   *(t.data_ptr() for t in bufs), B, n, m, float(sigma),
@@ -511,3 +572,31 @@ def normal_inverse(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, *,
 
 
 normal_inverse.launches = 0
+
+
+def normal_inverse_prev(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, *,
+                        sigma: float) -> torch.Tensor:
+    """:func:`normal_inverse` through the port's first kernels of it
+    (csrc/normal_inverse.cu: qps_normal_inverse_prev, 64 x 64 SIMT tiles, two
+    (B, n, n) working matrices in turn and a (B, 128, n) scratch), which the
+    entry point's sequence must equal bit for bit: its witness and timing
+    baseline (no entry point calls it). On CUDA tensors (contiguous float32)
+    it launches that sequence and counts one launch per call in
+    ``normal_inverse_prev.launches``; on CPU tensors it runs
+    :func:`normal_inverse_plain`. Other dtypes raise."""
+    B, n, m = _check_normal_args("normal_inverse_prev", P, A, rho)
+    if not _witness_operands("normal_inverse_prev", P, A, rho):
+        return normal_inverse_plain(P, A, rho, sigma)
+    kw = dict(dtype=torch.float32, device=P.device)
+    out, ws = torch.empty((B, n, n), **kw), torch.empty((B, n, n), **kw)
+    CD, DR = torch.empty((B, n, NB), **kw), torch.empty((B, NB, n), **kw)
+    Dinv = torch.empty((B, NB, NB), **kw)
+    bufs = (P, A, rho, out, ws, CD, DR, Dinv)
+    _build.require_cuda_f32("normal_inverse_prev", *bufs)
+    _build.launch(normal_inverse_prev, "qps_normal_inverse_prev",
+                  *(t.data_ptr() for t in bufs), B, n, m, float(sigma),
+                  _build.stream_ptr(P))
+    return out
+
+
+normal_inverse_prev.launches = 0

@@ -1404,3 +1404,108 @@ def test_minv_chunk_dispatch_on_card(dev):
         fused_admm.fused_admm_chunk_minv_cluster(*args, **kw)
     assert all(_close(o, r) for o, r in zip(
         out, fused_admm.fused_admm_chunk_minv_plain(*args, **kw)))
+
+
+# -- rows 6, 7 and 12: the unscaled sweep in v3's register layout, and the
+# -- normal inverse in place on sgemm.cuh --
+
+def _resident_sweeps(dev):
+    """Sweep CTAs resident at once: two an SM."""
+    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+#: Each form of sweep_block_kernel with an entry point of its own: (the
+#: entry point's kernel, its witness, its plain version). "ref" is called
+#: through the kernel route directly: spd_inverse_unrolled inverts B < 4 by
+#: Cholesky.
+SWEEP_FORMS = {
+    "guard": (spd_kernels.spd_inverse_nb, spd_kernels.pivot_sweep_2d_prev,
+              lambda D: spd_kernels.sweep_inverse_block_plain(D, guard_zero=True)),
+    "fold": (lambda D: spd_kernels._pivot_sweep_cuda(D, "ref"),
+             spd_kernels.pivot_sweep_ref_prev, spd_kernels.pivot_sweep_ref_plain),
+}
+
+
+@pytest.mark.parametrize("form", sorted(SWEEP_FORMS))
+def test_sweep_block_matches_previous_kernel(dev, form):
+    """Rows 6 (GUARD) and 7 (FOLD): the sweep in v3's register layout (two
+    256-thread CTAs an SM) against the first port (sweep_block_prev_kernel),
+    bit for bit, one launch each counted, and against its plain version
+    (TOL, or the f64 witness where FP32 rounding fills it): on
+    well-conditioned and spread-diagonal blocks, a pivot block of a larger
+    matrix read through its strides, B = 1 and B = 2 x resident CTAs + 3;
+    under GUARD also a zero pivot, read as 1."""
+    new, prev, plain = SWEEP_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(60)
+    big = _gram_blocks(dev, 8, 384, g)
+    strided = big[:, 128:256, 128:256]
+    assert strided.stride(1) == 384
+    many = _gram_blocks(dev, 2 * _resident_sweeps(dev) + 3, 128, g)
+    cases = [_gram_blocks(dev, 16, 128, g), _spread_blocks(dev, 16, g), strided,
+             many[:1], many]
+    if form == "guard":
+        Dz = _gram_blocks(dev, 8, 128, g)
+        Dz[:, 5, :] = 0.0
+        Dz[:, :, 5] = 0.0
+        cases.append(Dz)
+    for D in cases:
+        prev.launches = 0
+        out, wit = new(D), prev(D)
+        assert prev.launches == 1
+        assert torch.equal(out, wit), (form, tuple(D.shape))
+        ref = plain(D)
+        if not _close(out, ref):
+            _witness((out,), (ref,), (plain(D.double()),))
+    if form == "guard":
+        assert (out[:, 5, 5] == 1.0).all() and torch.isfinite(out).all()
+
+
+def _normal_operands(dev, seed, b, n, m):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    W = torch.randn((b, n, n), generator=g, device=dev)
+    P = W @ W.transpose(1, 2) / n + 0.1 * torch.eye(n, device=dev)
+    A = 0.1 * torch.randn((b, m, n), generator=g, device=dev)
+    return P, A, torch.logspace(-1, 1, b, device=dev)
+
+
+@pytest.mark.parametrize("n, m", [(128, 128), (256, 128), (512, 256)])
+def test_normal_inverse_matches_previous_kernel(dev, n, m):
+    """Row 12 in place on sgemm.cuh against the first port's two-buffer
+    sequence (normal_inverse_prev), bit for bit, with per-lane rho in [0.1,
+    10]; both within TOL of the plain version; one counted launch each. At n
+    = 128 the inverse is one unguarded pivot sweep (sweep_block_kernel
+    without GUARD or FOLD), there also at B = 1 and B = 2 x resident CTAs +
+    3."""
+    sizes = (8, 1, 2 * _resident_sweeps(dev) + 3) if n == 128 else (8,)
+    for b in sizes:
+        P, A, rho = _normal_operands(dev, 61 + n, b, n, m)
+        spd_kernels.normal_inverse.launches = 0
+        spd_kernels.normal_inverse_prev.launches = 0
+        out = spd_kernels.normal_inverse(P, A, rho, sigma=1e-6)
+        wit = spd_kernels.normal_inverse_prev(P, A, rho, sigma=1e-6)
+        assert spd_kernels.normal_inverse.launches == 1
+        assert spd_kernels.normal_inverse_prev.launches == 1
+        assert torch.equal(out, wit), (n, m, b)
+        assert _close(out, spd_kernels.normal_inverse_plain(P, A, rho, 1e-6))
+
+
+def test_normal_inverse_allocates_no_working_copy(dev):
+    """The in-place sequence allocates the output and its two small
+    workspaces (CD, Dinv) and no second (B, n, n) matrix: its peak lies below
+    the witness's by the witness's second working matrix and its (B, 128, n)
+    scratch."""
+    b, n, m = 64, 512, 256
+    P, A, rho = _normal_operands(dev, 62, b, n, m)
+    peaks = {}
+    for fn in (spd_kernels.normal_inverse, spd_kernels.normal_inverse_prev):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(P, A, rho, sigma=1e-6)
+        torch.cuda.synchronize()
+        peaks[fn.__name__] = torch.cuda.max_memory_allocated() - base
+        del out
+    own = 4 * b * (n * n + n * 128 + 128 * 128)
+    assert peaks["normal_inverse"] <= own + (1 << 20), peaks
+    assert peaks["normal_inverse_prev"] - peaks["normal_inverse"] >= 4 * b * (
+        n * n + 128 * n), peaks
