@@ -64,9 +64,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    against its plain version (LIMIT; "ref", which has no Jacobi scaling, by
    the f64 witness where FP32 rounding alone fills LIMIT; "value" bit for
    bit against v3, whose arithmetic it is), timed on the slab's blocks
-   beside ``torch.linalg.inv``; and the bf16x3 slab level ("high") at j=3
-   against its plain version (LIMIT) and apart from its own FP32 level on
-   the pivot rows (HIGH_GAP). Then rows 6, 11 and 12, the package's other
+   beside ``torch.linalg.inv``; the rank-q and panel sweeps (rows 9 and 10,
+   v3's register layout) also bit for bit their first port
+   (``pivot_sweep_group_prev``) and timed in turns beside it; and the
+   bf16x3 slab level ("high", row 3b, one strip launch a level on the
+   tensor cores) at j=3 against its plain version (LIMIT), apart from its
+   own FP32 level on the pivot rows (HIGH_GAP) and bit for bit the
+   two-launch bf16x3 level (``slab_level_prev`` at "high"), timed in turns
+   beside it. Then rows 6, 11 and 12, the package's other
    SPD-inverse entry points (``phase_entry_kernels``): the round-1 unscaled
    sweep on the slab's pivot blocks and spread-diagonal blocks, the
    paired-64 sweep on their leading 64-blocks (LIMIT, or the f64 witness
@@ -82,7 +87,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2b. Rows 1, 2, 3, 4a and 5a at the main paths' B=4096 beside their previous
    kernels (the build of both families and the level at j=3 as in phase 2,
    with the yardstick; the pivot sweep on the fleet's last pivot blocks,
-   and rows 6 and 7 on the same blocks beside their witnesses, the ADMM chunk
+   and rows 6 and 7 on the same blocks beside their witnesses; rows 3b, 9
+   and 10 beside theirs at B=512 and 4096 (``knob_redesigns``), the ADMM chunk
    at K=11 and the prox chunk at K=25 with every lane active, also at
    B=512), bit for bit and timed in turns, with each cluster chunk's
    clusters resident at once; rows 4c and 5c, each "high" and "default"
@@ -161,7 +167,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    iterations, eps, audit and peak memory, and fails unless every factor
    build launched its named pivot formulation and level precision 4 times
    each and nothing else (``spd_inverse_unrolled.variants``,
-   ``slab_level.variants``).
+   ``slab_level.variants``; the group formulations through
+   ``group_sweep_kernel``, "high" through the strip kernel) and no witness
+   wrapper launched.
 
 10. The SPD-inverse entry points at sizes users run: 10a the shootout of
     benchmarks/pivot_inverse_probe.py on its defaults (B=3072 blocks
@@ -216,10 +224,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho solve of
 phase 3 (the ADMM headline), one profiled static-rho prox solve,
 one profiled solve each of phases 7a, 7b and 7c, one each of 8a, 8e and 8f
-(lanes 2), one
-of the fastest phase-9 stack and one of phase 11a (kernel time by name and
-the device's idle share; phases 3 and 6 must trace one ``slab_build_kernel``
-and 4 ``level_strip_kernel`` and none of the previous factor kernels). ``--sparse-only`` runs phases 1 and 11 alone and
+(lanes 2), one of 9g and one of the fastest of 9c-9f, and one of phase 11a
+(kernel time by name and the device's idle share; phases 3, 6, 9g and 9c-9f
+must trace one ``slab_build_kernel`` and 4 ``level_strip_kernel``-family
+launches and none of the previous factor kernels, 9g 4
+``level_strip_kernel_high`` and 9c-9f 4 ``group_sweep_kernel``). ``--sparse-only`` runs phases 1 and 11 alone and
 prints no ``ok`` line. ``--time-chunks`` adds,
 after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
@@ -228,7 +237,7 @@ The last lines are the total wall time, the kernels JSON (the seven kernels,
 the four cluster chunks and the previous build, level and v3 kernels, the eleven variants of
 rows 4c and 5c, the six pivot formulations and the bf16x3 level of rows
 7-10 and 3b, the three kernels of rows 6, 11 and 12 and the first kernels
-of rows 6, 7 and 12, and the SpMV kernels of rows 13, 14a, 14b and 15 with
+of rows 6, 7, 9-10 and 12, and the SpMV kernels of rows 13, 14a, 14b and 15 with
 row 13's previous kernel), the nvidia-smi
 line, and
 {"ok": true, "device": {...}}.
@@ -339,7 +348,9 @@ WITNESSES = {"slab_build_prev": "slab_build",
              "ell_matvec_prev": "ell_matvec",
              "pivot_sweep_2d_prev": "pivot_sweep_2d",
              "pivot_sweep_ref_prev": "pivot_sweep_ref",
-             "normal_inverse_prev": "normal_inverse"}
+             "normal_inverse_prev": "normal_inverse",
+             "pivot_sweep_group_prev": "pivot_sweep_r2, pivot_sweep_r4, "
+                                       "pivot_sweep_r8, pivot_sweep_panel"}
 #: The counters (see counters()) of the wrappers that launch a kept previous
 #: kernel, or one chunk kernel whatever the dispatch rule says: witnesses
 #: and timing baselines only. Every path run reads them after its reset and
@@ -354,7 +365,7 @@ WITNESS_WRAPPERS = ("slab_build_prev", "slab_level_prev",
                     "fused_proxqp_chunk_minv_streaming",
                     "fused_proxqp_chunk_minv_cluster",
                     "pivot_sweep_2d_prev", "pivot_sweep_ref_prev",
-                    "normal_inverse_prev")
+                    "normal_inverse_prev", "pivot_sweep_group_prev")
 #: Phase 2b: the redesigns and their witnesses at the main path's B.
 B_REDESIGN = B_MAIN
 #: The triangle build's gram part against the previous kernel's: max |new -
@@ -415,21 +426,28 @@ ENTRY_KERNELS = {
     "normal_inverse": ("csrc/normal_inverse.cu",
                        "quadraticprogramsolver_tpu/ops/spd_kernels.py:709"),
 }
-#: The first ports of rows 6, 7 and 12, kept beside their redesigns as
-#: bit-for-bit witnesses (a kernels-JSON entry each): witness -> (its
+#: The first ports of rows 6, 7, 9-10 and 12, kept beside their redesigns
+#: as bit-for-bit witnesses (a kernels-JSON entry each): witness -> (its
 #: source, the TPU kernel it replaces, the counted runs whose witness count
-#: it reports: phase 10's counted call of its successor, or phase 9a).
+#: it reports: the phase-9 stacks named, or phase 10's counted call of its
+#: successor when none is named).
 ENTRY_WITNESSES = {
     "pivot_sweep_2d_prev": ("csrc/pivot_sweep_2d.cu",
                             "quadraticprogramsolver_tpu/ops/spd_kernels.py:84",
-                            "phase 10"),
+                            ()),
     "pivot_sweep_ref_prev": ("csrc/pivot_variants.cu",
                              "quadraticprogramsolver_tpu/ops/spd_kernels.py:199",
-                             "phase 9a"),
+                             ("9a",)),
     "normal_inverse_prev": ("csrc/normal_inverse.cu",
                             "quadraticprogramsolver_tpu/ops/spd_kernels.py:709",
-                            "phase 10"),
+                            ()),
+    "pivot_sweep_group_prev": ("csrc/pivot_variants.cu",
+                               "quadraticprogramsolver_tpu/ops/spd_kernels.py:298",
+                               ("9c", "9d", "9e", "9f")),
 }
+#: Rows 9 and 10: the group formulations that run group_sweep_kernel on the
+#: main path's knobs (phase-9 stacks), each held to its witness.
+GROUP_VARIANTS = ("r2", "r4", "r8", "panel")
 #: Phase 10a: benchmarks/pivot_inverse_probe.py's defaults (B=3072 blocks
 #: Dm'Dm/128 + 0.05 I) and its usability mark against an f64 inverse.
 B_PROBE, PROBE_MARK = 3072, 1e-5
@@ -710,13 +728,14 @@ def sweep_pair(torch, label, name, new, prev, blocks, failures):
     previous ms)."""
     for kind, D in blocks.items():
         same = torch.equal(new(D), prev(D))
-        log(f"[{label}] {name} ({kind} blocks): bit for bit {name}_prev: {same}")
+        log(f"[{label}] B={D.shape[0]} {name} ({kind} blocks): bit for bit "
+            f"its witness: {same}")
         if not same:
             failures.append(f"{label}: {name} ({kind} blocks) is not the "
                             "previous kernel's bits")
     D = next(iter(blocks.values()))
     ms_prev, ms_new = in_turns(lambda: prev(D), lambda: new(D))
-    log(f"[{label}] B={D.shape[0]} {name} {ms_new:.4f} ms, {name}_prev "
+    log(f"[{label}] B={D.shape[0]} {name} {ms_new:.4f} ms, witness "
         f"{ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x, in turns)")
     return ms_new, ms_prev
 
@@ -725,11 +744,14 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, extra, failures):
     """Rows 7-10 and 3b: each pivot formulation against its plain version
     (LIMIT; "ref", unscaled, by the f64 witness where FP32 rounding alone
     fills LIMIT) and "value" bit for bit against v3, on the slab's pivot
-    blocks ``D`` and on spread-diagonal blocks; "ref" also bit for bit its
-    first port (``pivot_sweep_ref_prev``) and timed beside it in turns,
-    its numbers beyond ``out``'s in ``extra``; then the bf16x3 level at
-    level ``j`` against its plain version (LIMIT) and apart from its own
-    FP32 level on the pivot rows (HIGH_GAP)."""
+    blocks ``D`` and on spread-diagonal blocks; "ref" and the group
+    formulations (GROUP_VARIANTS) also bit for bit their first ports
+    (``pivot_sweep_ref_prev``, ``pivot_sweep_group_prev``) and timed beside
+    them in turns, their numbers beyond ``out``'s in ``extra``; then the
+    bf16x3 level at level ``j`` against its plain version (LIMIT), apart
+    from its own FP32 level on the pivot rows (HIGH_GAP), and bit for bit
+    the two-launch bf16x3 level (``slab_level_prev`` at "high"), timed in
+    turns beside it."""
     from quadraticprogramsolver_tpu_torch.ops import fused_factor, spd_kernels
 
     inv = spd_kernels.spd_inverse_unrolled
@@ -773,6 +795,21 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, extra, failures):
                                  failures),
                 ms_prev, plain_ms, lib_ms, pivot_bound(D.shape[0]))
             extra[name] = {"witness_ms": ms_prev}
+        elif variant in GROUP_VARIANTS:
+            prev = spd_kernels.pivot_sweep_group_prev
+            ms, ms_prev = sweep_pair(torch, "phase 2", name,
+                                     lambda x, v=variant: inv(x, variant=v),
+                                     lambda x, v=variant: prev(x, v), blocks,
+                                     failures)
+            extra[name] = {"witness_ms": ms_prev}
+            if variant == GROUP_VARIANTS[0]:
+                # The witness's entry: its numbers at the first formulation.
+                out["pivot_sweep_group_prev"] = (
+                    compare("pivot_sweep_group_prev (slab blocks)",
+                            prev(D, variant),
+                            spd_kernels.pivot_sweep_plain(D, variant), failures),
+                    ms_prev, plain_ms, lib_ms, pivot_bound(D.shape[0]))
+            extra.setdefault("pivot_sweep_group_prev", {})[f"{variant}_ms"] = ms_prev
         else:
             ms = cuda_ms(lambda v=variant: inv(D, variant=v))
         out[name] = (errs[0], ms, plain_ms, lib_ms, pivot_bound(D.shape[0]))
@@ -794,17 +831,13 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, extra, failures):
                         f"{HIGH_GAP:.0e}: no bf16x3 rounding")
     del Sh, Sf, Sq
     B, n = Sp.shape[:2]
-    scratch = torch.empty((B, 128, w_out), device=DEVICE)
-    clone = lambda: (Sp.clone(),)  # noqa: E731 — a fresh slab per timed call
-    # As the FP32 level's bytes; its products are three bf16 passes.
-    level_bytes = 4 * B * (n * (w_out + 128) + 128 * 128 + n * w_out)
+    ms, ms_prev = level_pair(torch, Sp, Dp, j, w_out, "phase 2", failures, "high")
     out["slab_level_high"] = (
-        err,
-        cuda_ms(lambda S: fused_factor.slab_level(S, Dp, j, w_out, scratch, "high"),
-                setup=clone),
+        err, ms,
         cuda_ms(lambda S: fused_factor.slab_level_plain(S, Dp, j, w_out, "high"),
-                setup=clone),
-        None, bound(level_bytes, 0, 3 * 2 * B * 128 * w_out * n))
+                setup=lambda: (Sp.clone(),)),
+        None, level_bound(B, n, w_out, "high"))
+    extra["slab_level_high"] = {"witness_ms": ms_prev}
 
 
 def phase_entry_kernels(torch, D, qp, out, extra, failures):
@@ -917,12 +950,16 @@ def slab_build_bound(B, n, ms):
     return bound(nbytes, B * n * (n + 1) * m)
 
 
-def level_bound(B, n, w_out):
+def level_bound(B, n, w_out, dot_precision="highest"):
     """The live region and the pivot columns read once, Dinv read, the live
     region written; Dinv . (pivot rows) for the 128 pivot rows, S - C .
-    DinvT for the other n - 128: 2 * 128 * w_out FLOPs a row."""
-    return bound(4 * B * (n * (w_out + 128) + 128 * 128 + n * w_out),
-                 2 * B * 128 * w_out * n)
+    DinvT for the other n - 128: 2 * 128 * w_out FLOPs a row, FP32 at
+    "highest", three bf16 passes at "high"."""
+    nbytes = 4 * B * (n * (w_out + 128) + 128 * 128 + n * w_out)
+    flops = 2 * B * 128 * w_out * n
+    if dot_precision == "high":
+        return bound(nbytes, 0, 3 * flops)
+    return bound(nbytes, flops)
 
 
 def yardstick_ms(torch, B, n, m, w_out, g):
@@ -972,28 +1009,28 @@ def build_pair(torch, args, label, failures):
     return ms_new, ms_prev
 
 
-def level_pair(torch, Sp, Dinv, j, w_out, label, failures):
-    """The strip level (``slab_level``) against the previous two-launch FP32
-    level (``slab_level_prev``) at level ``j`` on a copy of ``Sp``, bit for
-    bit on the whole slab. Returns (new ms, previous ms), timed in turns,
-    each call on a fresh copy."""
+def level_pair(torch, Sp, Dinv, j, w_out, label, failures, prec="highest"):
+    """The strip level (``slab_level``) against the previous two-launch
+    level (``slab_level_prev``) of precision ``prec`` at level ``j`` on a
+    copy of ``Sp``, bit for bit on the whole slab. Returns (new ms, previous
+    ms), timed in turns, each call on a fresh copy."""
     from quadraticprogramsolver_tpu_torch.ops import fused_factor as ff
 
     S1, S2 = Sp.clone(), Sp.clone()
-    ff.slab_level(S1, Dinv, j, w_out)
-    ff.slab_level_prev(S2, Dinv, j, w_out)
+    ff.slab_level(S1, Dinv, j, w_out, prec)
+    ff.slab_level_prev(S2, Dinv, j, w_out, dot_precision=prec)
     same = torch.equal(S1, S2)
     del S1, S2
-    log(f"[{label}] slab_level (j={j}, w_out={w_out}): the whole slab bit for "
-        f"bit slab_level_prev: {same}")
+    name = "slab_level" + ("_high" if prec == "high" else "")
+    log(f"[{label}] B={Sp.shape[0]} {name} (j={j}, w_out={w_out}): the whole "
+        f"slab bit for bit slab_level_prev at {prec!r}: {same}")
     if not same:
-        failures.append(f"{label}: the strip level is not the previous "
-                        "kernel's bits")
+        failures.append(f"{label}: {name} is not the previous kernel's bits")
     scratch = torch.empty((Sp.shape[0], 128, w_out), device=DEVICE)
     fresh = lambda fn: cuda_ms(fn, setup=lambda: (Sp.clone(),))  # noqa: E731
     return tuple(reversed(in_turns(
-        lambda S: ff.slab_level_prev(S, Dinv, j, w_out, scratch),
-        lambda S: ff.slab_level(S, Dinv, j, w_out), timer=fresh)))
+        lambda S: ff.slab_level_prev(S, Dinv, j, w_out, scratch, prec),
+        lambda S: ff.slab_level(S, Dinv, j, w_out, prec), timer=fresh)))
 
 
 def redesign_line(label, name, B, ms_new, ms_prev, yard, bnd):
@@ -1500,7 +1537,9 @@ def phase_redesigns(torch):
     """Phase 2b: rows 2, 4a and 5a at the main path's B=4096 beside their
     previous kernels: the pivot sweep on the fleet's last pivot blocks (read
     through the slab's strides; rows 6 and 7, the unscaled sweeps, on the
-    same blocks), the sigma-free ADMM chunk (K=11) and the
+    same blocks, and rows 9 and 10, the group sweeps, there and on their
+    first 512; row 3b, the bf16x3 level, on the slab at j=3, at B=512 and
+    4096), the sigma-free ADMM chunk (K=11) and the
     sigma-free prox chunk (K=25, phase 6's shape) from their factors, every
     lane active, each bit for bit its witness and timed in turns, at B=512
     and B=4096; each cluster chunk's clusters resident at once
@@ -1532,8 +1571,8 @@ def phase_redesigns(torch):
     res["slab_build_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bnd[0]}}
     Sp = fused_factor.build_slab(*args)
     D = Sp[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
-    ms_new, ms_prev = level_pair(torch, Sp, spd_kernels.spd_inverse_unrolled(D),
-                                 j, w_out, "phase 2b", failures)
+    Dinv = spd_kernels.spd_inverse_unrolled(D)
+    ms_new, ms_prev = level_pair(torch, Sp, Dinv, j, w_out, "phase 2b", failures)
     bnd = level_bound(B, N, w_out)
     res["slab_level"] = {"b4096": redesign_line(
         "phase 2b", "slab_level", B, ms_new, ms_prev, yard["slab_level"], bnd)}
@@ -1562,7 +1601,8 @@ def phase_redesigns(torch):
         res[name] = {"b4096": {"ms": ms_new, "witness_ms": ms_prev,
                                "bound_ms": bms}}
         res[f"{name}_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bms}}
-    del Sp, D
+    knob_redesigns(torch, Sp, D, Dinv, j, w_out, (B_KERNEL, B), failures, res)
+    del Sp, D, Dinv
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
     G, gv = S[..., :M].contiguous(), S[..., M].contiguous()
@@ -1670,6 +1710,42 @@ def phase_redesigns(torch):
         res.setdefault(name, {}).update(numbers)
     require(not failures, "; ".join(failures))
     return res
+
+
+def knob_redesigns(torch, Sp, D, Dinv, j, w_out, sizes, failures, res):
+    """Phase 2b, rows 3b, 9 and 10 at each B of ``sizes`` (the first B lanes
+    of the slab ``Sp``, its pivot blocks ``D`` at level ``j`` and their
+    inverses ``Dinv``, every lane active): the bf16x3 strip level beside the
+    two-launch bf16x3 level, and each group formulation (GROUP_VARIANTS)
+    beside ``pivot_sweep_group_prev``, bit for bit and timed in turns;
+    their numbers go into ``res`` under "b<B>"."""
+    from quadraticprogramsolver_tpu_torch.ops import spd_kernels
+
+    n = Sp.shape[1]
+    for b in sizes:
+        tag = f"b{b}"
+        ms_new, ms_prev = level_pair(torch, Sp[:b], Dinv[:b], j, w_out,
+                                     "phase 2b", failures, "high")
+        bms, by = level_bound(b, n, w_out, "high")
+        log(f"[phase 2b] B={b} slab_level_high {ms_new:.4f} ms, two-launch "
+            f"witness {ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x, in turns), "
+            f"bound {bms:.4f} ms ({by}, {bms / ms_new:.0%} of it)")
+        res.setdefault("slab_level_high", {})[tag] = {
+            "ms": ms_new, "witness_ms": ms_prev, "bound_ms": bms}
+        bms, by = pivot_bound(b)
+        for variant in GROUP_VARIANTS:
+            name = f"pivot_sweep_{variant}"
+            ms_new, ms_prev = sweep_pair(
+                torch, "phase 2b", name,
+                lambda x, v=variant: spd_kernels.spd_inverse_unrolled(x, variant=v),
+                lambda x, v=variant: spd_kernels.pivot_sweep_group_prev(x, v),
+                {"slab": D[:b]}, failures)
+            log(f"[phase 2b] B={b} {name}: bound {bms:.4f} ms ({by}, "
+                f"{bms / ms_new:.0%} of it)")
+            res.setdefault(name, {})[tag] = {"ms": ms_new, "witness_ms": ms_prev,
+                                             "bound_ms": bms}
+            res.setdefault("pivot_sweep_group_prev", {})[f"{variant}_{tag}"] = {
+                "ms": ms_prev, "bound_ms": bms}
 
 
 def minv_redesigns(torch, failures):
@@ -1850,6 +1926,7 @@ def counters():
             "pivot_sweep_2d_prev": spd_kernels.pivot_sweep_2d_prev,
             "pivot_sweep_ref_prev": spd_kernels.pivot_sweep_ref_prev,
             "normal_inverse_prev": spd_kernels.normal_inverse_prev,
+            "pivot_sweep_group_prev": spd_kernels.pivot_sweep_group_prev,
             "fused_admm_chunk_streaming": fused_admm.fused_admm_chunk_streaming,
             "fused_admm_chunk_cluster": fused_admm.fused_admm_chunk_cluster,
             "fused_proxqp_chunk_streaming":
@@ -2101,13 +2178,15 @@ def event_ms(e):
 #: previous kernels, which a solve must not run.
 FACTOR_TRACE = {"slab_build_kernel": 1, "level_strip_kernel": LEVELS}
 PREV_TRACE = ("slab_gram_prev_kernel", "slab_rhs_prev_kernel",
-              "level_dinvt_kernel", "level_update_kernel")
+              "level_dinvt_kernel", "level_update_kernel",
+              "pivot_sweep_group_kernel")
 
 
-def profile_solve(torch, solve, label, factor=False):
+def profile_solve(torch, solve, label, factor=False, want=None):
     """One profiled solve: device kernel time by name and the idle share;
     with ``factor`` (a one-factor solve), the trace must hold FACTOR_TRACE's
-    kernels as often as it says and none of PREV_TRACE's."""
+    kernels and ``want``'s (name -> launches) as often as they say and none
+    of PREV_TRACE's."""
     solve()
     prof, wall = traced(torch, solve)
     # Device-side events only (kernels, copies): the host ops that launched
@@ -2121,10 +2200,11 @@ def profile_solve(torch, solve, label, factor=False):
     for ms, count, key in rows[:15]:
         log(f"[{label}]   {ms:9.3f} ms  {count:5d} x  {key[:90]}")
     if factor:
+        need = {**FACTOR_TRACE, **(want or {})}
         seen = {k: sum(c for _, c, key in rows if k in key)
-                for k in (*FACTOR_TRACE, *PREV_TRACE)}
+                for k in (*need, *PREV_TRACE)}
         log(f"[{label}] factor kernels in the trace: {seen}")
-        require(all(seen[k] == v for k, v in FACTOR_TRACE.items())
+        require(all(seen[k] == v for k, v in need.items())
                 and not any(seen[k] for k in PREV_TRACE),
                 f"{label}: the factor's kernels in the trace are {seen}")
 
@@ -2684,9 +2764,14 @@ def phase_factor_knobs(torch, pkg, cnt, base, profile):
                          "witnesses": idle, "settings": settings,
                          "ms": dt * 1e3}
     if profile:
-        tag = min(runs, key=lambda k: runs[k]["ms"])
-        st = runs[tag]["settings"]
-        profile_solve(torch, lambda: pkg.solve(qp, st), f"phase {tag} profile")
+        # 9g and the fastest group formulation: the factor's trace must name
+        # the knob's kernel LEVELS times and no previous kernel.
+        fast = min(("9c", "9d", "9e", "9f"), key=lambda k: runs[k]["ms"])
+        for tag, want in ((fast, {"group_sweep_kernel": LEVELS}),
+                          ("9g", {"level_strip_kernel_high": LEVELS})):
+            st = runs[tag]["settings"]
+            profile_solve(torch, lambda: pkg.solve(qp, st), f"phase {tag} profile",
+                          factor=True, want=want)
     return runs
 
 
@@ -3522,13 +3607,14 @@ def main() -> int:
                         "launches": entry_launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
                         "bound_by": by, "library_ms": lms, **extra[name]})
-    for name, (src, rep, stack) in ENTRY_WITNESSES.items():
+    for name, (src, rep, tags) in ENTRY_WITNESSES.items():
         err, ms, pms, lms, (bms, by) = kstats[name]
-        n = (knobs["9a"]["witnesses"][name] if stack == "phase 9a"
+        n = (sum(knobs[t]["witnesses"][name] for t in tags) if tags
              else entry_launches[name])
         kernels.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
                         "replaces": rep, "witness_of": WITNESSES[name],
-                        "stack": stack, "launches": n, "max_abs_err": err,
+                        "stack": "phase " + ("/".join(tags) if tags else "10"),
+                        "launches": n, "max_abs_err": err,
                         "ms": ms, "plain_ms": pms, "bound_ms": bms,
                         "bound_by": by, "library_ms": lms,
                         **extra.get(name, {})})

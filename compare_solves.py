@@ -8,6 +8,7 @@ that two checkouts can be compared on one card in turns.
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --minv; done
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --stacks; done
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --ref; done
+    for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --knobs; done
 
 Each run builds ROOT's kernels, generates phase 3's fleet (B=4096, n=512,
 m=256, seed 1234, the sigma-free fused FP32 knobs at static rho 0.4, eps
@@ -30,7 +31,10 @@ takes phase 9a instead: phase 3's fleet and knobs with
 ``pivot_variant="ref"`` (eps 1e-4, where its audit passes), the solve and
 its factor timed as phase 3's, with the statuses and iterations counted and
 a SHA-256 of x's bytes, so that two checkouts' solves can be held bit for
-bit. Needs a CUDA card.
+bit. ``--knobs`` does the same for phases 9c-9g: phase 3's fleet and knobs
+with ``pivot_variant`` "r2", "r4", "r8", "panel", then
+``factor_precision="high"`` (each at eps 1e-4, where its audit passes).
+Needs a CUDA card.
 """
 
 import hashlib
@@ -167,25 +171,33 @@ def main() -> int:
         if factor is not None:
             out[f"{tag}_factor_ms"] = best_ms(torch, factor, 4)
 
-    if "--ref" in sys.argv[1:]:
+    knobs = ({"9a": dict(pivot_variant="ref")} if "--ref" in sys.argv[1:]
+             else {"9c": dict(pivot_variant="r2"), "9d": dict(pivot_variant="r4"),
+                   "9e": dict(pivot_variant="r8"),
+                   "9f": dict(pivot_variant="panel"),
+                   "9g": dict(factor_precision="high")}
+             if "--knobs" in sys.argv[1:] else {})
+    if knobs:
         g = torch.Generator(device="cuda").manual_seed(1234)
         qp = device_random_qp_fleet(4096, 512, 256, generator=g)
-        st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
-                          rho=0.4, check_interval=11, kkt_refinement_steps=0,
-                          sigma_free_rhs=True, fused_factor=True,
-                          fused_chunk=True, require_fused=True,
-                          adaptive_rho=False, pivot_variant="ref")
-        rho = torch.full(qp.batch_shape, st.rho, device="cuda")
-        run("phase9a", lambda: pkg.solve(qp, st),
-            lambda: kkt.cholesky_init(qp, rho, st.sigma_for(qp.dtype), st))
-        sol = pkg.solve(qp, st)
-        its = sol.info.iterations
-        out["phase9a_status"] = {int(k): int(v) for k, v in zip(
-            *torch.unique(sol.info.status, return_counts=True))}
-        out["phase9a_iterations_p50_max"] = [int(its.float().median()),
-                                             int(its.max())]
-        out["phase9a_x_sha256"] = hashlib.sha256(
-            sol.x.cpu().numpy().tobytes()).hexdigest()
+        for tag, kw in knobs.items():
+            st = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                              rho=0.4, check_interval=11,
+                              kkt_refinement_steps=0, sigma_free_rhs=True,
+                              fused_factor=True, fused_chunk=True,
+                              require_fused=True, adaptive_rho=False, **kw)
+            rho = torch.full(qp.batch_shape, st.rho, device="cuda")
+            run(f"phase{tag}", lambda: pkg.solve(qp, st),
+                lambda: kkt.cholesky_init(qp, rho, st.sigma_for(qp.dtype), st))
+            sol = pkg.solve(qp, st)
+            its = sol.info.iterations
+            out[f"phase{tag}_status"] = {int(k): int(v) for k, v in zip(
+                *torch.unique(sol.info.status, return_counts=True))}
+            out[f"phase{tag}_iterations_p50_max"] = [int(its.float().median()),
+                                                     int(its.max())]
+            out[f"phase{tag}_x_sha256"] = hashlib.sha256(
+                sol.x.cpu().numpy().tobytes()).hexdigest()
+            del sol
         print(json.dumps(out), flush=True)
         return 0
     if "--stacks" in sys.argv[1:]:

@@ -38,13 +38,14 @@ _SIGNATURES = {
     "qps_pivot_sweep_ref": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_ref_prev": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_group": (_P, _L, _L, _P, _I, _I, _I, _P),
+    "qps_pivot_sweep_group_prev": (_P, _L, _L, _P, _I, _I, _I, _P),
     "qps_pivot_sweep_2d": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_2d_prev": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_v3p": (_P, _L, _L, _P, _I, _P),
     "qps_normal_inverse": (_P,) * 6 + (_I, _I, _I, _F, _P),
     "qps_normal_inverse_prev": (_P,) * 8 + (_I, _I, _I, _F, _P),
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
-    "qps_slab_level_strip": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "qps_slab_level_strip": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "qps_admm_chunk": (_P,) * 19 + (_I,) * 7 + (_F, _P),
     "qps_admm_chunk_cluster": (_P,) * 19 + (_I,) * 6 + (_F, _P),
     "qps_admm_chunk_cluster_occupancy": (_I, _I, _I, _P),
@@ -167,6 +168,19 @@ def launches_kernel(name: str, t) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {t.device}")
     return True
+
+
+def launches_witness(name: str, *tensors) -> bool:
+    """A witness wrapper's rule (the kept previous kernels): float32 (or,
+    for the plain versions on the CPU, float64) tensors on the CPU or a CUDA
+    card, as :func:`launches_kernel` places them; other dtypes raise."""
+    import torch
+
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"{name}: takes float32 (float64 on the CPU); "
+                             f"got {t.dtype}")
+    return launches_kernel(name, tensors[0])
 
 
 def launch(wrapper, entry: str, *args, variant: str | None = None) -> None:

@@ -14,14 +14,15 @@ G = S[:, :, :m] and g = S[:, :, m].
 
 Kernels (CUDA, float32): :func:`build_slab` (csrc/slab_build.cu, one or two
 blocks; at n % 128 == 0 one launch over the gram's upper triangle) and
-:func:`slab_level` (csrc/slab_level.cu: at "highest" one launch a level over
-column strips, at "high" bf16x3 products in two launches), each picking its
-kernel by a pure rule (:func:`build_kernel`, :func:`level_kernel`); the
-pivot blocks go through :func:`~.spd_kernels.spd_inverse_unrolled`
-(csrc/pivot_sweep.cu, any pivot formulation). The previous FP32 kernels stay
-as the witnesses :func:`build_slab_prev` and :func:`slab_level_prev` (no
-solver calls them). On CPU tensors each wrapper runs its plain PyTorch
-version.
+:func:`slab_level` (csrc/slab_level.cu: one launch a level over column
+strips, FP32 at "highest", bf16x3 on the tensor cores at "high"), each
+picking its kernel by a pure rule (:func:`build_kernel`,
+:func:`level_kernel`); the pivot blocks go through
+:func:`~.spd_kernels.spd_inverse_unrolled` (csrc/pivot_sweep.cu, any pivot
+formulation). The previous kernels stay as the witnesses
+:func:`build_slab_prev` and :func:`slab_level_prev` (the two-launch level,
+at either precision; no solver calls them). On CPU tensors each wrapper
+runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -175,10 +176,14 @@ def slab_level_plain(S, Dinv, j: int, w_out: int,
 
 def level_kernel(dot_precision: str) -> str:
     """The kernel :func:`slab_level` launches at ``dot_precision``: "strip"
-    at "highest" (csrc/slab_level.cu: level_strip_kernel, one launch a level
-    over column strips, no scratch), "tiles" at "high" (the two-launch
-    bf16x3 level, DinvT through a scratch buffer)."""
-    return "strip" if dot_precision == "highest" else "tiles"
+    at both precisions (csrc/slab_level.cu: level_strip_kernel at "highest",
+    level_strip_kernel_high at "high"; one launch a level over column
+    strips, no scratch). The two-launch "tiles" level, DinvT through a
+    scratch buffer, is :func:`slab_level_prev`'s alone."""
+    if dot_precision not in LEVEL_PRECISIONS:
+        raise ValueError(f"slab level precision must be one of "
+                         f"{LEVEL_PRECISIONS}; got {dot_precision!r}")
+    return "strip"
 
 
 def _check_level(S, Dinv, j: int, w_out: int):
@@ -192,26 +197,7 @@ def _check_level(S, Dinv, j: int, w_out: int):
     return B, n, wid
 
 
-def _launch_tiles(wrapper, S, Dinv, j, w_out, scratch, dot_precision, variant):
-    """The two-launch level (DinvT into ``scratch``, then the update tiles),
-    counted on ``wrapper``."""
-    B, n, wid = _check_level(S, Dinv, j, w_out)
-    if scratch is None:
-        scratch = torch.empty((B, NB, w_out), dtype=torch.float32,
-                              device=S.device)
-    if scratch.shape[:2] != (B, NB) or scratch.shape[2] < w_out \
-            or scratch.shape[2] % 4:
-        raise ValueError(f"scratch must be ({B}, {NB}, >= {w_out}); got "
-                         f"{tuple(scratch.shape)}")
-    _build.require_cuda_f32(wrapper.__name__, S, Dinv, scratch)
-    _build.launch(
-        wrapper, "qps_slab_level",
-        S.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), scratch.shape[2],
-        B, n, wid, j, w_out, LEVEL_PRECISIONS.index(dot_precision),
-        _build.stream_ptr(S), variant=variant)
-
-
-def slab_level(S, Dinv, j: int, w_out: int, scratch=None,
+def slab_level(S, Dinv, j: int, w_out: int,
                dot_precision: str = "highest") -> None:
     """One Gauss-Jordan level on S[:, :, :w_out + 128], in place.
 
@@ -221,41 +207,52 @@ def slab_level(S, Dinv, j: int, w_out: int, scratch=None,
     ``dot_precision``: "highest" (FP32 products) or "high" (bf16x3: Dinv,
     the pivot rows, C and Dinv . T split into bf16 halves, lo . lo
     dropped; the level's other operand, T, enters elementwise); float64
-    runs "highest". On a CUDA tensor it launches the kernel
-    :func:`level_kernel` names, counted in
-    ``slab_level.variants[dot_precision]``. ``scratch`` (the "high" level
-    only): a (B, 128, >= w_out) float32 buffer for Dinv . T[j rows], reused
-    across levels; allocated when None.
+    runs "highest". On a CUDA tensor it launches the strip kernel of that
+    precision (:func:`level_kernel`), counted in
+    ``slab_level.variants[dot_precision]``; it needs no scratch.
     """
-    if dot_precision not in LEVEL_PRECISIONS:
-        raise ValueError(f"slab level precision must be one of "
-                         f"{LEVEL_PRECISIONS}; got {dot_precision!r}")
+    level_kernel(dot_precision)  # checks the precision
     if not _build.launches_kernel("slab_level", S):
         return slab_level_plain(S, Dinv, j, w_out, dot_precision)
-    if level_kernel(dot_precision) == "tiles":
-        return _launch_tiles(slab_level, S, Dinv, j, w_out, scratch,
-                             dot_precision, dot_precision)
     B, n, wid = _check_level(S, Dinv, j, w_out)
     _build.require_cuda_f32("slab_level", S, Dinv)
     _build.launch(
         slab_level, "qps_slab_level_strip",
         S.data_ptr(), Dinv.data_ptr(), B, n, wid, j, w_out,
-        _build.stream_ptr(S), variant=dot_precision)
+        LEVEL_PRECISIONS.index(dot_precision), _build.stream_ptr(S),
+        variant=dot_precision)
 
 
 slab_level.launches = 0
 slab_level.variants = collections.Counter()
 
 
-def slab_level_prev(S, Dinv, j: int, w_out: int, scratch=None) -> None:
-    """:func:`slab_level` at "highest" through the previous FP32 kernel
-    (the two launches, DinvT through ``scratch``): the witness and timing
-    baseline of the strip kernel on the card (no solver calls it). On a CUDA
-    tensor it launches it and counts in ``slab_level_prev.launches``; on a
-    CPU tensor it runs :func:`slab_level_plain`."""
-    if not _build.launches_kernel("slab_level_prev", S):
-        return slab_level_plain(S, Dinv, j, w_out)
-    _launch_tiles(slab_level_prev, S, Dinv, j, w_out, scratch, "highest", None)
+def slab_level_prev(S, Dinv, j: int, w_out: int, scratch=None,
+                    dot_precision: str = "highest") -> None:
+    """:func:`slab_level` through the previous kernel of ``dot_precision``
+    (the two launches, DinvT through ``scratch``, a (B, 128, >= w_out)
+    float32 buffer allocated when None): the witness and timing baseline of
+    the strip kernels on the card (no solver calls it). On a CUDA tensor
+    (float32) it launches it and counts in ``slab_level_prev.launches``; on
+    a CPU tensor (float32 or float64) it runs :func:`slab_level_plain`.
+    Other dtypes raise."""
+    level_kernel(dot_precision)  # checks the precision
+    if not _build.launches_witness("slab_level_prev", S, Dinv):
+        return slab_level_plain(S, Dinv, j, w_out, dot_precision)
+    B, n, wid = _check_level(S, Dinv, j, w_out)
+    if scratch is None:
+        scratch = torch.empty((B, NB, w_out), dtype=torch.float32,
+                              device=S.device)
+    if scratch.shape[:2] != (B, NB) or scratch.shape[2] < w_out \
+            or scratch.shape[2] % 4:
+        raise ValueError(f"scratch must be ({B}, {NB}, >= {w_out}); got "
+                         f"{tuple(scratch.shape)}")
+    _build.require_cuda_f32("slab_level_prev", S, Dinv, scratch)
+    _build.launch(
+        slab_level_prev, "qps_slab_level",
+        S.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), scratch.shape[2],
+        B, n, wid, j, w_out, LEVEL_PRECISIONS.index(dot_precision),
+        _build.stream_ptr(S))
 
 
 slab_level_prev.launches = 0
@@ -274,7 +271,7 @@ def fused_factor_solve(P, A, q, rho_row, *, sigma: float,
     package. Returns the full (B, n, kp + n) slab; callers slice G = S[:, :,
     :m] and g = S[:, :, m]. Columns past kp are dead pivot state.
     """
-    B, n = q.shape
+    n = q.shape[-1]
     m = rho_row.shape[-1]
     if n % NB:
         raise ValueError(f"n must be a multiple of {NB}; got {n}")
@@ -283,16 +280,10 @@ def fused_factor_solve(P, A, q, rho_row, *, sigma: float,
                          f"{[a.shape[-2] for a in _blocks(A)]}")
     kp = slab_k(m)
     S = build_slab(P, A, q, rho_row, sigma)
-    # Only the two-launch level needs a scratch: (B, 128, kp + n - 128)
-    # floats, 1.5 GB at B=4096, n=512, m=256.
-    scratch = None
-    if level_kernel(dot_precision) == "tiles":
-        scratch = torch.empty((B, NB, kp + n - NB), dtype=S.dtype,
-                              device=S.device)
     for j in range(n // NB - 1, -1, -1):
         w_out = kp + j * NB
         # The pivot block is read through the slab's strides: no copy.
         D = S[:, j * NB:(j + 1) * NB, w_out:w_out + NB]
         Dinv = spd_inverse_unrolled(D, variant=pivot_variant)
-        slab_level(S, Dinv, j, w_out, scratch, dot_precision)
+        slab_level(S, Dinv, j, w_out, dot_precision)
     return S

@@ -13,11 +13,12 @@ Counterpart of ``quadraticprogramsolver_tpu/ops/spd_kernels.py``
 ``pallas_normal_inverse``). Every formulation has a plain PyTorch version
 that copies the JAX kernel's arithmetic, and a CUDA kernel: "v3" and "value"
 (the same arithmetic, so one kernel; the port's first v3 kernel stays beside
-it as its bit-for-bit witness, :func:`pivot_sweep_v3_prev`), "ref", "r<q>",
-"panel", the round-1 sweep, the paired-64 sweep and the normal-matrix
-inverse. The first kernels of "ref", the round-1 sweep and the normal-matrix
-inverse stay beside theirs as witnesses in the same way
-(:func:`pivot_sweep_ref_prev`, :func:`pivot_sweep_2d_prev`,
+it as its bit-for-bit witness, :func:`pivot_sweep_v3_prev`), "ref", "r<q>"
+and "panel" (one group kernel, :func:`group_kernel`), the round-1 sweep, the
+paired-64 sweep and the normal-matrix inverse. The first kernels of "ref",
+"r<q>" and "panel", the round-1 sweep and the normal-matrix inverse stay
+beside theirs as witnesses in the same way (:func:`pivot_sweep_ref_prev`,
+:func:`pivot_sweep_group_prev`, :func:`pivot_sweep_2d_prev`,
 :func:`normal_inverse_prev`). Every public
 entry point here that computes torch products around the kernels
 (``spd_inverse_sweep_fused``, ``gj_solve_sweep``, ``spd_inverse_sweep``,
@@ -170,16 +171,43 @@ def _blocks_cuda(wrapper, entry: str, D: torch.Tensor, *extra,
     return out
 
 
+#: The group kernels' entry points by :func:`group_kernel`'s name.
+_GROUP_ENTRIES = {"warp": "qps_pivot_sweep_group",
+                  "block": "qps_pivot_sweep_group_prev"}
+
+
+def _group_args(variant: str):
+    """(q, panel) of a group formulation ("r<q>" with q >= 2, or "panel");
+    None for any other variant."""
+    if variant == "panel":
+        return PANEL_WIDTH, 1
+    q = pivot_rank(variant)
+    return (q, 0) if q is not None and q > 1 else None
+
+
+def group_kernel(variant: str) -> str:
+    """The kernel a group formulation ("r<q>" with q >= 2, or "panel")
+    launches on the card: "warp" (csrc/pivot_variants.cu:
+    group_sweep_kernel, v3's register layout, one barrier a group) where a
+    group's q pivots lie in one warp's 16 rows, q in {2, 4, 8, 16} and the
+    panel (q = 8); "block" (the first port, pivot_sweep_group_kernel, one
+    512-thread CTA a block, three or four barriers a group) for q in {32,
+    64, 128}, whose groups span warps. Any other variant raises."""
+    args = _group_args(variant)
+    if args is None:
+        raise ValueError(f"{variant!r} is not a group formulation ('r<q>' "
+                         f"with q >= 2, or 'panel')")
+    return "warp" if args[0] <= 16 else "block"
+
+
 def _pivot_sweep_cuda(D: torch.Tensor, variant: str) -> torch.Tensor:
     if D.shape[1:] != (NB, NB):
         raise ValueError(f"pivot kernel takes (B, {NB}, {NB}); got {tuple(D.shape)}")
-    q = pivot_rank(variant)
+    group = _group_args(variant)
     if variant == "ref":
         entry, extra = "qps_pivot_sweep_ref", ()
-    elif variant == "panel":
-        entry, extra = "qps_pivot_sweep_group", (PANEL_WIDTH, 1)
-    elif q is not None and q > 1:
-        entry, extra = "qps_pivot_sweep_group", (q, 0)
+    elif group is not None:
+        entry, extra = _GROUP_ENTRIES[group_kernel(variant)], group
     else:  # "v3", "value" and "r1": v3's arithmetic
         entry, extra = "qps_pivot_sweep_v3", ()
     return _blocks_cuda(spd_inverse_unrolled, entry, D, *extra, variant=variant)
@@ -233,23 +261,12 @@ def pivot_sweep_v3_prev(D: torch.Tensor) -> torch.Tensor:
 pivot_sweep_v3_prev.launches = 0
 
 
-def _witness_operands(name: str, *tensors: torch.Tensor) -> bool:
-    """A witness wrapper's rule: float32 (or, for the plain versions on the
-    CPU, float64) tensors on the CPU or a CUDA card; True where the wrapper
-    launches its kernel."""
-    for t in tensors:
-        if t.dtype not in (torch.float32, torch.float64):
-            raise ValueError(f"{name}: takes float32 (float64 on the CPU); "
-                             f"got {t.dtype}")
-    return _build.launches_kernel(name, tensors[0])
-
-
 def _witness_blocks(wrapper, D: torch.Tensor) -> bool:
-    """:func:`_witness_operands` for the witness sweeps' (B, 128, 128)
+    """``_build.launches_witness`` for the witness sweeps' (B, 128, 128)
     blocks."""
     if D.ndim != 3 or D.shape[1:] != (NB, NB):
         raise ValueError(f"blocks must be ({NB}, {NB}); got {tuple(D.shape)}")
-    return _witness_operands(wrapper.__name__, D)
+    return _build.launches_witness(wrapper.__name__, D)
 
 
 def pivot_sweep_2d_prev(D: torch.Tensor) -> torch.Tensor:
@@ -282,6 +299,26 @@ def pivot_sweep_ref_prev(D: torch.Tensor) -> torch.Tensor:
 
 
 pivot_sweep_ref_prev.launches = 0
+
+
+def pivot_sweep_group_prev(D: torch.Tensor, variant: str) -> torch.Tensor:
+    """The group formulation ``variant`` ("r<q>" with q >= 2 dividing 128,
+    or "panel") on (B, 128, 128) blocks through the port's first kernel of
+    it (csrc/pivot_variants.cu: pivot_sweep_group_kernel), which
+    :func:`spd_inverse_unrolled`'s "warp" kernel must equal bit for bit: its
+    witness and timing baseline (no solver calls it for q <= 16; it is
+    itself the "block" kernel of q >= 32, :func:`group_kernel`). On a CUDA
+    tensor (float32, unit column stride, any B >= 1) it launches that kernel
+    and counts it in ``pivot_sweep_group_prev.launches``; on a CPU tensor it
+    runs :func:`pivot_sweep_plain`. Any other variant raises."""
+    group_kernel(variant)  # checks the variant
+    if not _witness_blocks(pivot_sweep_group_prev, D):
+        return pivot_sweep_plain(D, variant)
+    return _blocks_cuda(pivot_sweep_group_prev, "qps_pivot_sweep_group_prev",
+                        D, *_group_args(variant))
+
+
+pivot_sweep_group_prev.launches = 0
 
 
 def _check_sweep_shape(M: torch.Tensor) -> int:
@@ -585,7 +622,7 @@ def normal_inverse_prev(P: torch.Tensor, A: torch.Tensor, rho: torch.Tensor, *,
     ``normal_inverse_prev.launches``; on CPU tensors it runs
     :func:`normal_inverse_plain`. Other dtypes raise."""
     B, n, m = _check_normal_args("normal_inverse_prev", P, A, rho)
-    if not _witness_operands("normal_inverse_prev", P, A, rho):
+    if not _build.launches_witness("normal_inverse_prev", P, A, rho):
         return normal_inverse_plain(P, A, rho, sigma)
     kw = dict(dtype=torch.float32, device=P.device)
     out, ws = torch.empty((B, n, n), **kw), torch.empty((B, n, n), **kw)

@@ -1226,8 +1226,10 @@ def test_build_keeps_the_square_kernel_off_128(dev):
 
 
 def test_high_level_keeps_the_two_launch_kernel(dev):
-    """slab_level(..., "high") still runs the two-launch bf16x3 kernel:
-    bit for bit a direct call of its C entry point at prec 1."""
+    """The two-launch bf16x3 level stays as the strip kernel's witness:
+    slab_level_prev(..., dot_precision="high") is bit for bit a direct call
+    of its C entry point at prec 1, one witness launch counted and none of
+    slab_level's."""
     from quadraticprogramsolver_tpu_torch import _build
 
     b, n, m = 16, 512, 256
@@ -1238,8 +1240,10 @@ def test_high_level_keeps_the_two_launch_kernel(dev):
     Dinv = spd_kernels.spd_inverse_unrolled(S[:, j * 128:, w_out:w_out + 128])
     Sh, Sd = S.clone(), S.clone()
     fused_factor.slab_level.variants.clear()
-    fused_factor.slab_level(Sh, Dinv, j, w_out, dot_precision="high")
-    assert dict(fused_factor.slab_level.variants) == {"high": 1}
+    fused_factor.slab_level_prev.launches = 0
+    fused_factor.slab_level_prev(Sh, Dinv, j, w_out, dot_precision="high")
+    assert fused_factor.slab_level_prev.launches == 1
+    assert not fused_factor.slab_level.variants
     scratch = torch.empty((b, 128, w_out), device=dev)
     code = _build.load().lib.qps_slab_level(
         Sd.data_ptr(), Dinv.data_ptr(), scratch.data_ptr(), w_out, b, n,
@@ -1509,3 +1513,118 @@ def test_normal_inverse_allocates_no_working_copy(dev):
     assert peaks["normal_inverse"] <= own + (1 << 20), peaks
     assert peaks["normal_inverse_prev"] - peaks["normal_inverse"] >= 4 * b * (
         n * n + 128 * n), peaks
+
+
+# -- rows 3b, 9 and 10: the bf16x3 strip level, and the rank-q and panel
+# -- sweeps in v3's register layout --
+
+
+@pytest.mark.parametrize("b", [5, 300])
+@pytest.mark.parametrize("ms", [(64,), (128,), (64, 64)],
+                         ids=["m64", "m128", "two_blocks"])
+@pytest.mark.parametrize("n", [128, 256, 512])
+def test_strip_level_high_matches_previous_kernel(dev, n, ms, b):
+    """Row 3b's strip kernel (one launch a level on the tensor cores) bit
+    for bit the two-launch bf16x3 level (``slab_level_prev`` at "high") on
+    the whole slab, at every level j: m = 64 gives w_out % 128 == 0, m =
+    128 (one block or two of 64 rows) gives 64, a 64-wide last strip; B =
+    300 is more than one wave; and within TOL of its plain version."""
+    P, A, q, rho = _factor_operands(dev, 46, b, n, ms)
+    S = fused_factor.build_slab(P, A, q, rho, 1e-6)
+    kp = fused_factor.slab_k(sum(ms))
+    for j in range(n // 128 - 1, -1, -1):
+        w_out = kp + j * 128
+        Dinv = spd_kernels.spd_inverse_unrolled(
+            S[:, j * 128:(j + 1) * 128, w_out:w_out + 128])
+        new, plain = S.clone(), S.clone()
+        fused_factor.slab_level.variants.clear()
+        fused_factor.slab_level_prev.launches = 0
+        fused_factor.slab_level(new, Dinv, j, w_out, dot_precision="high")
+        fused_factor.slab_level_prev(S, Dinv, j, w_out, dot_precision="high")
+        assert dict(fused_factor.slab_level.variants) == {"high": 1}
+        assert fused_factor.slab_level_prev.launches == 1
+        assert torch.isfinite(S).all()
+        assert torch.equal(new, S), j
+        fused_factor.slab_level_plain(plain, Dinv, j, w_out, "high")
+        assert _close(new, plain), j
+
+
+#: The group formulations whose kernel is group_sweep_kernel: every q
+#: dividing 16 and the panel.
+WARP_GROUPS = ["r2", "r4", "r8", "r16", "panel"]
+
+
+@pytest.mark.parametrize("variant", WARP_GROUPS)
+def test_group_sweep_matches_previous_kernel(dev, variant):
+    """Rows 9 and 10: the group sweep in v3's register layout against the
+    first port (``pivot_sweep_group_prev``), bit for bit, one launch each
+    counted: on well-conditioned and spread-diagonal blocks, a pivot block
+    of a larger matrix read through its strides, B = 4 and B = 2 x resident
+    CTAs + 3; and within TOL of its plain version."""
+    g = torch.Generator(device=dev).manual_seed(63)
+    big = _gram_blocks(dev, 8, 384, g)
+    strided = big[:, 128:256, 128:256]
+    assert spd_kernels.group_kernel(variant) == "warp"
+    inv, prev = spd_kernels.spd_inverse_unrolled, spd_kernels.pivot_sweep_group_prev
+    for D in (_gram_blocks(dev, 16, 128, g), _spread_blocks(dev, 16, g), strided,
+              _gram_blocks(dev, 4, 128, g),
+              _gram_blocks(dev, 2 * _resident_sweeps(dev) + 3, 128, g)):
+        inv.variants.clear()
+        prev.launches = 0
+        out, wit = inv(D, variant=variant), prev(D, variant)
+        assert dict(inv.variants) == {variant: 1}
+        assert prev.launches == 1
+        assert torch.equal(out, wit), (variant, tuple(D.shape))
+        assert _close(out, spd_kernels.pivot_sweep_plain(D, variant))
+
+
+@pytest.mark.parametrize("variant", ["r32", "r64", "r128"])
+def test_wide_groups_keep_the_first_kernel(dev, variant):
+    """q >= 32 (a group spans warps) stays on the first port: the entry
+    point is bit for bit its witness wrapper, counted under the variant."""
+    g = torch.Generator(device=dev).manual_seed(64)
+    D = _spread_blocks(dev, 8, g)
+    assert spd_kernels.group_kernel(variant) == "block"
+    inv = spd_kernels.spd_inverse_unrolled
+    inv.variants.clear()
+    out = inv(D, variant=variant)
+    assert dict(inv.variants) == {variant: 1}
+    assert torch.equal(out, spd_kernels.pivot_sweep_group_prev(D, variant))
+
+
+def _witness_factor(P, A, q, rho, pivot_variant, dot_precision):
+    """The fused factor through the witnesses: the previous build, each
+    pivot block through pivot_sweep_group_prev (or v3's kernel), each level
+    through the two-launch slab_level_prev."""
+    n, m = q.shape[-1], rho.shape[-1]
+    kp = fused_factor.slab_k(m)
+    S = fused_factor.build_slab(P, A, q, rho, 1e-6)
+    for j in range(n // 128 - 1, -1, -1):
+        w_out = kp + j * 128
+        D = S[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
+        Dinv = (spd_kernels.pivot_sweep_v3_prev(D) if pivot_variant == "v3"
+                else spd_kernels.pivot_sweep_group_prev(D, pivot_variant))
+        fused_factor.slab_level_prev(S, Dinv, j, w_out, dot_precision=dot_precision)
+    return S
+
+
+@pytest.mark.parametrize("ms", [(256,), (128, 128)], ids=["one_block", "two_blocks"])
+@pytest.mark.parametrize("knob", ["r2", "r4", "r8", "panel", "high"])
+def test_knob_factor_matches_witness_factor(dev, knob, ms):
+    """Phases 9c-9g's fused factors at n = 512, both families' shapes, bit
+    for bit the same factor through the witnesses (their parent's
+    kernels): four launches of the knob's kernel and none of a witness."""
+    b, n = 16, 512
+    P, A, q, rho = _factor_operands(dev, 47, b, n, ms)
+    pivot, prec = ("v3", "high") if knob == "high" else (knob, "highest")
+    spd_kernels.spd_inverse_unrolled.variants.clear()
+    fused_factor.slab_level.variants.clear()
+    spd_kernels.pivot_sweep_group_prev.launches = 0
+    fused_factor.slab_level_prev.launches = 0
+    S = fused_factor.fused_factor_solve(P, A, q, rho, sigma=1e-6,
+                                        pivot_variant=pivot, dot_precision=prec)
+    assert dict(spd_kernels.spd_inverse_unrolled.variants) == {pivot: 4}
+    assert dict(fused_factor.slab_level.variants) == {prec: 4}
+    assert spd_kernels.pivot_sweep_group_prev.launches == 0
+    assert fused_factor.slab_level_prev.launches == 0
+    assert torch.equal(S, _witness_factor(P, A, q, rho, pivot, prec))

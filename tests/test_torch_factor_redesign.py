@@ -1,12 +1,13 @@
 """Rows 1 and 3's redesigned kernels as the CPU can check them.
 
 The fused factor's dispatch rules (``ops/fused_factor.py: build_kernel``, a
-pure function of n; ``level_kernel``, of the level's precision), the witness
-wrappers that launch the previous kernels on the card (``build_slab_prev``,
+pure function of n; ``level_kernel``, of the level's precision: the strip
+kernel at both since the bf16x3 level's redesign), the witness wrappers that
+launch the previous kernels on the card (``build_slab_prev``,
 ``slab_level_prev``: their plain versions here) against their plain versions
 and, through a whole factor, against the JAX package's fused factor in
-interpret mode, and the level's scratch rule (only the two-launch "high"
-level takes one). The kernels themselves run only on the card
+interpret mode, and the level's scratch rule (no level of the factor takes
+one). The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -45,7 +46,7 @@ def test_build_kernel_rule(n):
     assert fused_factor.build_kernel(n) == BUILD_RULE[n]
 
 
-@pytest.mark.parametrize("prec,kernel", [("highest", "strip"), ("high", "tiles")])
+@pytest.mark.parametrize("prec,kernel", [("highest", "strip"), ("high", "strip")])
 def test_level_kernel_rule(prec, kernel):
     assert fused_factor.level_kernel(prec) == kernel
 
@@ -126,29 +127,31 @@ def test_witness_wrappers_run_their_plain_versions_on_cpu(ms):
 @pytest.mark.parametrize("prec", ["highest", "high"])
 def test_fused_factor_solve_takes_a_scratch_only_for_the_tiles_level(
         monkeypatch, prec):
-    """The strip level needs no scratch: at "highest" every level gets
-    scratch=None; at "high" one (B, 128, kp + n - 128) buffer is shared by
-    the levels. The slab is the same as with the unpatched levels."""
+    """Both precisions run the strip level, which takes no scratch: every
+    level gets the slab, Dinv, j, w_out and the precision alone, and the
+    factor allocates no (B, 128, w) buffer. The slab is the same as with
+    the unpatched levels."""
     P, blocks, q, rho = _torch_inputs((128,), 5)
     args = (P, blocks[0], q, rho)
     ref = fused_factor.fused_factor_solve(*args, sigma=SIGMA, dot_precision=prec)
-    seen = []
-    level = fused_factor.slab_level
+    seen, shapes = [], []
+    level, empty = fused_factor.slab_level, torch.empty
 
-    def spy(S, Dinv, j, w_out, scratch=None, dot_precision="highest"):
-        seen.append(scratch)
-        return level(S, Dinv, j, w_out, scratch, dot_precision)
+    def spy(S, Dinv, j, w_out, *rest, **kw):
+        seen.append((rest, kw))
+        return level(S, Dinv, j, w_out, *rest, **kw)
+
+    def spy_empty(*shape, **kw):
+        shapes.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return empty(*shape, **kw)
 
     monkeypatch.setattr(fused_factor, "slab_level", spy)
+    monkeypatch.setattr(torch, "empty", spy_empty)
     S = fused_factor.fused_factor_solve(*args, sigma=SIGMA, dot_precision=prec)
+    monkeypatch.undo()
     assert torch.equal(S, ref)
-    assert len(seen) == N // 128
-    if prec == "highest":
-        assert all(s is None for s in seen)
-    else:
-        kp = fused_factor.slab_k(128)
-        assert all(s is seen[0] for s in seen)
-        assert tuple(seen[0].shape) == (B, 128, kp + N - 128)
+    assert seen == [((prec,), {})] * (N // 128)
+    assert not [s for s in shapes if len(s) == 3 and s[:2] == (B, 128)], shapes
 
 
 def test_witness_wrappers_reject_other_devices():
