@@ -76,19 +76,25 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    sweep on the slab's pivot blocks and spread-diagonal blocks, the
    paired-64 sweep on their leading 64-blocks (LIMIT, or the f64 witness
    where FP32 rounding fills it; beside ``torch.linalg.inv``), the Schur
-   inverse of the 128-blocks, and the fused normal-matrix inverse of the
-   phase's n=512, m=256 fleet with per-lane rho (beside the library
-   Cholesky inverse of a torch-built M and the port's M^{-1} route). Rows
-   6, 7 and 12's kernels (the unscaled sweep in v3's register layout, the
-   normal inverse in place on sgemm.cuh) are also held bit for bit against
-   their first ports, kept as witnesses (``pivot_sweep_2d_prev`` also under
-   its zero-pivot guard, ``pivot_sweep_ref_prev``, ``normal_inverse_prev``),
-   and timed in turns beside them.
+   inverse of the 128-blocks (its time split by launch kind, beside row
+   2's direct v3 sweep: ``schur_split``), and the fused normal-matrix
+   inverse of the phase's n=512, m=256 fleet with per-lane rho (beside the
+   library Cholesky inverse of a torch-built M and the port's M^{-1}
+   route). Rows 6, 7, 11 and 12's kernels (the unscaled sweep in v3's
+   register layout, the paired sweep in v3's layout on its side, the normal
+   inverse in place on sgemm.cuh) are also held bit for bit against their
+   first ports, kept as witnesses (``pivot_sweep_2d_prev`` also under its
+   zero-pivot guard, ``pivot_sweep_ref_prev``, ``pivot_sweep_v3p_prev``,
+   ``normal_inverse_prev``), and timed in turns beside them (row 11 on the
+   device alone, ``device_ms``).
 2b. Rows 1, 2, 3, 4a and 5a at the main paths' B=4096 beside their previous
    kernels (the build of both families and the level at j=3 as in phase 2,
    with the yardstick; the pivot sweep on the fleet's last pivot blocks,
    and rows 6 and 7 on the same blocks beside their witnesses; rows 3b, 9
-   and 10 beside theirs at B=512 and 4096 (``knob_redesigns``), the ADMM chunk
+   and 10 beside theirs at B=512 and 4096 (``knob_redesigns``), row 11
+   beside its witness on slab, spread and gram 64-blocks at B=512, 3072 and
+   4096 (``paired_redesign``) and the Schur inverse's time split on phase
+   10a's 128-blocks at B=3072, the ADMM chunk
    at K=11 and the prox chunk at K=25 with every lane active, also at
    B=512), bit for bit and timed in turns, with each cluster chunk's
    clusters resident at once; rows 4c and 5c, each "high" and "default"
@@ -177,7 +183,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     ``spd_inverse_nb``, ``spd_inverse_128_schur``, ``torch.linalg.inv`` and
     the Cholesky inverse, each the best of 3 after a warm call with its
     error against f64 on three lanes (rows 6 and 11 must reach the probe's
-    1e-5); 10b ``spd_inverse_sweep`` beside the same sweep on row 6's
+    1e-5), then one counted Schur call (exactly 2 paired sweeps, no
+    witness); 10b ``spd_inverse_sweep`` beside the same sweep on row 6's
     witness (bit for bit) and ``spd_inverse_sweep_fused`` on phase 7a's
     normal matrices (B=2048, n=512; 4 row-6 launches a call); 10c
     ``normal_inverse`` on phase 7a's P and A with one rho a lane (0.1,
@@ -347,6 +354,7 @@ WITNESSES = {"slab_build_prev": "slab_build",
              "prox_chunk_minv": "prox_chunk_minv_cluster",
              "ell_matvec_prev": "ell_matvec",
              "pivot_sweep_2d_prev": "pivot_sweep_2d",
+             "pivot_sweep_v3p_prev": "pivot_sweep_v3p",
              "pivot_sweep_ref_prev": "pivot_sweep_ref",
              "normal_inverse_prev": "normal_inverse",
              "pivot_sweep_group_prev": "pivot_sweep_r2, pivot_sweep_r4, "
@@ -365,7 +373,8 @@ WITNESS_WRAPPERS = ("slab_build_prev", "slab_level_prev",
                     "fused_proxqp_chunk_minv_streaming",
                     "fused_proxqp_chunk_minv_cluster",
                     "pivot_sweep_2d_prev", "pivot_sweep_ref_prev",
-                    "normal_inverse_prev", "pivot_sweep_group_prev")
+                    "normal_inverse_prev", "pivot_sweep_group_prev",
+                    "pivot_sweep_v3p_prev")
 #: Phase 2b: the redesigns and their witnesses at the main path's B.
 B_REDESIGN = B_MAIN
 #: The triangle build's gram part against the previous kernel's: max |new -
@@ -426,7 +435,7 @@ ENTRY_KERNELS = {
     "normal_inverse": ("csrc/normal_inverse.cu",
                        "quadraticprogramsolver_tpu/ops/spd_kernels.py:709"),
 }
-#: The first ports of rows 6, 7, 9-10 and 12, kept beside their redesigns
+#: The first ports of rows 6, 7, 9-10, 11 and 12, kept beside their redesigns
 #: as bit-for-bit witnesses (a kernels-JSON entry each): witness -> (its
 #: source, the TPU kernel it replaces, the counted runs whose witness count
 #: it reports: the phase-9 stacks named, or phase 10's counted call of its
@@ -444,7 +453,18 @@ ENTRY_WITNESSES = {
     "pivot_sweep_group_prev": ("csrc/pivot_variants.cu",
                                "quadraticprogramsolver_tpu/ops/spd_kernels.py:298",
                                ("9c", "9d", "9e", "9f")),
+    "pivot_sweep_v3p_prev": ("csrc/pivot_sweep_v3p.cu",
+                             "quadraticprogramsolver_tpu/ops/spd_kernels.py:407",
+                             ()),
 }
+#: Row 11 in phase 2b: the batches at which the paired sweep is held to its
+#: witness (phase 2's B, phase 10a's, the main path's).
+B_PAIRED = (512, 3072, 4096)
+#: The Schur inverse's device kernels by launch kind, as torch.profiler names
+#: them (a fragment of each name): the two paired sweeps, the four products,
+#: the three concatenations; the rest are its element-wise kernels.
+SCHUR_KINDS = {"sweeps": "pivot_sweep_v3p_kernel", "products": "gemm",
+               "concatenations": "CatArray"}
 #: Rows 9 and 10: the group formulations that run group_sweep_kernel on the
 #: main path's knobs (phase-9 stacks), each held to its witness.
 GROUP_VARIANTS = ("r2", "r4", "r8", "panel")
@@ -721,11 +741,14 @@ def spread_blocks(torch, B, g):
     return (D * s[:, :, None] * s[:, None, :]).float()
 
 
-def sweep_pair(torch, label, name, new, prev, blocks, failures):
+def sweep_pair(torch, label, name, new, prev, blocks, failures, cold=False):
     """A redesigned sweep (``new``) against its witness (``prev``, the
-    first port) on each of ``blocks`` (kind -> (B, 128, 128) blocks), bit
-    for bit; then both timed in turns on the first kind. Returns (new ms,
-    previous ms)."""
+    first port) on each of ``blocks`` (kind -> (B, n, n) blocks), bit for
+    bit; then both timed in turns on the first kind: by cuda_ms, or with
+    ``cold`` in device time (``device_ms``, for kernels shorter than a
+    call's host work) with each call on its own copy of the blocks
+    (``pitched_copies``), so that they come from device memory and not
+    from the L2. Returns (new ms, previous ms)."""
     for kind, D in blocks.items():
         same = torch.equal(new(D), prev(D))
         log(f"[{label}] B={D.shape[0]} {name} ({kind} blocks): bit for bit "
@@ -734,10 +757,34 @@ def sweep_pair(torch, label, name, new, prev, blocks, failures):
             failures.append(f"{label}: {name} ({kind} blocks) is not the "
                             "previous kernel's bits")
     D = next(iter(blocks.values()))
-    ms_prev, ms_new = in_turns(lambda: prev(D), lambda: new(D))
+    if cold:
+        copies = pitched_copies(torch, D)
+        ms_prev, ms_new = in_turns([lambda c=c: prev(c) for c in copies],
+                                   [lambda c=c: new(c) for c in copies],
+                                   device_ms)
+        del copies
+    else:
+        ms_prev, ms_new = in_turns(lambda: prev(D), lambda: new(D))
     log(f"[{label}] B={D.shape[0]} {name} {ms_new:.4f} ms, witness "
-        f"{ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x, in turns)")
+        f"{ms_prev:.4f} ms ({ms_prev / ms_new:.2f}x, in turns"
+        + (", device time from memory)" if cold else ")"))
     return ms_new, ms_prev
+
+
+def pitched_copies(torch, D):
+    """Copies of the (B, n, n) blocks D, each a view of its own (B, n, 2n)
+    buffer (read with a row pitch, as a block of a wider matrix is), enough
+    that a call on each in turn reads its blocks from device memory and not
+    from the L2: together at least three times the L2's size, and at least
+    2."""
+    B, n, _ = D.shape
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    copies = []
+    for _ in range(max(2, -(-3 * l2 // D.nbytes))):
+        buf = torch.empty((B, n, 2 * n), device=D.device, dtype=D.dtype)
+        buf[..., :n] = D
+        copies.append(buf[..., :n])
+    return copies
 
 
 def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, extra, failures):
@@ -843,13 +890,15 @@ def phase_factor_kernels(torch, D, Sp, Dp, j, w_out, g, out, extra, failures):
 def phase_entry_kernels(torch, D, qp, out, extra, failures):
     """Rows 6, 11 and 12 at phase 2's shapes, each against its plain version
     (LIMIT, or the f64 witness where FP32 rounding alone fills it) and timed
-    beside its library call, rows 6 and 12 also bit for bit their first
-    ports (``pivot_sweep_2d_prev``, ``normal_inverse_prev``) and timed
-    beside them in turns: the round-1 sweep on the slab's pivot blocks
+    beside its library call, rows 6, 11 and 12 also bit for bit their first
+    ports (``pivot_sweep_2d_prev``, ``pivot_sweep_v3p_prev``,
+    ``normal_inverse_prev``) and timed beside them in turns: the round-1
+    sweep on the slab's pivot blocks
     ``D`` (and on spread-diagonal blocks, and under its zero-pivot guard)
     beside ``torch.linalg.inv``; the
     paired-64 sweep on their leading 64-blocks beside ``torch.linalg.inv`` on
-    those, and the Schur inverse of ``D``; the normal-matrix inverse of
+    those, and the Schur inverse of ``D`` (``schur_split``); the
+    normal-matrix inverse of
     ``qp``'s P and A with per-lane rho in [0.1, 10] beside the library
     Cholesky inverse of a torch-built M and the port's M^{-1} route
     (``spd_inverse(_build_normal_matrix(...))``). Numbers beyond ``out``'s
@@ -880,28 +929,37 @@ def phase_entry_kernels(torch, D, qp, out, extra, failures):
         ms_prev, plain_ms, lib_ms, pivot_bound(B))
     extra["pivot_sweep_2d"] = {"witness_ms": ms_prev}
 
-    D64 = D[:, :64, :64]
+    D64, spread64 = D[:, :64, :64], spread[:, :64, :64]
     errs = [limit_or_witness(f"pivot_sweep_v3p ({kind} blocks)", "pivot_sweep_v3p",
                              sk.spd_inverse_64p, sk.pivot_sweep_v3p_plain,
                              (Dk,), failures)
-            for kind, Dk in (("slab", D64), ("spread", spread[:, :64, :64]))]
-    out["pivot_sweep_v3p"] = (
-        errs[0], cuda_ms(lambda: sk.spd_inverse_64p(D64)),
-        cuda_ms(lambda: sk.pivot_sweep_v3p_plain(D64)),
-        cuda_ms(lambda: torch.linalg.inv(D64)),
-        bound(4 * 2 * B * 64 * 64, B * 64 ** 3))
+            for kind, Dk in (("slab", D64), ("spread", spread64))]
+    # Row 11 bit for bit its first port, both timed in turns on the device
+    # alone (a call's host work outlasts either kernel), from memory.
+    ms_new, ms_prev = sweep_pair(
+        torch, "phase 2", "pivot_sweep_v3p", sk.spd_inverse_64p,
+        sk.pivot_sweep_v3p_prev, {"slab": D64, "spread": spread64}, failures,
+        cold=True)
+    plain_ms = cuda_ms(lambda: sk.pivot_sweep_v3p_plain(D64))
+    lib_ms = cuda_ms(lambda: torch.linalg.inv(D64))
+    bnd = bound(4 * 2 * B * 64 * 64, B * 64 ** 3)
+    out["pivot_sweep_v3p"] = (errs[0], ms_new, plain_ms, lib_ms, bnd)
+    out["pivot_sweep_v3p_prev"] = (
+        limit_or_witness("pivot_sweep_v3p_prev (slab blocks)",
+                         "pivot_sweep_v3p_prev", sk.pivot_sweep_v3p_prev,
+                         sk.pivot_sweep_v3p_plain, (D64,), failures),
+        ms_prev, plain_ms, lib_ms, bnd)
     ref = torch.linalg.inv(D.double())
     schur_err = float((sk.spd_inverse_128_schur(D).double() - ref).abs().max()
                       / ref.abs().max())
     extra["pivot_sweep_v3p"] = {
-        "schur_ms": cuda_ms(lambda: sk.spd_inverse_128_schur(D)),
-        "schur_rel_err_f64": schur_err,
-        "schur_library_ms": out["pivot_sweep_2d"][3]}
-    log(f"[phase 2] spd_inverse_128_schur (B={B}): "
-        f"{extra['pivot_sweep_v3p']['schur_ms']:.4f} ms (median of 5), "
-        f"{schur_err:.3e} from f64 relative to its max, beside "
-        f"torch.linalg.inv {out['pivot_sweep_2d'][3]:.4f} ms")
-    del spread, ref
+        "witness_ms": ms_prev, "schur_rel_err_f64": schur_err,
+        "schur_library_ms": out["pivot_sweep_2d"][3],
+        **schur_split(torch, D, "phase 2")}
+    log(f"[phase 2] spd_inverse_128_schur (B={B}): {schur_err:.3e} from f64 "
+        f"relative to its max, beside torch.linalg.inv "
+        f"{out['pivot_sweep_2d'][3]:.4f} ms")
+    del spread, spread64, ref
 
     n, m, sigma = qp.n, qp.m, 1e-6
     rho = 0.1 * 100.0 ** torch.rand(B, generator=g, device=DEVICE)
@@ -934,6 +992,51 @@ def phase_entry_kernels(torch, D, qp, out, extra, failures):
     extra["normal_inverse"] = {"route_ms": cuda_ms(route), "witness_ms": ms_prev}
     log(f"[phase 2] normal_inverse: the port's M^-1 route (build + sweep) "
         f"{extra['normal_inverse']['route_ms']:.4f} ms (median of 5)")
+
+
+def schur_split(torch, D, label):
+    """Where ``spd_inverse_128_schur``'s time goes on the (B, 128, 128)
+    blocks D: one call traced by torch.profiler, its device ms and launches
+    by kind (SCHUR_KINDS, and the element-wise rest), the call's time
+    (CUDA events around one call, median of 5: the host's launches
+    included) and its device time alone (``device_ms``, each call on its
+    own copy of D from ``l2_copies``, so from memory), beside row 2's
+    direct v3 sweep on the same blocks (both ways). The call must trace two
+    paired sweeps and no witness."""
+    from quadraticprogramsolver_tpu_torch.ops import spd_kernels as sk
+
+    B = D.shape[0]
+    schur = lambda: sk.spd_inverse_128_schur(D)  # noqa: E731
+    v3 = lambda: sk.spd_inverse_unrolled(D, variant="v3")  # noqa: E731
+    kernels = device_kernels(torch, schur)
+    split = by_kind(kernels, SCHUR_KINDS)
+    total = sum(ms for _, ms in kernels.values())
+    split["element-wise"] = (sum(c for c, _ in kernels.values())
+                             - sum(c for c, _ in split.values()),
+                             total - sum(ms for _, ms in split.values()))
+    require(split["sweeps"][0] == 2 and not any(
+        "prev" in k for k in kernels), f"{label}: one Schur call traced "
+        f"{kernels}, not two paired sweeps and no witness")
+    copies = l2_copies(D)
+    res = {"schur_ms": cuda_ms(schur),
+           "schur_device_ms": device_ms(
+               [lambda c=c: sk.spd_inverse_128_schur(c[0]) for c in copies]),
+           "schur_traced_device_ms": total,
+           "schur_split_ms": {k: ms for k, (_, ms) in split.items()},
+           "schur_split_launches": {k: c for k, (c, _) in split.items()},
+           "v3_ms": cuda_ms(v3),
+           "v3_device_ms": device_ms(
+               [lambda c=c: sk.spd_inverse_unrolled(c[0], variant="v3")
+                for c in copies])}
+    del copies
+    log(f"[{label}] B={B} spd_inverse_128_schur: {res['schur_ms']:.4f} ms a "
+        f"call (median of 5), {res['schur_device_ms']:.4f} ms of device time "
+        f"from memory (queued calls); one traced call {total:.4f} ms of kernels: "
+        + ", ".join(f"{k} {ms:.4f} ({c})" for k, (c, ms) in split.items())
+        + f"; row 2's v3 sweep on the same blocks {res['v3_ms']:.4f} ms a "
+        f"call, {res['v3_device_ms']:.4f} ms of device time from memory")
+    log(f"[{label}] the Schur call's kernels (launches, device ms): {kernels}")
+    return res
 
 
 def normal_inverse_bound(B, n, m):
@@ -1602,6 +1705,7 @@ def phase_redesigns(torch):
                                "bound_ms": bms}}
         res[f"{name}_prev"] = {"b4096": {"ms": ms_prev, "bound_ms": bms}}
     knob_redesigns(torch, Sp, D, Dinv, j, w_out, (B_KERNEL, B), failures, res)
+    paired_redesign(torch, D, g, failures, res)
     del Sp, D, Dinv
 
     S = fused_factor.fused_factor_solve(qp.P, qp.A, qp.q, rho, sigma=1e-6)
@@ -1746,6 +1850,42 @@ def knob_redesigns(torch, Sp, D, Dinv, j, w_out, sizes, failures, res):
                                              "bound_ms": bms}
             res.setdefault("pivot_sweep_group_prev", {})[f"{variant}_{tag}"] = {
                 "ms": ms_prev, "bound_ms": bms}
+
+
+def paired_redesign(torch, D, g, failures, res):
+    """Phase 2b, row 11 at each B of B_PAIRED: the paired-64 sweep beside
+    its witness (``pivot_sweep_v3p_prev``), bit for bit on the leading
+    64-blocks of the slab's pivot blocks ``D`` (read through the slab's
+    strides), on spread-diagonal 64-blocks and on gram 64-blocks (the
+    leading blocks of phase 10a's Dm'Dm/128 + 0.05 I), then both timed in
+    turns on the device alone on copies of the slab's blocks (from memory,
+    ``sweep_pair(cold=True)``), beside the byte bound;
+    the numbers go into ``res`` under "b<B>". Then the Schur inverse's time
+    split (``schur_split``) on the first B_PROBE gram 128-blocks, phase
+    10a's shape (its own traced call stays away from phase 10c's traces,
+    which a trace just before them can rob of their first kernels)."""
+    from quadraticprogramsolver_tpu_torch.ops import spd_kernels
+
+    top = max(B_PAIRED)
+    spread = spread_blocks(torch, top, g)[:, :64, :64]
+    Dm = torch.randn((top, 128, 128), generator=g, device=DEVICE)
+    big = Dm.transpose(1, 2) @ Dm / 128 + 0.05 * torch.eye(128, device=DEVICE)
+    gram = big[:, :64, :64]
+    del Dm
+    for b in B_PAIRED:
+        blocks = {"slab": D[:b, :64, :64], "spread": spread[:b], "gram": gram[:b]}
+        ms_new, ms_prev = sweep_pair(
+            torch, "phase 2b", "pivot_sweep_v3p", spd_kernels.spd_inverse_64p,
+            spd_kernels.pivot_sweep_v3p_prev, blocks, failures, cold=True)
+        bms, by = bound(4 * 2 * b * 64 * 64, b * 64 ** 3)
+        log(f"[phase 2b] B={b} pivot_sweep_v3p: bound {bms:.4f} ms ({by}, "
+            f"{bms / ms_new:.0%} of it; the witness {bms / ms_prev:.0%})")
+        res.setdefault("pivot_sweep_v3p", {})[f"b{b}"] = {
+            "ms": ms_new, "witness_ms": ms_prev, "bound_ms": bms}
+        res.setdefault("pivot_sweep_v3p_prev", {})[f"b{b}"] = {
+            "ms": ms_prev, "bound_ms": bms}
+    res["pivot_sweep_v3p"][f"b{B_PROBE}_schur"] = schur_split(
+        torch, big[:B_PROBE], "phase 2b")
 
 
 def minv_redesigns(torch, failures):
@@ -1927,6 +2067,7 @@ def counters():
             "pivot_sweep_ref_prev": spd_kernels.pivot_sweep_ref_prev,
             "normal_inverse_prev": spd_kernels.normal_inverse_prev,
             "pivot_sweep_group_prev": spd_kernels.pivot_sweep_group_prev,
+            "pivot_sweep_v3p_prev": spd_kernels.pivot_sweep_v3p_prev,
             "fused_admm_chunk_streaming": fused_admm.fused_admm_chunk_streaming,
             "fused_admm_chunk_cluster": fused_admm.fused_admm_chunk_cluster,
             "fused_proxqp_chunk_streaming":
@@ -2137,12 +2278,19 @@ def report_prox(prob, sol, dt, fdt, label):
             "status 3")
 
 
+#: Host time kept idle at each edge of a trace's active step.
+TRACE_MARGIN_S = 0.05
+
+
 def traced(torch, fn):
     """(profiler, wall ms) of one call of fn() traced by torch.profiler
     after a warm-up call in the same profiling run: a run that follows
     another one drops the first device events of its first step (the
     factor's first kernels went missing from later profiles), so the
-    warm-up step takes that loss."""
+    warm-up step takes that loss. The traced call also starts and ends
+    TRACE_MARGIN_S from the active step's edges: a call launched right at
+    an edge lost a kernel event there now and then (phase 10c's
+    ``normal_inverse_prev``: its first or one of its last kernels)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -2151,10 +2299,12 @@ def traced(torch, fn):
         fn()
         torch.cuda.synchronize()
         prof.step()  # warm-up -> active; leaving the block ends the trace
+        time.sleep(TRACE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_MARGIN_S)
     return prof, wall
 
 
@@ -2865,6 +3015,7 @@ def phase_entry_points(torch, pkg, cnt, extra):
     _, launches["pivot_sweep_v3p"] = counted_call(
         torch, cnt, lambda: sk.spd_inverse_128_schur(D), "pivot_sweep_v3p",
         "phase 10a spd_inverse_128_schur")
+    launches["pivot_sweep_v3p_prev"] = cnt["pivot_sweep_v3p_prev"].launches
     require(launches["pivot_sweep_v3p"] == 2, "phase 10a: the Schur inverse "
             f"launched {launches['pivot_sweep_v3p']} paired sweeps, not 2")
     extra["pivot_sweep_v3p"]["shootout"] = shootout

@@ -9,6 +9,7 @@ that two checkouts can be compared on one card in turns.
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --stacks; done
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --ref; done
     for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --knobs; done
+    for r in _archive/parent . . _archive/parent; do python3 compare_solves.py $r --schur; done
 
 Each run builds ROOT's kernels, generates phase 3's fleet (B=4096, n=512,
 m=256, seed 1234, the sigma-free fused FP32 knobs at static rho 0.4, eps
@@ -34,6 +35,13 @@ a SHA-256 of x's bytes, so that two checkouts' solves can be held bit for
 bit. ``--knobs`` does the same for phases 9c-9g: phase 3's fleet and knobs
 with ``pivot_variant`` "r2", "r4", "r8", "panel", then
 ``factor_precision="high"`` (each at eps 1e-4, where its audit passes).
+``--schur`` takes chip_smoke.py's phase 10a blocks instead (B=3072
+Dm'Dm/128 + 0.05 I, Dm from seed 1239) and times ``spd_inverse_128_schur``
+on them and on their first 512: the call's best of 3 (host clock, ending in
+a sync), its device time (chip_smoke.py's ``device_ms``: CUDA events around
+20 calls queued behind a busy-wait kernel, each on its own copy of the
+blocks from ``l2_copies``, so read from memory) and the paired sweep's
+alone on the leading 64-blocks, with a SHA-256 of the inverse's bytes.
 Needs a CUDA card.
 """
 
@@ -43,6 +51,8 @@ import json
 import os
 import sys
 import time
+
+from chip_smoke import device_ms, event_ms, l2_copies, on_device, traced
 
 
 def best_ms(torch, fn, reps):
@@ -60,31 +70,43 @@ def best_ms(torch, fn, reps):
 
 def chunk_profile(torch, fn):
     """(device ms of the M^{-1} chunk kernels, their launches, device ms of
-    every kernel) in one solve traced by torch.profiler after a warm-up
-    step (a trace that follows another drops its first device events)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        fn()
-        torch.cuda.synchronize()
+    every kernel) in one solve traced by chip_smoke.py's ``traced`` (after a
+    warm-up step, away from the active step's edges)."""
+    prof, _ = traced(torch, fn)
     chunk = total = 0.0
     launches = 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+        if not on_device(e):
             continue
-        v = getattr(e, "self_device_time_total", None)
-        ms = (e.self_cuda_time_total if v is None else v) / 1e3
+        ms = event_ms(e)
         total += ms
         if "chunk_minv" in e.key:
             chunk += ms
             launches += e.count
     return chunk, launches, total
+
+
+def schur(torch, out):
+    """The Schur inverse on phase 10a's blocks, at B=3072 and its first 512;
+    device times on copies of the blocks (from memory, not the L2)."""
+    from quadraticprogramsolver_tpu_torch.ops import spd_kernels as sk
+
+    g = torch.Generator(device="cuda").manual_seed(1239)
+    Dm = torch.randn((3072, 128, 128), generator=g, device="cuda")
+    D = Dm.transpose(1, 2) @ Dm / 128 + 0.05 * torch.eye(128, device="cuda")
+    del Dm
+    for b in (3072, 512):
+        Db = D[:b]
+        call = lambda: sk.spd_inverse_128_schur(Db)  # noqa: E731
+        out[f"schur_b{b}_ms"] = best_ms(torch, call, 3)
+        copies = l2_copies(Db)
+        out[f"schur_b{b}_device_ms"] = device_ms(
+            [lambda c=c: sk.spd_inverse_128_schur(c[0]) for c in copies])
+        out[f"paired_sweep_b{b}_device_ms"] = device_ms(
+            [lambda c=c: sk.spd_inverse_64p(c[0][:, :64, :64]) for c in copies])
+        del copies
+        out[f"schur_b{b}_sha256"] = hashlib.sha256(
+            call().cpu().numpy().tobytes()).hexdigest()
 
 
 def stacks(torch, pkg, run):
@@ -198,6 +220,10 @@ def main() -> int:
             out[f"phase{tag}_x_sha256"] = hashlib.sha256(
                 sol.x.cpu().numpy().tobytes()).hexdigest()
             del sol
+        print(json.dumps(out), flush=True)
+        return 0
+    if "--schur" in sys.argv[1:]:
+        schur(torch, out)
         print(json.dumps(out), flush=True)
         return 0
     if "--stacks" in sys.argv[1:]:

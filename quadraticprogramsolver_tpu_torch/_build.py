@@ -42,6 +42,7 @@ _SIGNATURES = {
     "qps_pivot_sweep_2d": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_2d_prev": (_P, _L, _L, _P, _I, _P),
     "qps_pivot_sweep_v3p": (_P, _L, _L, _P, _I, _P),
+    "qps_pivot_sweep_v3p_prev": (_P, _L, _L, _P, _I, _P),
     "qps_normal_inverse": (_P,) * 6 + (_I, _I, _I, _F, _P),
     "qps_normal_inverse_prev": (_P,) * 8 + (_I, _I, _I, _F, _P),
     "qps_slab_level": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),

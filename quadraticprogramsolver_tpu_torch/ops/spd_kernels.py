@@ -16,9 +16,10 @@ that copies the JAX kernel's arithmetic, and a CUDA kernel: "v3" and "value"
 it as its bit-for-bit witness, :func:`pivot_sweep_v3_prev`), "ref", "r<q>"
 and "panel" (one group kernel, :func:`group_kernel`), the round-1 sweep, the
 paired-64 sweep and the normal-matrix inverse. The first kernels of "ref",
-"r<q>" and "panel", the round-1 sweep and the normal-matrix inverse stay
-beside theirs as witnesses in the same way (:func:`pivot_sweep_ref_prev`,
-:func:`pivot_sweep_group_prev`, :func:`pivot_sweep_2d_prev`,
+"r<q>" and "panel", the round-1 sweep, the paired-64 sweep and the
+normal-matrix inverse stay beside theirs as witnesses in the same way
+(:func:`pivot_sweep_ref_prev`, :func:`pivot_sweep_group_prev`,
+:func:`pivot_sweep_2d_prev`, :func:`pivot_sweep_v3p_prev`,
 :func:`normal_inverse_prev`). Every public
 entry point here that computes torch products around the kernels
 (``spd_inverse_sweep_fused``, ``gj_solve_sweep``, ``spd_inverse_sweep``,
@@ -520,6 +521,24 @@ def spd_inverse_64p(D: torch.Tensor, *, lanes: int = 8) -> torch.Tensor:
 
 
 spd_inverse_64p.launches = 0
+
+
+def pivot_sweep_v3p_prev(D: torch.Tensor) -> torch.Tensor:
+    """The paired-64 sweep on (B, 64, 64) blocks through the port's first
+    kernel of it (csrc/pivot_sweep_v3p.cu: pivot_sweep_v3p_prev_kernel, one
+    warp a block), which :func:`spd_inverse_64p`'s kernel must equal bit for
+    bit: its witness and timing baseline (no entry point calls it). On a
+    CUDA tensor (float32, unit column stride, any B >= 1) it launches that
+    kernel and counts it in ``pivot_sweep_v3p_prev.launches``; on a CPU
+    tensor it runs :func:`pivot_sweep_v3p_plain`."""
+    if D.ndim != 3 or D.shape[1:] != (HB, HB):
+        raise ValueError(f"blocks must be ({HB}, {HB}); got {tuple(D.shape)}")
+    if not _build.launches_witness("pivot_sweep_v3p_prev", D):
+        return pivot_sweep_v3p_plain(D)
+    return _blocks_cuda(pivot_sweep_v3p_prev, "qps_pivot_sweep_v3p_prev", D)
+
+
+pivot_sweep_v3p_prev.launches = 0
 
 
 @fp32_products()

@@ -267,7 +267,7 @@ def test_port_never_imports_jax():
     for f in files:
         m = bad.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"
-    for script in ("chip_smoke.py", "f64_oracle.py"):
+    for script in ("chip_smoke.py", "f64_oracle.py", "compare_solves.py"):
         text = (PORT_DIR.parent / script).read_text()
         assert bad.search(text) is None, script
         # Nor is a module of the JAX package loaded by its path.

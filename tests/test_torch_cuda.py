@@ -692,6 +692,50 @@ def test_round1_and_paired_sweeps_match_plain_on_card(dev):
     assert _close(out, spd_kernels.sweep_inverse_block_plain(Dz, guard_zero=True))
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("b", [4, 64, 512, 3072])
+def test_paired_sweep_matches_previous_kernel(dev, b):
+    """Row 11's kernel (one 128-thread CTA a 64-block, v3's layout on its
+    side) bit for bit its first port, ``pivot_sweep_v3p_prev``, on gram and
+    spread-diagonal blocks and on strided views (the leading and trailing
+    64-blocks of 128-blocks); one launch counted a call, and none of the
+    witness through ``spd_inverse_64p``."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    big = _gram_blocks(dev, b, 128, g)
+    cases = {"gram": _gram_blocks(dev, b, 64, g),
+             "spread": _spread_blocks(dev, b, g)[:, 32:96, 32:96].contiguous(),
+             "leading": big[:, :64, :64], "trailing": big[:, 64:, 64:]}
+    new, prev = spd_kernels.spd_inverse_64p, spd_kernels.pivot_sweep_v3p_prev
+    for kind, D in cases.items():
+        new.launches = prev.launches = 0
+        out = new(D)
+        assert (new.launches, prev.launches) == (1, 0), kind
+        ref = prev(D)
+        assert prev.launches == 1, kind
+        assert torch.equal(_bits(out), _bits(ref)), kind
+        assert torch.isfinite(out).all(), kind
+
+
+def test_schur_inverse_on_the_witness(dev, monkeypatch):
+    """spd_inverse_128_schur at B=64 launches two paired sweeps and no
+    witness, and its output is bit for bit the same Schur step's on the
+    witness kernel."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    D = _gram_blocks(dev, 64, 128, g)
+    new, prev = spd_kernels.spd_inverse_64p, spd_kernels.pivot_sweep_v3p_prev
+    new.launches = prev.launches = 0
+    out = spd_kernels.spd_inverse_128_schur(D)
+    assert (new.launches, prev.launches) == (2, 0)
+    monkeypatch.setattr(spd_kernels, "spd_inverse_64p",
+                        lambda x, lanes=8: prev(x))
+    ref = spd_kernels.spd_inverse_128_schur(D)
+    assert prev.launches == 2
+    assert torch.equal(_bits(out), _bits(ref))
+
+
 def test_sweep_and_schur_inverses_on_card(dev):
     """spd_inverse_sweep at n=512 (4 row-6 launches) and the Schur inverse at
     B=64 (2 paired launches) against f64 inverses of the same matrices, and

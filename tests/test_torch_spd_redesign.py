@@ -1,16 +1,19 @@
-"""The kept first kernels of rows 6, 7 and 12 as far as the CPU can hold them.
+"""The kept first kernels of rows 6, 7, 11 and 12 as far as the CPU can hold
+them.
 
-The round-1 sweep (``spd_inverse_nb``), the "ref" pivot sweep and the fused
-normal inverse each run a redesigned kernel on the card; their first kernels
-stay beside them as bit-for-bit witnesses that no entry point launches
-(``pivot_sweep_2d_prev``, ``pivot_sweep_ref_prev``, ``normal_inverse_prev``
+The round-1 sweep (``spd_inverse_nb``), the "ref" pivot sweep, the paired-64
+sweep (``spd_inverse_64p``) and the fused normal inverse each run a
+redesigned kernel on the card; their first kernels stay beside them as
+bit-for-bit witnesses that no entry point launches (``pivot_sweep_2d_prev``,
+``pivot_sweep_ref_prev``, ``pivot_sweep_v3p_prev``, ``normal_inverse_prev``
 in ``ops/spd_kernels.py``). On the CPU each witness wrapper runs its
 successor's plain version: here they are held bit for bit to the entry
-points' CPU results and to the JAX package (``pallas_spd_inverse_nb`` and
-``pallas_normal_inverse`` in interpret mode, the "ref" kernel body called
-eagerly through a ref shim, since its interpret mode takes ~30 s), at B = 4
-and n = 256; they refuse devices without a kernel and dtypes the kernels do
-not take; and chip_smoke.py requires every ``*_prev`` wrapper of the port at
+points' CPU results and to the JAX package (``pallas_spd_inverse_nb``,
+``pallas_spd_inverse_64p`` and ``pallas_normal_inverse`` in interpret mode,
+the "ref" kernel body called eagerly through a ref shim, since its interpret
+mode takes ~30 s), at B = 4 and n = 256 (64 for the paired sweep); they
+refuse devices without a kernel and dtypes and shapes the kernels do not
+take; and chip_smoke.py requires every ``*_prev`` wrapper of the port at
 zero launches in every counted run. The card tests (tests/test_torch_cuda.py)
 hold the kernels themselves bit for bit.
 """
@@ -49,13 +52,13 @@ def _well(seed, b=B, nb=NB):
             ).astype(np.float32)
 
 
-def _spread(seed, b=B):
-    """SPD blocks with a spread of diagonal magnitudes (X X'/128 + I scaled
+def _spread(seed, b=B, nb=NB):
+    """SPD blocks with a spread of diagonal magnitudes (X X'/nb + I scaled
     by exp(U(-2, 2)) on each side), rounded to float32."""
     rng = np.random.default_rng(seed)
-    X = rng.standard_normal((b, NB, NB))
-    D = X @ np.swapaxes(X, 1, 2) / NB + np.eye(NB)
-    s = np.exp(rng.uniform(-2, 2, (b, NB)))
+    X = rng.standard_normal((b, nb, nb))
+    D = X @ np.swapaxes(X, 1, 2) / nb + np.eye(nb)
+    s = np.exp(rng.uniform(-2, 2, (b, nb)))
     return (D * s[:, :, None] * s[:, None, :]).astype(np.float32)
 
 
@@ -153,6 +156,34 @@ def test_ref_witness_single_block_runs_the_sweep():
     assert _rel(out, _jax_ref_sweep(D)) <= 1e-5
 
 
+@pytest.mark.parametrize("kind", ["well", "spread"])
+def test_paired_witness_matches_jax_and_the_entry_point(kind):
+    """pivot_sweep_v3p_prev runs the paired sweep's plain version on the
+    CPU: bit for bit spd_inverse_64p's CPU result, within 1e-5 of JAX's
+    pallas_spd_inverse_64p in interpret mode (lanes 2; both FP32, the same
+    operations)."""
+    D = _well(11, nb=64) if kind == "well" else _spread(12, nb=64)
+    spd_kernels.pivot_sweep_v3p_prev.launches = 0
+    out = spd_kernels.pivot_sweep_v3p_prev(_t(D))
+    assert spd_kernels.pivot_sweep_v3p_prev.launches == 0
+    assert torch.equal(out, spd_kernels.spd_inverse_64p(_t(D)))
+    assert torch.equal(out, spd_kernels.pivot_sweep_v3p_plain(_t(D)))
+    ref = np.asarray(jax_spd.pallas_spd_inverse_64p(jnp.asarray(D), lanes=2,
+                                                    interpret=True))
+    assert _rel(out, ref) <= 1e-5
+
+
+def test_paired_witness_takes_any_batch():
+    """The witness stands for the kernel, which takes any B >= 1: no even-B
+    or two-pair rule, unlike spd_inverse_64p."""
+    D = _well(13, b=3, nb=64)
+    out = spd_kernels.pivot_sweep_v3p_prev(_t(D))
+    assert out.shape == (3, 64, 64)
+    assert torch.equal(out, spd_kernels.pivot_sweep_v3p_plain(_t(D)))
+    with pytest.raises(ValueError, match="even"):
+        spd_kernels.spd_inverse_64p(_t(D))
+
+
 @pytest.fixture(scope="module")
 def normal_case():
     """B = 4, n = 256, m = 128 with per-lane rho, and JAX's kernel on it in
@@ -196,13 +227,15 @@ def test_normal_witness_f64():
 
 # -------------------------------------------------- what the witnesses refuse
 
-#: name -> a call of the witness on (B, 128, 128) operands of the given
-#: dtype and device.
+#: name -> a call of the witness on (B, 128, 128) operands (the paired
+#: sweep's: (B, 64, 64)) of the given dtype and device.
 WITNESSES = {
     "pivot_sweep_2d_prev": lambda dt, dev: spd_kernels.pivot_sweep_2d_prev(
         torch.eye(NB, dtype=dt, device=dev).expand(B, NB, NB)),
     "pivot_sweep_ref_prev": lambda dt, dev: spd_kernels.pivot_sweep_ref_prev(
         torch.eye(NB, dtype=dt, device=dev).expand(B, NB, NB)),
+    "pivot_sweep_v3p_prev": lambda dt, dev: spd_kernels.pivot_sweep_v3p_prev(
+        torch.eye(64, dtype=dt, device=dev).expand(B, 64, 64)),
     "normal_inverse_prev": lambda dt, dev: spd_kernels.normal_inverse_prev(
         torch.eye(NB, dtype=dt, device=dev).expand(B, NB, NB),
         torch.zeros((B, NB, NB), dtype=dt, device=dev),
@@ -233,6 +266,12 @@ def test_witness_refuses_other_dtypes(name, dtype):
 def test_sweep_witness_refuses_other_shapes(name):
     with pytest.raises(ValueError, match="blocks must be"):
         getattr(spd_kernels, name)(torch.eye(64).expand(B, 64, 64))
+
+
+@pytest.mark.parametrize("shape", [(B, NB, NB), (B, 64, 32), (64, 64)])
+def test_paired_witness_refuses_other_shapes(shape):
+    with pytest.raises(ValueError, match="blocks must be"):
+        spd_kernels.pivot_sweep_v3p_prev(torch.ones(shape))
 
 
 def test_normal_witness_checks_shapes():
@@ -294,12 +333,13 @@ def test_no_ops_module_keeps_an_unwatched_prev_wrapper():
 
 
 def test_the_new_witnesses_have_kernels_json_entries():
-    """Rows 6, 7 and 12's witnesses have a kernels-JSON entry each, beside
-    their successors (WITNESSES maps each to it), and the three are
+    """Rows 6, 7, 11 and 12's witnesses have a kernels-JSON entry each,
+    beside their successors (WITNESSES maps each to it), and the four are
     counted witness wrappers."""
     smoke = _chip_smoke()
     new = {"pivot_sweep_2d_prev": "pivot_sweep_2d",
            "pivot_sweep_ref_prev": "pivot_sweep_ref",
+           "pivot_sweep_v3p_prev": "pivot_sweep_v3p",
            "normal_inverse_prev": "normal_inverse"}
     assert set(new) <= set(smoke.ENTRY_WITNESSES)
     assert {k: smoke.WITNESSES[k] for k in new} == new
