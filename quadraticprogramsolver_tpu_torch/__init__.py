@@ -10,43 +10,57 @@ jax.
 """
 
 from .core.problem import (QP, ProxQPProblem, make_proxqp, make_qp,
-                           pad_proxqp, pad_qp, validate_qp)
+                           pad_proxqp, pad_qp, stack_qps, validate_qp)
 from .core.settings import KKTBackendKind, ProxQPSettings, Settings
 from .core.sparse_problem import SparseQP, make_sparse_qp
 from .core.state import SolveInfo, Solution, Status
-from .models.admm import solve, solve_jit
+from .frontends.reuse import CachedQPSolver
+from .models.admm import PreparedFactor, prepare, prepare_jit, solve, solve_jit
 from .models.plan import SolvePlan, plan, plan_proxqp
 from .models.proxqp import PreparedProxFactor, ProxQPSolution
 from .models.proxqp import prepare as prepare_proxqp
 from .models.proxqp import solve as solve_proxqp
 from .models.proxqp import solve_jit as solve_proxqp_jit
-from .problems.generator import generate_large_sparse_qp
+from .problems.generator import (ALL_CLASSES, ProblemClass, generate_batch,
+                                 generate_large_sparse_qp, generate_random_qp)
+
+__version__ = "0.1.0"
 
 __all__ = [
     "QP",
-    "make_qp",
-    "pad_qp",
-    "validate_qp",
+    "ProxQPProblem",
     "SparseQP",
+    "make_qp",
+    "make_proxqp",
     "make_sparse_qp",
-    "generate_large_sparse_qp",
+    "pad_qp",
+    "pad_proxqp",
+    "stack_qps",
+    "validate_qp",
     "Settings",
+    "ProxQPSettings",
     "KKTBackendKind",
-    "Status",
     "SolveInfo",
     "Solution",
+    "Status",
     "solve",
     "solve_jit",
-    "plan",
     "SolvePlan",
-    "ProxQPProblem",
-    "make_proxqp",
-    "pad_proxqp",
-    "ProxQPSettings",
+    "plan",
+    "plan_proxqp",
+    "PreparedFactor",
+    "prepare",
+    "prepare_jit",
+    "PreparedProxFactor",
+    "prepare_proxqp",
+    "CachedQPSolver",
     "solve_proxqp",
     "solve_proxqp_jit",
-    "prepare_proxqp",
-    "PreparedProxFactor",
     "ProxQPSolution",
-    "plan_proxqp",
+    "ProblemClass",
+    "ALL_CLASSES",
+    "generate_random_qp",
+    "generate_batch",
+    "generate_large_sparse_qp",
+    "__version__",
 ]

@@ -167,6 +167,22 @@ def pad_qp(qp: QP, n_pad: int, m_pad: int) -> QP:
     return QP(P, q, A, l, u)
 
 
+def stack_qps(qps: list[QP], pad: bool = False) -> QP:
+    """Stack QPs into one batched QP (leading axis = fleet).
+
+    ``pad=True`` admits mixed problem sizes: every instance is padded
+    (:func:`pad_qp`: inert variables and rows, provably non-binding) to the
+    fleet's largest (n, m), so heterogeneous problems share one solve.
+    Callers slice each lane's solution back with its own n
+    (``sol.x[i, :n_i]``).
+    """
+    if pad:
+        n_max = max(q.n for q in qps)
+        m_max = max(q.m for q in qps)
+        qps = [pad_qp(q, n_max, m_max) for q in qps]
+    return QP(*(torch.stack(ts, dim=0) for ts in zip(*(q.tensors() for q in qps))))
+
+
 @dataclasses.dataclass(frozen=True)
 class ProxQPProblem:
     """Equality/inequality-split QP for the prox-ALM solver.

@@ -2,9 +2,10 @@
 
 Same field names, defaults and ``ValueError`` checks as
 ``quadraticprogramsolver_tpu.core.settings`` (that module cannot be imported
-here: its package imports jax). The port implements a slice of the knobs;
-each validator RAISES on every knob the slice does not implement instead of
-ignoring it, so a configuration never runs a path other than the one it names.
+here: its package imports jax). The validators RAISE on every knob the port
+does not implement yet (reduced matmul precision, a reduced-precision factor
+off the slab, the KKT_LDL and KKT_MINRES backends) instead of ignoring it,
+so a configuration never runs a path other than the one it names.
 """
 
 from __future__ import annotations
@@ -299,10 +300,6 @@ def _prox_unimplemented(s: ProxQPSettings):
     if s.chunk_dot_precision not in DOT_PRECISIONS:
         # The JAX package runs any other value as "highest".
         yield "chunk_dot_precision", f"precision {s.chunk_dot_precision!r}"
-    if s.anderson_memory > 0:
-        yield "anderson_memory", "Anderson acceleration"
-    if s.record_history:
-        yield "record_history", "residual history"
 
 
 def _unimplemented(s: Settings):
@@ -319,13 +316,5 @@ def _unimplemented(s: Settings):
                                    "(fused_factor + sigma_free_rhs)")
     if s.matmul_precision != "highest":
         yield "matmul_precision", "reduced matmul precision"
-    if s.anderson_memory > 0:
-        yield "anderson_memory", "Anderson acceleration"
-    if s.polish_iterations > 0:
-        yield "polish_iterations", "polish"
-    if s.scaling_iters > 0:
-        yield "scaling_iters", "Ruiz scaling"
-    if s.record_history:
-        yield "record_history", "residual history"
     if s.kkt_backend in (KKTBackendKind.KKT_LDL, KKTBackendKind.KKT_MINRES):
         yield "kkt_backend", f"the {s.kkt_backend.value} backend"

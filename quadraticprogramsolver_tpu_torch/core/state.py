@@ -26,7 +26,10 @@ class SolverState:
     x: (*B, n); z, y: (*B, m); rho, rho_cand, res_prim, res_dual: (*B,);
     status, iterations: (*B,) int32; iteration: host int (global counter);
     kkt_cache: backend dict; products: {"Px", "Ax", "ATy"} at the current
-    iterate when certificates are on, else None.
+    iterate when certificates are on, else None; history: the per-check
+    trace {"res_prim", "res_dual", "rho"}, each (num_checks, *B), when
+    Settings.record_history, else None; aa: the Anderson carry
+    (models/anderson.py) when Settings.anderson_memory > 0, else None.
     """
 
     x: torch.Tensor
@@ -41,6 +44,8 @@ class SolverState:
     iteration: int
     kkt_cache: dict
     products: dict | None = None
+    history: dict | None = None
+    aa: dict | None = None
 
 
 @dataclasses.dataclass
@@ -53,6 +58,19 @@ class SolveInfo:
     res_dual: torch.Tensor
     rho: torch.Tensor
     objective: torch.Tensor
+    #: The residual trace {"res_prim", "res_dual", "rho"}, each of shape
+    #: (num_checks, *B) and inf past the stopping check, when
+    #: Settings.record_history; else None.
+    history: dict | None = None
+
+    @property
+    def solved(self) -> torch.Tensor:
+        return ((self.status == Status.SOLVED_ADMM)
+                | (self.status == Status.SOLVED))
+
+    @property
+    def infeasible(self) -> torch.Tensor:
+        return self.status >= Status.PRIMAL_INFEASIBLE
 
 
 @dataclasses.dataclass

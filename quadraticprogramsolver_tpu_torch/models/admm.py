@@ -23,9 +23,16 @@ problems or CG, the matrix-free path of a :class:`~..core.sparse_problem.
 SparseQP`; CG's inner loop reads its own flag once per step (``kkt._pcg``).
 
 ``solve(..., scaling=)`` takes a problem pre-scaled by Ruiz equilibration
-(models/scaling.py: ``equilibrate_sparse_host``): warm starts and the
-solution are in the original space, and termination runs on unscaled
-residuals (``term_scale``) while rho adapts on the scaled ones.
+(models/scaling.py: ``equilibrate_sparse_host``); ``Settings.scaling_iters``
+equilibrates a dense fleet inside the solve (``equilibrate``, after the
+auto-pad). Either way warm starts and the solution are in the original
+space, and termination runs on unscaled residuals (``term_scale``) while rho
+adapts on the scaled ones. ``Settings.anderson_memory`` adds a guarded
+Anderson step at each check (models/anderson.py), ``polish_iterations`` an
+active-set polish at the end (models/polish.py) and ``record_history`` a
+per-check residual trace. :func:`prepare` factors once for repeated solves
+(:class:`PreparedFactor`, ``solve(prepared=)``), and
+:func:`solve_segmented` runs a long solve as bounded segments.
 """
 
 from __future__ import annotations
@@ -38,9 +45,12 @@ from ..core.problem import QP, pad_qp
 from ..core.settings import (RHO_MAX, RHO_MIN, KKTBackendKind, Settings,
                              chunk_precision)
 from ..core.state import SolveInfo, Solution, SolverState, Status
-from ..ops.linalg import fp32_products, inf_norm, kernel_dtype_ok
+from ..ops.linalg import (fp32_products, inf_norm, kernel_dtype_ok, matvec,
+                          spd_inverse)
+from . import anderson as anderson_mod
 from . import kkt as kkt_mod
 from .plan import check_require_fused, plan as plan_fn
+from .polish import polish as polish_fn
 
 
 def _as_tensor(v, qp: QP):
@@ -48,15 +58,28 @@ def _as_tensor(v, qp: QP):
 
 
 def _init_state(qp: QP, settings: Settings, backend, x0=None, z0=None,
-                y0=None, rho0=None) -> SolverState:
+                y0=None, rho0=None, aa0=None, prepared=None) -> SolverState:
     batch = qp.batch_shape
     kw = dict(dtype=qp.dtype, device=qp.device)
     x = torch.zeros(batch + (qp.n,), **kw) if x0 is None else _as_tensor(x0, qp)
     z = torch.zeros(batch + (qp.m,), **kw) if z0 is None else _as_tensor(z0, qp)
     y = torch.zeros(batch + (qp.m,), **kw) if y0 is None else _as_tensor(y0, qp)
-    rho = (torch.full(batch, settings.rho, **kw) if rho0 is None
-           else _as_tensor(rho0, qp).expand(batch).clone())
-    cache = backend.init(qp, rho, settings.sigma_for(qp.dtype), settings)
+    if prepared is not None:
+        # The factor is valid only at its own rho; the q-dependent part of
+        # the cache is refreshed here (one batched product).
+        rho = _as_tensor(prepared.rho, qp).expand(batch).clone()
+        cache = prepared.materialize(qp)
+    else:
+        rho = (torch.full(batch, settings.rho, **kw) if rho0 is None
+               else _as_tensor(rho0, qp).expand(batch).clone())
+        cache = backend.init(qp, rho, settings.sigma_for(qp.dtype), settings)
+    history = None
+    if settings.record_history:
+        history = {k: torch.full((settings.num_checks,) + batch, float("inf"),
+                                 **kw) for k in ("res_prim", "res_dual", "rho")}
+    aa = None
+    if settings.anderson_memory > 0:
+        aa = aa0 if aa0 is not None else anderson_mod.init_aa(qp, settings)
     products = None
     if settings.check_infeasibility:
         # Products at the start iterate, the base of the first check's
@@ -69,7 +92,8 @@ def _init_state(qp: QP, settings: Settings, backend, x0=None, z0=None,
         iterations=zi.clone(),
         res_prim=torch.full(batch, float("inf"), **kw),
         res_dual=torch.full(batch, float("inf"), **kw),
-        iteration=0, kkt_cache=cache, products=products)
+        iteration=0, kkt_cache=cache, products=products, history=history,
+        aa=aa)
 
 
 def _fused_chunk_ok(qp: QP, settings: Settings) -> bool:
@@ -173,7 +197,7 @@ def _infeasibility_certificates(qp: QP, settings: Settings, dx, dy,
 
 def _check_convergence(qp: QP, settings: Settings, state: SolverState,
                        x, z, y, xp, zp, term_scale=None,
-                       chunk_prods=None) -> SolverState:
+                       chunk_prods=None, aa_accept=None) -> SolverState:
     """Residuals, adaptive-rho candidate and termination flags.
 
     Flag precedence as in the JAX package: the fixed-point flag (2) wins over
@@ -188,10 +212,12 @@ def _check_convergence(qp: QP, settings: Settings, state: SolverState,
     """
     dt = qp.dtype
     if chunk_prods is None:
-        Ax, ATy = qp.matvec_A(x), qp.matvec_At(y)
-    else:
+        Ax, ATy, Px = qp.matvec_A(x), qp.matvec_At(y), qp.matvec_P(x)
+    elif len(chunk_prods) == 3:  # selected by the Anderson step
+        Ax, ATy, Px = chunk_prods
+    else:  # computed inside the fused chunk kernel
         Ax, ATy = chunk_prods
-    Px = qp.matvec_P(x)
+        Px = qp.matvec_P(x)
 
     if term_scale is None:
         def unsc_p(v):
@@ -246,6 +272,10 @@ def _check_convergence(qp: QP, settings: Settings, state: SolverState,
     eps_z = settings.eps_admm + ulp * torch.clamp(inf_norm(unsc_p(z)), min=1.0)
     admm_fp = ((inf_norm(unsc_x(x - xp)) <= eps_x)
                & (inf_norm(unsc_p(z - zp)) <= eps_z))
+    if aa_accept is not None:
+        # A lane that took an Anderson step compares x against the plain
+        # chunk's penultimate iterate, a point of another map.
+        admm_fp &= ~aa_accept
 
     status = state.status
     status = status.masked_fill(active & solved, int(Status.SOLVED))
@@ -271,6 +301,12 @@ def _check_convergence(qp: QP, settings: Settings, state: SolverState,
     newly_done = active & (status != Status.RUNNING)
     iteration = state.iteration + settings.check_interval
     iterations = state.iterations.masked_fill(newly_done, iteration)
+    history = state.history
+    if history is not None:
+        idx = state.iteration // settings.check_interval
+        history["res_prim"][idx] = res_prim
+        history["res_dual"][idx] = res_dual
+        history["rho"][idx] = state.rho
     products = None
     if state.products is not None:
         products = {"Px": Px, "Ax": Ax, "ATy": ATy}
@@ -279,7 +315,7 @@ def _check_convergence(qp: QP, settings: Settings, state: SolverState,
         iterations=iterations,
         res_prim=torch.where(active, res_prim, state.res_prim),
         res_dual=torch.where(active, res_dual, state.res_dual),
-        iteration=iteration, products=products)
+        iteration=iteration, products=products, history=history)
 
 
 def _rho_trips(settings: Settings, state: SolverState):
@@ -308,18 +344,23 @@ def _maybe_refactor(qp: QP, settings: Settings, backend, state: SolverState,
     rho = torch.where(tripped, state.rho_cand, state.rho)
     cache = backend.refactor(state.kkt_cache, qp, rho,
                              settings.sigma_for(qp.dtype), settings)
-    return dataclasses.replace(state, rho=rho, kkt_cache=cache)
+    # A re-adopted rho changes the Anderson encoding w = z + y/rho and the
+    # map itself: the lane's history restarts.
+    aa = anderson_mod.reset_aa(state.aa, tripped)
+    return dataclasses.replace(state, rho=rho, kkt_cache=cache, aa=aa)
 
 
 def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0,
-                term_scale=None) -> Solution:
+                term_scale=None, aa0=None, prepared=None):
+    """The check loop; returns (Solution, the Anderson carry or None)."""
     if settings.sigma_free_rhs and kkt_mod.resolve_backend(
             settings.kkt_backend, qp) is not KKTBackendKind.CHOLESKY:
         raise ValueError(
             "sigma_free_rhs is a dense CHOLESKY-backend optimization; "
             "other backends build the RHS per-solve anyway")
     backend = kkt_mod.get_backend(settings.kkt_backend, qp)
-    state = _init_state(qp, settings, backend, x0, z0, y0, rho0)
+    state = _init_state(qp, settings, backend, x0, z0, y0, rho0, aa0,
+                        prepared)
     max_iter = settings.num_checks * settings.check_interval
     while state.iteration < max_iter:
         tripped = _rho_trips(settings, state)
@@ -335,50 +376,100 @@ def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0,
                                     flags[1])
         x, z, y, xp, zp, cache, prods = _run_chunk(qp, settings, backend,
                                                    state)
+        aa_accept = None
+        if settings.anderson_memory > 0:
+            x, z, y, prods, aa, aa_accept = anderson_mod.aa_step(
+                qp, settings, state, x, z, y, prods, term_scale)
+            state = dataclasses.replace(state, aa=aa)
         state = dataclasses.replace(state, kkt_cache=cache)
         state = _check_convergence(qp, settings, state, x, z, y, xp, zp,
-                                   term_scale, prods)
+                                   term_scale, prods, aa_accept)
 
     exhausted = state.status == Status.RUNNING
     status = state.status.masked_fill(exhausted, int(Status.MAX_ITERATIONS))
     iterations = state.iterations.masked_fill(exhausted, state.iteration)
     x, y = state.x, state.y
-    if state.products is not None:
+    if settings.polish_iterations > 0:
+        x, y = polish_fn(qp, settings, x, state.z, y, state.rho)
+        objective = qp.objective(x)
+    elif state.products is not None:
         # Px was computed at the final check for this exact x.
         objective = 0.5 * (x * state.products["Px"]).sum(-1) + (qp.q * x).sum(-1)
     else:
         objective = qp.objective(x)
     info = SolveInfo(status=status, iterations=iterations,
                      res_prim=state.res_prim, res_dual=state.res_dual,
-                     rho=state.rho, objective=objective)
-    return Solution(x=x, z=state.z, y=y, info=info)
+                     rho=state.rho, objective=objective,
+                     history=state.history)
+    return Solution(x=x, z=state.z, y=y, info=info), state.aa
 
 
 _solve_core.syncs = 0
 
 
-def _solve_impl(qp, settings: Settings, x0, z0, y0, rho0,
-                scaling=None) -> Solution:
-    if scaling is None:
-        return _solve_core(qp, settings, x0, z0, y0, rho0)
-    from .scaling import scale_iterates, unscale_iterates
+def _solve_impl(qp, settings: Settings, x0, z0, y0, rho0, scaling=None,
+                aa0=None, return_aa=False, prepared=None):
+    """The solve at the problem's own shape: pre-scaled (``scaling``),
+    equilibrated here (``Settings.scaling_iters``) or plain. Returns the
+    Solution, and the Anderson carry too with ``return_aa``."""
+    from .scaling import equilibrate, scale_iterates, unscale_iterates
 
-    scaling = scaling.to(qp.dtype, qp.device)
-    xs, zs, ys = scale_iterates(
-        scaling, *(None if v is None else _as_tensor(v, qp)
-                   for v in (x0, z0, y0)))
-    sol = _solve_core(qp, settings, xs, zs, ys, rho0, term_scale=scaling)
-    x, z, y = unscale_iterates(scaling, sol.x, sol.z, sol.y)
-    # The in-loop residuals are already unscaled (term_scale); the scaled
-    # problem's objective is c times the original's.
-    info = dataclasses.replace(sol.info,
-                               objective=sol.info.objective / scaling.c)
-    return Solution(x=x, z=z, y=y, info=info)
+    def warm(v):
+        return None if v is None else _as_tensor(v, qp)
+
+    if scaling is not None:
+        if settings.scaling_iters > 0:
+            raise ValueError("pass either a pre-scaled problem (scaling=...) "
+                             "or scaling_iters > 0, not both")
+        scaling = scaling.to(qp.dtype, qp.device)
+        xs, zs, ys = scale_iterates(scaling, warm(x0), warm(z0), warm(y0))
+        sol, aa = _solve_core(qp, settings, xs, zs, ys, rho0,
+                              term_scale=scaling, aa0=aa0)
+        x, z, y = unscale_iterates(scaling, sol.x, sol.z, sol.y)
+        # The in-loop residuals are already unscaled (term_scale); the
+        # scaled problem's objective is c times the original's.
+        info = dataclasses.replace(sol.info,
+                                   objective=sol.info.objective / scaling.c)
+        out = Solution(x=x, z=z, y=y, info=info)
+    elif settings.scaling_iters > 0:
+        if not qp.is_dense:
+            raise ValueError("scaling_iters requires a dense QP")
+        qp_s, scal = equilibrate(qp, settings.scaling_iters)
+        xs, zs, ys = scale_iterates(scal, warm(x0), warm(z0), warm(y0))
+        # The termination tests run on the unscaled residuals (term_scale),
+        # so a lane is SOLVED only when the original problem's pass eps.
+        sol, aa = _solve_core(qp_s, settings, xs, zs, ys, rho0,
+                              term_scale=scal, aa0=aa0)
+        x, z, y = unscale_iterates(scal, sol.x, sol.z, sol.y)
+        # Residuals and objective again at the unscaled iterates (after the
+        # unscale's rounding and any polish).
+        res_prim = inf_norm(qp.matvec_A(x) - z)
+        res_dual = inf_norm(qp.matvec_P(x) + qp.q + qp.matvec_At(y))
+        info = dataclasses.replace(sol.info, res_prim=res_prim,
+                                   res_dual=res_dual,
+                                   objective=qp.objective(x))
+        out = Solution(x=x, z=z, y=y, info=info)
+    else:
+        out, aa = _solve_core(qp, settings, x0, z0, y0, rho0, aa0=aa0,
+                              prepared=prepared)
+    return (out, aa) if return_aa else out
+
+
+def _with_lanes(qp: QP) -> QP:
+    """qp with every tensor carrying the fleet's batch axes, for the kernels
+    that read one matrix a lane (a P or A shared by the fleet is stored
+    once; this costs B copies of it)."""
+    batch = qp.batch_shape
+    if all(t.shape[: len(batch)] == batch and t.dim() == len(batch) + k
+           for t, k in zip(qp.tensors(), (2, 1, 2, 1, 1))):
+        return qp
+    return QP(*(t.expand(batch + tuple(t.shape[-k:])).contiguous()
+                for t, k in zip(qp.tensors(), (2, 1, 2, 1, 1))))
 
 
 @fp32_products()
 def solve(qp, settings: Settings = Settings(), x0=None, z0=None, y0=None,
-          rho0=None, scaling=None) -> Solution:
+          rho0=None, scaling=None, prepared=None) -> Solution:
     """Solve a (batched) box-constrained QP on the device its tensors are on.
 
     ``qp`` is a dense batched :class:`QP` or one large
@@ -387,19 +478,31 @@ def solve(qp, settings: Settings = Settings(), x0=None, z0=None, y0=None,
     per-lane) the penalty. ``scaling``: the ScalingData of a problem
     pre-scaled by Ruiz equilibration (``equilibrate_sparse_host`` then
     ``make_sparse_qp``); warm starts and the solution are in the original
-    space and termination runs on unscaled residuals. A dense fleet that
-    the fused chunk wants in 128-multiples is padded first (the inert
-    padding of :func:`~..core.problem.pad_qp`; not with ``scaling``),
-    solved, and sliced back. With ``settings.require_fused`` any requested
-    kernel that would not run is an error (models/plan.py). Torch's
-    products run in full FP32 inside (:func:`~..ops.linalg.fp32_products`).
+    space and termination runs on unscaled residuals, as with
+    ``settings.scaling_iters`` (which excludes ``scaling``). ``prepared``: a
+    :class:`PreparedFactor` from :func:`prepare` for the same P and A (q, l
+    and u may differ); the solve starts at its rho and skips the factor.
+    A dense fleet that the fused chunk wants in 128-multiples is padded
+    first (the inert padding of :func:`~..core.problem.pad_qp`; neither
+    with ``scaling`` nor with ``prepared``), equilibrated after the pad
+    when ``scaling_iters`` asks, solved, and sliced back. A P or A without
+    the batch axes (shared by the fleet) is broadcast, and copied to one a
+    lane only when a kernel of the plan reads it by lane. With
+    ``settings.require_fused`` any requested kernel that would not run is
+    an error (models/plan.py). Torch's products run in full FP32 inside
+    (:func:`~..ops.linalg.fp32_products`).
     """
+    if prepared is not None and (scaling is not None or settings.scaling_iters):
+        raise ValueError("prepared factors cannot be combined with scaling "
+                         "(equilibration rescales P/A, invalidating them)")
     if qp.is_dense:
         qp = QP(*(t.contiguous() for t in qp.tensors()))  # what the kernels take
-    p = plan_fn(qp, settings)
+    p = plan_fn(qp, settings, prepared=prepared is not None)
     if settings.require_fused:
         check_require_fused(p, "ADMM")
-    if p.padded is not None and scaling is None:
+    if qp.is_dense and (p.chunk == "fused_kernel" or p.factor == "fused_slab"):
+        qp = _with_lanes(qp)
+    if p.padded is not None and scaling is None and prepared is None:
         n_pad, m_pad = p.padded
 
         def vpad(v, w):
@@ -408,12 +511,191 @@ def solve(qp, settings: Settings = Settings(), x0=None, z0=None, y0=None,
             v = _as_tensor(v, qp)
             return torch.nn.functional.pad(v, (0, w - v.shape[-1]))
 
-        sol = _solve_core(pad_qp(qp, n_pad, m_pad), settings, vpad(x0, n_pad),
+        sol = _solve_impl(pad_qp(qp, n_pad, m_pad), settings, vpad(x0, n_pad),
                           vpad(z0, m_pad), vpad(y0, m_pad), rho0)
         return Solution(x=sol.x[..., : qp.n], z=sol.z[..., : qp.m],
                         y=sol.y[..., : qp.m], info=sol.info)
-    return _solve_impl(qp, settings, x0, z0, y0, rho0, scaling)
+    return _solve_impl(qp, settings, x0, z0, y0, rho0, scaling,
+                       prepared=prepared)
 
 
 #: PyTorch runs eagerly; the alias keeps the JAX package's call sites.
 solve_jit = solve
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedFactor:
+    """A KKT factor prepared once for repeated :func:`solve` calls (the
+    setup / update / solve contract of OSQP and of the reference's ProxQP).
+
+    P, A, the batch shape and the rho structure (``rho_eq_scale``) must be
+    those of the prepare-time problem; q, l and u are free. The solve adopts
+    ``rho`` (the factor is valid only at its own rho); with ``adaptive_rho``
+    a lane whose rho then drifts refactors in the loop as usual.
+
+    ``M_inv`` is kept only on the sigma-free path, where the cached
+    g = M^{-1}q depends on q: :meth:`materialize` refreshes it with one
+    batched product a solve (G = M^{-1}A' does not depend on q).
+    """
+
+    cache: dict              # the backend's cache (its q-independent part)
+    rho: torch.Tensor        # (*B,) penalty the factor was built at
+    M_inv: torch.Tensor | None = None  # (*B, n, n), sigma_free_rhs only
+
+    def materialize(self, qp: QP) -> dict:
+        """The per-solve cache: the q-dependent pieces refreshed. G is
+        passed on as it is, a contiguous (*B, n, m) tensor the sigma-free
+        chunk kernel reads without a copy."""
+        if self.M_inv is not None:
+            return {"G": self.cache["G"], "g": matvec(self.M_inv, qp.q)}
+        return self.cache
+
+
+@fp32_products()
+def prepare(qp: QP, settings: Settings = Settings(),
+            rho0=None) -> PreparedFactor:
+    """Factor the KKT system once for repeated :func:`solve` calls.
+
+    For the dense CHOLESKY backend with ``sigma_free_rhs`` it keeps M^{-1}
+    (``spd_inverse``: the pivot kernel's sweep at 128-multiple n on fleets
+    of at least 4) and G = M^{-1}A', so each solve refreshes g for its own
+    q; otherwise the backend's cache (M^{-1}, or CG's diagonal) is
+    q-independent as it is. ``slab_cache``/``split_cache`` (single-solve
+    layouts whose g lives in the slab) and ``scaling_iters`` (which rescales
+    P and A a solve) raise. A prepared solve is not auto-padded: prepare a
+    pre-padded problem (:func:`~..core.problem.pad_qp`) if the fused chunk
+    is wanted.
+    """
+    if settings.slab_cache or settings.split_cache:
+        raise ValueError(
+            "prepare() does not support slab_cache/split_cache — those are "
+            "single-solve memory layouts whose g lives inside the slab")
+    if settings.scaling_iters > 0:
+        raise ValueError(
+            "prepare() with scaling_iters is unsupported: equilibration "
+            "rescales P/A per solve, invalidating the factor; pre-scale "
+            "the problem once instead")
+    if qp.is_dense:
+        qp = QP(*(t.contiguous() for t in qp.tensors()))
+    backend = kkt_mod.get_backend(settings.kkt_backend, qp)
+    batch = qp.batch_shape
+    kw = dict(dtype=qp.dtype, device=qp.device)
+    rho = (torch.full(batch, settings.rho, **kw) if rho0 is None
+           else torch.as_tensor(rho0, **kw).expand(batch).clone())
+    sigma = settings.sigma_for(qp.dtype)
+    kind = kkt_mod.resolve_backend(settings.kkt_backend, qp)
+    if kind is KKTBackendKind.CHOLESKY and settings.sigma_free_rhs:
+        rho_row = kkt_mod.rho_rows(qp, rho, settings).expand(
+            batch + (qp.m,)).contiguous()
+        M_inv = spd_inverse(kkt_mod._build_normal_matrix(qp, rho_row, sigma))
+        G = torch.matmul(M_inv, qp.A.transpose(-1, -2)).contiguous()
+        return PreparedFactor(cache={"G": G}, rho=rho, M_inv=M_inv)
+    return PreparedFactor(cache=backend.init(qp, rho, sigma, settings),
+                          rho=rho)
+
+
+#: PyTorch runs eagerly; the alias keeps the JAX package's call sites.
+prepare_jit = prepare
+
+
+@fp32_products()
+def _solve_carry_aa(qp: QP, settings: Settings, x0, z0, y0, rho0, scaling,
+                    aa0):
+    """:func:`solve` at the problem's own shape that threads the Anderson
+    carry in and out: :func:`solve_segmented`'s worker, so the history is
+    not restarted at every segment."""
+    return _solve_impl(qp, settings, x0, z0, y0, rho0, scaling, aa0=aa0,
+                       return_aa=True)
+
+
+def _rho_candidate(qp: QP, x, z, y, rho):
+    """The OSQP rho candidate at (x, z, y), kept at rho where undefined."""
+    Ax, Px, ATy = qp.matvec_A(x), qp.matvec_P(x), qp.matvec_At(y)
+    rp = inf_norm(Ax - z)
+    rd = inf_norm(Px + qp.q + ATy)
+    max_prim = torch.maximum(inf_norm(Ax), inf_norm(z))
+    max_dual = torch.maximum(torch.maximum(inf_norm(Px), inf_norm(ATy)),
+                             inf_norm(qp.q))
+    den = rd * max_prim
+    cand = torch.clamp(
+        rho * torch.sqrt(rp * max_dual
+                         / torch.where(den == 0, torch.ones_like(den), den)),
+        RHO_MIN, RHO_MAX)
+    ok = cand.isfinite() & (den != 0) & (cand > 0)
+    return torch.where(ok, cand, rho)
+
+
+@fp32_products()
+def solve_segmented(qp: QP, settings: Settings = Settings(),
+                    segment_iterations: int = 100, x0=None, z0=None, y0=None,
+                    host_rho_adaptation: bool = False,
+                    scaling=None) -> Solution:
+    """A long solve as bounded segments carrying (x, z, y, rho) between
+    them: a segment boundary is just another check boundary, so the math
+    is :func:`solve`'s (checkpointable solves; bounded work a call).
+
+    ``host_rho_adaptation`` moves the adaptive-rho rule to the segment
+    boundaries (segments run with ``adaptive_rho=False``). With
+    ``anderson_memory`` the Anderson history is carried across segments
+    (and restarts on lanes whose rho the host re-adopts). With
+    ``record_history`` the segments' traces are stitched into one
+    (num_checks, *B) trace, inf where no check ran. Lanes that finished in
+    an earlier segment re-verify on re-entry, so their iteration counts are
+    accurate to one check interval a further segment. ``scaling`` is
+    forwarded to :func:`solve`.
+    """
+    seg_settings = settings
+    if host_rho_adaptation:
+        seg_settings = dataclasses.replace(settings, adaptive_rho=False)
+    ci = settings.check_interval
+    seg = -(-segment_iterations // ci) * ci
+    total = settings.num_checks * ci
+    done_iters = 0
+    sol = None
+    rho0 = None
+    aa0 = None  # the Anderson carry, across segment boundaries
+    histories = [] if settings.record_history else None
+    while done_iters < total:
+        # The last segment is clamped so the total stays within the budget.
+        this_seg = min(seg, total - done_iters)
+        seg_s = dataclasses.replace(seg_settings, max_iterations=this_seg)
+        if settings.anderson_memory > 0:
+            sol, aa0 = _solve_carry_aa(qp, seg_s, x0, z0, y0, rho0, scaling,
+                                       aa0)
+        else:
+            sol = solve(qp, seg_s, x0, z0, y0, rho0, scaling)
+        done_iters += this_seg
+        if histories is not None:
+            histories.append(sol.info.history)
+        if bool((sol.info.status != Status.MAX_ITERATIONS).all()):
+            break
+        x0, z0, y0, rho0 = sol.x, sol.z, sol.y, sol.info.rho
+        if host_rho_adaptation and settings.adaptive_rho:
+            # The candidate in the space the iteration runs in (scaled when
+            # the problem is pre-scaled), as in the loop.
+            if scaling is not None:
+                from .scaling import scale_iterates
+
+                cx, cz, cy = scale_iterates(scaling.to(qp.dtype, qp.device),
+                                            x0, z0, y0)
+            else:
+                cx, cz, cy = x0, z0, y0
+            cand = _rho_candidate(qp, cx, cz, cy, sol.info.rho)
+            rho = sol.info.rho
+            f = settings.rho_factor
+            trip = (cand * f < rho) | (cand > f * rho)
+            rho0 = torch.where(trip, cand, rho)
+            if aa0 is not None:
+                # A host-adopted rho changes the encoding w = z + y/rho.
+                aa0 = anderson_mod.reset_aa(aa0, trip)
+    if histories is not None:
+        from .proxqp import _concat_histories
+
+        history = _concat_histories(histories, settings.num_checks)
+    else:
+        history = sol.info.history
+    iterations = torch.clamp(sol.info.iterations + (done_iters - this_seg),
+                             max=total).to(torch.int32)
+    info = dataclasses.replace(sol.info, iterations=iterations,
+                               history=history)
+    return Solution(x=sol.x, z=sol.z, y=sol.y, info=info)

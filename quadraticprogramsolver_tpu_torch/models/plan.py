@@ -40,7 +40,7 @@ class SolvePlan:
     #: "sweep_inverse" (ops/linalg.py's Gauss-Jordan sweep around the pivot
     #: kernel, sigma-free or M^{-1} form); "torch_cholesky_solve" or
     #: "torch_inverse" (Cholesky, off the sweep's shapes); "jacobi_diag"
-    #: (the CG backend); or "prepared" (a prox solve with a prepared factor).
+    #: (the CG backend); or "prepared" (a solve given a prepared factor).
     factor: str
     #: KKT cache layout: "G_g", "slab" (Settings.slab_cache), "split_bf16"
     #: (Settings.split_cache), "M_inv" or "diag" (CG) (ADMM); "Ga_Gc_g" or
@@ -100,8 +100,15 @@ def _dtype_reason(dtype, device):
             f"versions on the CPU); got {dtype} on {device}")
 
 
-def plan(qp, settings: Settings) -> SolvePlan:
-    """Execution plan for :func:`models.admm.solve` on this (qp, settings)."""
+def plan(qp, settings: Settings, prepared: bool = False) -> SolvePlan:
+    """Execution plan for :func:`models.admm.solve` on this (qp, settings).
+
+    ``prepared``: the solve is given a prepared factor (models/admm.py:
+    ``prepare``). It then runs at the problem's own shape (no auto-pad)
+    from that factor: M^{-1}, or G = M^{-1}A' with g refreshed (the
+    "G_g" cache), which this plan models (the JAX plan does not). A lane
+    whose rho trips refactors as an unprepared solve would.
+    """
     reasons = []
     n, m = qp.n, qp.m
     device = qp.device
@@ -112,7 +119,7 @@ def plan(qp, settings: Settings) -> SolvePlan:
     # --- auto-pad decision (models/admm.solve preamble) ---
     padded = None
     if (settings.fused_chunk and qp.is_dense and dtype_reason is None
-            and len(qp.batch_shape) == 1
+            and not prepared and len(qp.batch_shape) == 1
             and m > 0 and (n % 128 or m % 128)):
         n_pad = -(-n // 128) * 128
         m_pad = -(-m // 128) * 128
@@ -137,7 +144,9 @@ def plan(qp, settings: Settings) -> SolvePlan:
                        f"(got {qp.batch_shape})")
         if n % 128 or n == 0 or m % 128 or m == 0:
             out.append(f"{what} requires n, m nonzero multiples of 128 "
-                       f"(n={n}, m={m})")
+                       f"(n={n}, m={m})"
+                       + (" — a prepared solve is not padded" if prepared
+                          else ""))
         return out
 
     chunk, lanes, dot_precision = "torch", 1, "highest"
@@ -160,9 +169,15 @@ def plan(qp, settings: Settings) -> SolvePlan:
     if kind is not KKTBackendKind.CHOLESKY:
         # CG (the JAX plan adds no factor reasons off CHOLESKY).
         return SolvePlan(backend=kind.value, chunk=chunk,
-                         factor="jacobi_diag", cache="diag", padded=padded,
+                         factor="prepared" if prepared else "jacobi_diag",
+                         cache="diag", padded=padded,
                          fallback_reasons=tuple(reasons), lanes=lanes,
                          dot_precision=dot_precision)
+    if prepared:
+        return SolvePlan(backend=kind.value, chunk=chunk, factor="prepared",
+                         cache="G_g" if settings.sigma_free_rhs else "M_inv",
+                         padded=None, fallback_reasons=tuple(reasons),
+                         lanes=lanes, dot_precision=dot_precision)
     if settings.fused_factor:
         why = shape_reasons("fused_factor")
         if not settings.sigma_free_rhs:

@@ -17,7 +17,9 @@ only on rho updates, and per iteration
 (in sigma-free form, ProxQPSettings.sigma_free_rhs, x = Ga(rho b - y) +
 Gc(rho(d - s) - z) - g with the column cache of M = P + rho(A'A + C'C)),
 the PIQP convergence criteria 13a-c, the split-form Farkas certificates and
-the tau-triggered double-square-root adaptive rho.
+the tau-triggered double-square-root adaptive rho; optionally a guarded
+Anderson step at each check (ProxQPSettings.anderson_memory,
+models/anderson.py) and a per-check residual trace (record_history).
 
 The JAX package's ``while_loop``/``scan`` becomes a host loop over check
 intervals: each pass runs one chunk (one launch of a csrc/prox_chunk.cu
@@ -42,6 +44,7 @@ from ..ops.fused_proxqp import (fused_proxqp_chunk, fused_proxqp_chunk_minv,
                                 fused_proxqp_chunk_plain)
 from ..ops.linalg import (add_scaled_identity, fp32_products, inf_norm,
                           kernel_dtype_ok, matvec, spd_inverse, spd_solve)
+from . import anderson as anderson_mod
 from .plan import check_require_fused, plan_proxqp
 
 
@@ -57,7 +60,9 @@ class ProxQPInfo:
     #: (*B,) int32 Status codes: MAX_ITERATIONS(1), SOLVED(3),
     #: PRIMAL_INFEASIBLE(4), DUAL_INFEASIBLE(5).
     status: torch.Tensor = None
-    #: Always None: ProxQPSettings.record_history is not ported.
+    #: The residual trace {"res_prim", "res_dual", "rho"}, each of shape
+    #: (num_checks, *B) and inf past the stopping check, when
+    #: ProxQPSettings.record_history; else None.
     history: object = None
 
 
@@ -353,6 +358,13 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
     norm_b, norm_d, norm_q = (
         inf_norm(v).expand(batch)
         for v in (prob.b, prob.d, prob.q))
+    aa = None
+    if settings.anderson_memory > 0:
+        aa = anderson_mod.init_aa_proxqp(prob, settings)
+    history = None
+    if settings.record_history:
+        history = {k: torch.full((settings.num_checks,) + batch, float("inf"),
+                                 **kw) for k in ("res_prim", "res_dual", "rho")}
     it = 0
     trip = None
     for _ in range(settings.num_checks):
@@ -373,13 +385,20 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
         # ones freeze, since their iterates diverge by design.
         active = (running if settings.early_exit
                   else status < Status.PRIMAL_INFEASIBLE)
-        x_in, y_in, z_in = x, y, z
+        x_in, s_in, y_in, z_in = x, s, y, z
         x, s, y, z = run_chunk(x, s, y, z, rho, factor, active, it)
         it += ci
 
         # PIQP criteria 13a-c.
-        Px, Aty, Ctz = prob.matvec_P(x), prob.matvec_At(y), prob.matvec_Ct(z)
-        Ax, Cx = prob.matvec_A(x), prob.matvec_C(x)
+        if aa is not None:
+            x, s, y, z, pr, aa, _ = anderson_mod.aa_step_proxqp(
+                prob, settings, aa, rho, active, x_in, s_in, y_in, z_in,
+                x, s, y, z)
+            Px, Aty, Ctz, Ax, Cx = (pr[k] for k in ("Px", "Aty", "Ctz",
+                                                      "Ax", "Cx"))
+        else:
+            Px, Aty = prob.matvec_P(x), prob.matvec_At(y)
+            Ctz, Ax, Cx = prob.matvec_Ct(z), prob.matvec_A(x), prob.matvec_C(x)
         res_prim = torch.maximum(inf_norm(Ax - prob.b),
                                  inf_norm(Cx - prob.d + s))
         res_dual = inf_norm(Px + Aty + Ctz + prob.q)
@@ -401,6 +420,12 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
         iters_done = iters_done.masked_fill(newly, it)
         res_p = torch.where(active, res_prim, res_p)
         res_d = torch.where(active, res_dual, res_d)
+        if history is not None:
+            # The rho the chunk ran with (before this check adapts it).
+            idx = it // ci - 1
+            history["res_prim"][idx] = res_prim
+            history["res_dual"][idx] = res_dual
+            history["rho"][idx] = rho
 
         if settings.adaptive_rho:
             num = res_prim * max_dual
@@ -415,6 +440,8 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
                     torch.where(trip, ratio, torch.ones_like(ratio)))),
                 settings.rho_min, settings.rho_max)
             rho = torch.where(trip, rho_new, rho)
+            # rho changes the Anderson encoding u = s - z/rho and the map.
+            aa = anderson_mod.reset_aa(aa, trip)
 
     status = status.masked_fill(status == Status.RUNNING,
                                 int(Status.MAX_ITERATIONS))
@@ -422,7 +449,8 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
         n0, me0, mi0 = orig_dims
         x, y, s, z = x[..., :n0], y[..., :me0], s[..., :mi0], z[..., :mi0]
     info = ProxQPInfo(converged=status == Status.SOLVED, iterations=iters_done,
-                      res_prim=res_p, res_dual=res_d, rho=rho, status=status)
+                      res_prim=res_p, res_dual=res_d, rho=rho, status=status,
+                      history=history)
     return ProxQPSolution(x=x, s=s, y=y, z=z, info=info)
 
 
@@ -470,22 +498,47 @@ def solve_segmented(prob, settings: ProxQPSettings = ProxQPSettings(),
     carry between them. A segment boundary is just another check boundary,
     so the math is unchanged; lanes that finished in an earlier segment
     re-verify on re-entry (iteration counts accurate to one check interval
-    per extra segment). ``init`` forwards to the first segment only."""
+    per extra segment). ``init`` forwards to the first segment only. The
+    Anderson history restarts at each segment (unlike the ADMM family's);
+    ``record_history`` traces are stitched into one (num_checks, *B)."""
     seg = -(-segment_iterations // settings.check_interval) * settings.check_interval
     total = settings.num_checks * settings.check_interval
     done_iters = 0
     sol = None
     rho0 = None
+    histories = [] if settings.record_history else None
     while done_iters < total:
         this_seg = min(seg, total - done_iters)
         seg_s = dataclasses.replace(settings, max_iterations=this_seg)
         sol = solve(prob, seg_s, init, rho0)
         done_iters += this_seg
+        if histories is not None:
+            histories.append(sol.info.history)
         if bool((sol.info.status != Status.MAX_ITERATIONS).all()):
             break
         init = (sol.x, sol.y, sol.s, sol.z)
         rho0 = sol.info.rho
     iterations = torch.clamp(sol.info.iterations + (done_iters - this_seg),
                              max=total).to(torch.int32)
-    info = dataclasses.replace(sol.info, iterations=iterations)
+    info = dataclasses.replace(
+        sol.info, iterations=iterations,
+        history=_concat_histories(histories, settings.num_checks))
     return ProxQPSolution(x=sol.x, s=sol.s, y=sol.y, z=sol.z, info=info)
+
+
+def _concat_histories(histories, num_checks: int):
+    """Stitch per-segment traces into one (num_checks, *B) trace: segments
+    cover disjoint check windows, so concatenation along the check axis is
+    the whole trace, and checks never run (an early all-lane exit) stay inf.
+    Shared by both families' segmented solves."""
+    if not histories:
+        return None
+    out = {k: torch.cat([h[k] for h in histories], dim=0)
+           for k in histories[0]}
+    got = out["res_prim"].shape[0]
+    if got < num_checks:
+        out = {k: torch.nn.functional.pad(
+                   v, (0,) * (2 * (v.dim() - 1)) + (0, num_checks - got),
+                   value=float("inf"))
+               for k, v in out.items()}
+    return out

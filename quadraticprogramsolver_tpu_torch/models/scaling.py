@@ -1,15 +1,17 @@
-"""Modified Ruiz equilibration of a sparse problem, on the host (OSQP §5.1).
+"""Modified Ruiz equilibration (OSQP §5.1) of a dense fleet on its device
+and of a sparse problem on the host.
 
 Counterpart of the JAX package's ``models/scaling.py: ScalingData,
-equilibrate_sparse_host, scale_iterates, unscale_iterates``. The host math is
-a numpy/scipy copy of JAX's; the scaling vectors come back as tensors on the
-problem's device. With diagonal D (variables), E (constraints) and the cost
-scale c,
+equilibrate, equilibrate_sparse_host, scale_iterates, unscale_iterates``.
+:func:`equilibrate` is the dense in-solve scaling of
+``Settings.scaling_iters`` (torch elementwise math and reductions on the
+fleet's device); the sparse host math is a numpy/scipy copy of JAX's, whose
+scaling vectors come back as tensors on the problem's device. With
+diagonal D (variables), E (constraints) and the cost scale c,
 
     P' = c D P D,  q' = c D q,  A' = E A D,  l' = E l,  u' = E u,
 
-and a solution maps back as x = D x', z = E^{-1} z', y = E y' / c. The
-dense in-solve equilibration (``Settings.scaling_iters``) is not ported yet.
+and a solution maps back as x = D x', z = E^{-1} z', y = E y' / c.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..core.problem import default_device
+from ..core.problem import QP, default_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +34,53 @@ class ScalingData:
     def to(self, dtype, device) -> "ScalingData":
         return ScalingData(*(t.to(device=device, dtype=dtype)
                              for t in (self.d, self.e, self.c)))
+
+
+def _safe_rsqrt_norm(norms: torch.Tensor) -> torch.Tensor:
+    """1/sqrt(norm), with 1 for structurally zero rows and columns (so the
+    inert padding of pad_qp stays inert)."""
+    one = torch.ones((), dtype=norms.dtype, device=norms.device)
+    return torch.where(norms > 0, torch.rsqrt(torch.clamp(norms, min=1e-30)),
+                       one)
+
+
+def equilibrate(qp: QP, num_iters: int = 10):
+    """Returns (scaled_qp, ScalingData) for a dense (batched) QP. Bounds may
+    hold +-inf (E is positive and finite, so they stay infinite). P and A
+    without the batch axes (one matrix shared by the fleet) broadcast; the
+    scaled ones carry the batch axes once the per-lane cost scale applies."""
+    dt, dev = qp.dtype, qp.device
+    batch = qp.batch_shape
+    n, m = qp.n, qp.m
+    P, A, q = qp.P, qp.A, qp.q
+    d = torch.ones(batch + (n,), dtype=dt, device=dev)
+    e = torch.ones(batch + (m,), dtype=dt, device=dev)
+    c = torch.ones(batch, dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    for _ in range(num_iters):
+        col_P = P.abs().amax(-2)
+        col_A = (A.abs().amax(-2) if m
+                 else torch.zeros(batch + (n,), dtype=dt, device=dev))
+        dx = _safe_rsqrt_norm(torch.maximum(col_P, col_A))
+        dz = (_safe_rsqrt_norm(A.abs().amax(-1)) if m
+              else torch.zeros(batch + (0,), dtype=dt, device=dev))
+        P = dx[..., :, None] * P * dx[..., None, :]
+        if m:
+            A = dz[..., :, None] * A * dx[..., None, :]
+        q = dx * q
+        d = d * dx
+        e = e * dz
+        # Cost normalization (OSQP: mean column norm of P vs ||q||_inf).
+        mean_col = P.abs().amax(-2).mean(-1)
+        q_norm = (q.abs().amax(-1) if n
+                  else torch.zeros(batch, dtype=dt, device=dev))
+        g_den = torch.maximum(mean_col, q_norm)
+        g = torch.where(g_den > 0, 1.0 / torch.clamp(g_den, min=1e-30), one)
+        P = g[..., None, None] * P
+        q = g[..., None] * q
+        c = c * g
+    scaled = QP(P=P, q=q, A=A, l=e * qp.l, u=e * qp.u)
+    return scaled, ScalingData(d=d, e=e, c=c)
 
 
 def equilibrate_sparse_host(P, q, A, l, u, num_iters: int = 10, device=None):

@@ -79,6 +79,15 @@ def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
 
 
+def matvec_t(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched M' @ v: (*B, r, c) x (*B, r) -> (*B, c)."""
+    return torch.matmul(v.unsqueeze(-2), M).squeeze(-2)
+
+
+def sym(M: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (M + M.transpose(-1, -2))
+
+
 #: The code of each chunk product precision in the kernels' C entry points
 #: (csrc/common.cuh: Prec).
 PRECISIONS = {p: i for i, p in enumerate(DOT_PRECISIONS)}

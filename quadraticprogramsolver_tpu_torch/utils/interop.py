@@ -69,21 +69,25 @@ def warm_start_from_numpy(x0=None, z0=None, y0=None, rho0=None, *,
     return tuple(conv(v) for v in (x0, z0, y0, rho0))
 
 
+def _info_fields(info, out: dict) -> dict:
+    """Every field of an info dataclass that is set; the history dict as
+    ``history_<key>``."""
+    for f in dataclasses.fields(info):
+        v = getattr(info, f.name)
+        if isinstance(v, dict):
+            out.update({f"{f.name}_{k}": t for k, t in v.items()})
+        elif v is not None:
+            out[f.name] = v
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
 def solution_to_numpy(sol: Solution) -> dict:
     """A port Solution as a dict of numpy arrays (x, z, y and every
-    SolveInfo field)."""
-    out = {k: getattr(sol, k) for k in ("x", "z", "y")}
-    for f in dataclasses.fields(sol.info):
-        out[f.name] = getattr(sol.info, f.name)
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    SolveInfo field that is set)."""
+    return _info_fields(sol.info, {k: getattr(sol, k) for k in ("x", "z", "y")})
 
 
 def prox_solution_to_numpy(sol) -> dict:
     """A port ProxQPSolution as a dict of numpy arrays (x, s, y, z and every
     ProxQPInfo field that is set)."""
-    out = {k: getattr(sol, k) for k in ("x", "s", "y", "z")}
-    for f in dataclasses.fields(sol.info):
-        v = getattr(sol.info, f.name)
-        if v is not None:
-            out[f.name] = v
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    return _info_fields(sol.info, {k: getattr(sol, k) for k in ("x", "s", "y", "z")})

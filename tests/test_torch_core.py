@@ -71,7 +71,8 @@ REJECTED = [
 #: Knobs of REJECTED that the port has implemented since: set alone, each
 #: now does what it does in the JAX package (the same ValueError, or none).
 PORTED = {"slab_cache", "split_cache", "chunk_lanes", "chunk_dot_precision",
-          "first_chunk_dot_precision", "pivot_variant"}
+          "first_chunk_dot_precision", "pivot_variant", "anderson_memory",
+          "polish_iterations", "scaling_iters", "record_history"}
 #: Values of a knob that the port has implemented since (the CG backend).
 PORTED_VALUES = {("kkt_backend", pt.KKTBackendKind.CG)}
 
@@ -127,7 +128,7 @@ def test_settings_from_dict():
         interop.settings_from_dict({"rho": 0.1, "not_a_knob": 1})
     with pytest.raises(NotImplementedError):
         interop.settings_from_dict(
-            dataclasses.asdict(qps.Settings(anderson_memory=2)))
+            dataclasses.asdict(qps.Settings(matmul_precision="high")))
 
 
 def _random_np_qp(seed, n=12, m=7):
@@ -264,6 +265,10 @@ def test_port_never_imports_jax():
         "core/sparse_problem.py", "ops/spmv.py", "ops/routed_spmv.py",
         "models/scaling.py", "problems/generator.py",
         "utils/oracle.py")} <= set(files)
+    # So are the rest of the ADMM core and the frontends.
+    assert {PORT_DIR / f for f in (
+        "models/anderson.py", "models/polish.py", "frontends/reuse.py",
+        "frontends/sequence.py", "frontends/lsq.py")} <= set(files)
     for f in files:
         m = bad.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"

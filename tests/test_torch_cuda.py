@@ -1672,3 +1672,75 @@ def test_knob_factor_matches_witness_factor(dev, knob, ms):
     assert spd_kernels.pivot_sweep_group_prev.launches == 0
     assert fused_factor.slab_level_prev.launches == 0
     assert torch.equal(S, _witness_factor(P, A, q, rho, pivot, prec))
+
+
+def _core_solve_on_card(dev, qp, st, fns, prepare=False):
+    """One solve with the launch counters of ``fns`` at 0 before it, and the
+    same port solve of the f64 copy on the CPU."""
+    for f in fns:
+        f.launches = 0
+    if prepare:
+        sol = pt.solve(qp, st, prepared=pt.prepare(qp, st))
+    else:
+        sol = pt.solve(qp, st)
+    launches = {f.__name__: f.launches for f in fns}
+    assert all(v > 0 for v in launches.values()), launches
+    cpu = qp.to("cpu", torch.float64)
+    ref = (pt.solve(cpu, st, prepared=pt.prepare(cpu, st)) if prepare
+           else pt.solve(cpu, st))
+    # Flags 2 and 3 can pass at one check; which one a lane reports then
+    # rests on rounding, so "converged" is what is compared.
+    assert (sol.info.status >= 2).all() and (ref.info.status >= 2).all()
+    assert float((sol.x.cpu().double() - ref.x).abs().max()) <= 1e-3
+    return sol, launches
+
+
+def test_scaled_minv_solve_on_card(dev):
+    """scaling_iters with the M^{-1} chunk at refinement 2 (the 9-class
+    sweep's settings): the auto-pad, then equilibration, then rows 2 and
+    4b."""
+    qp, _ = _fleet(dev, 20, n=200, m=100)
+    st = pt.Settings(max_iterations=4000, eps_abs=1e-4, eps_rel=1e-4,
+                     rho=0.1, kkt_refinement_steps=2, scaling_iters=10,
+                     fused_chunk=True, require_fused=True)
+    assert pt.plan(qp, st).padded == (256, 128)
+    _core_solve_on_card(dev, qp, st, (spd_kernels.spd_inverse_unrolled,
+                                      fused_admm.fused_admm_chunk_minv))
+
+
+def test_anderson_solve_on_card(dev):
+    qp, _ = _fleet(dev, 21, n=256, m=128)
+    st = pt.Settings(max_iterations=4000, eps_abs=1e-4, eps_rel=1e-4,
+                     rho=0.1, check_interval=25, anderson_memory=8,
+                     record_history=True, fused_chunk=True,
+                     require_fused=True)
+    sol, _ = _core_solve_on_card(dev, qp, st, (
+        spd_kernels.spd_inverse_unrolled, fused_admm.fused_admm_chunk_minv))
+    h = sol.info.history["res_prim"]
+    ran = int(sol.info.iterations.max()) // st.check_interval
+    assert h.shape == (st.num_checks, B)
+    assert bool(h[:ran].isfinite().all()) and bool(h[ran:].isinf().all())
+
+
+def test_polished_solve_on_card(dev):
+    """polish's two inverses (H at n, S at m) go through row 2's sweep."""
+    qp, _ = _fleet(dev, 22, n=256, m=128)
+    st = pt.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                     polish_iterations=3, fused_chunk=True,
+                     require_fused=True)
+    _, launches = _core_solve_on_card(dev, qp, st, (
+        spd_kernels.spd_inverse_unrolled, fused_admm.fused_admm_chunk_minv))
+    # The factor (2 blocks) and at least H (2) and S (1).
+    assert launches["spd_inverse_unrolled"] >= 2 + 2 + 1
+
+
+def test_prepared_sigma_free_solve_on_card(dev):
+    qp, _ = _fleet(dev, 23, n=256, m=128)
+    st = pt.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                     rho=0.4, adaptive_rho=False, check_interval=11,
+                     kkt_refinement_steps=0, sigma_free_rhs=True,
+                     fused_chunk=True, require_fused=True)
+    assert pt.plan(qp, st, prepared=True).factor == "prepared"
+    _core_solve_on_card(dev, qp, st, (spd_kernels.spd_inverse_unrolled,
+                                      fused_admm.fused_admm_chunk),
+                        prepare=True)

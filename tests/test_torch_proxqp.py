@@ -290,7 +290,10 @@ def test_settings_fields_defaults_and_validators_match_jax():
                dict(first_chunk_dot_precision="default", **sf)):
         qps.ProxQPSettings(**kw)
         pt.ProxQPSettings(**kw)  # ported: accepted as in the JAX package
-    rejected = [dict(anderson_memory=4), dict(record_history=True)]
+    for kw in (dict(anderson_memory=4), dict(record_history=True)):
+        qps.ProxQPSettings(**kw)
+        pt.ProxQPSettings(**kw)  # ported: accepted as in the JAX package
+    rejected = [dict(chunk_dot_precision="fastest")]
     for kw in rejected:
         qps.ProxQPSettings(**kw)  # valid for the JAX package
         with pytest.raises(NotImplementedError):
