@@ -1,6 +1,7 @@
 """quadraticprogramsolver_tpu_torch — the PyTorch + CUDA port of
 quadraticprogramsolver_tpu (batched OSQP-ADMM and prox-ALM for fleets of
-dense QPs, and OSQP-ADMM with matrix-free CG for one large sparse QP).
+dense QPs, and both with matrix-free Krylov solves for one large sparse
+QP).
 
 Both families and the sparse path run on an NVIDIA H100 through
 hand-written kernels in ``csrc/`` (built with nvcc for sm_90a at first use,
@@ -12,7 +13,8 @@ jax.
 from .core.problem import (QP, ProxQPProblem, make_proxqp, make_qp,
                            pad_proxqp, pad_qp, stack_qps, validate_qp)
 from .core.settings import KKTBackendKind, ProxQPSettings, Settings
-from .core.sparse_problem import SparseQP, make_sparse_qp
+from .core.sparse_problem import (SparseProxQP, SparseQP, make_sparse_proxqp,
+                                  make_sparse_qp)
 from .core.state import SolveInfo, Solution, Status
 from .frontends.reuse import CachedQPSolver
 from .models.admm import PreparedFactor, prepare, prepare_jit, solve, solve_jit
@@ -30,9 +32,11 @@ __all__ = [
     "QP",
     "ProxQPProblem",
     "SparseQP",
+    "SparseProxQP",
     "make_qp",
     "make_proxqp",
     "make_sparse_qp",
+    "make_sparse_proxqp",
     "pad_qp",
     "pad_proxqp",
     "stack_qps",

@@ -4,8 +4,9 @@ Same field names, defaults and ``ValueError`` checks as
 ``quadraticprogramsolver_tpu.core.settings`` (that module cannot be imported
 here: its package imports jax). The validators RAISE on every knob the port
 does not implement yet (reduced matmul precision, a reduced-precision factor
-off the slab, the KKT_LDL and KKT_MINRES backends) instead of ignoring it,
-so a configuration never runs a path other than the one it names.
+off the slab, a chunk product precision outside "highest"/"high"/"default")
+instead of ignoring it, so a configuration never runs a path other than the
+one it names.
 """
 
 from __future__ import annotations
@@ -176,7 +177,7 @@ class Settings:
         for name, reason in _unimplemented(self):
             raise NotImplementedError(
                 f"Settings.{name}: {reason} is not implemented by the "
-                "PyTorch port yet (see ROADMAP.md)")
+                "PyTorch port yet (ROADMAP.md Queue 1 item 3)")
 
     @property
     def eps_admm(self) -> float:
@@ -214,7 +215,7 @@ class ProxQPSettings:
     rho_min: float = 1e-5
     rho_max: float = 1e5
     kkt_refinement_steps: int = 1
-    #: Inner-CG controls of the matrix-free path (not ported: dense only).
+    #: Inner-CG controls of the matrix-free path (SparseProxQP).
     cg_eps: float = 1e-9
     cg_max_iterations: int = 200
     cg_rel_eps: float = 0.0
@@ -264,7 +265,7 @@ class ProxQPSettings:
         for name, reason in _prox_unimplemented(self):
             raise NotImplementedError(
                 f"ProxQPSettings.{name}: {reason} is not implemented by the "
-                "PyTorch port yet (see ROADMAP.md)")
+                "PyTorch port yet (ROADMAP.md Queue 1 item 3)")
 
     @property
     def num_checks(self) -> int:
@@ -316,5 +317,3 @@ def _unimplemented(s: Settings):
                                    "(fused_factor + sigma_free_rhs)")
     if s.matmul_precision != "highest":
         yield "matmul_precision", "reduced matmul precision"
-    if s.kkt_backend in (KKTBackendKind.KKT_LDL, KKTBackendKind.KKT_MINRES):
-        yield "kkt_backend", f"the {s.kkt_backend.value} backend"

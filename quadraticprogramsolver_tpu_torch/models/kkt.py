@@ -1,5 +1,6 @@
 """KKT backends (counterpart of the JAX package's models/kkt.py): the dense
-CHOLESKY backend and the matrix-free CG backend, behind one registry.
+CHOLESKY and KKT_LDL backends and the iterative CG and KKT_MINRES backends,
+behind one registry.
 
 Every iteration solves the reduced KKT system with M = P + sigma*I +
 A' diag(rho) A (SPD):
@@ -17,7 +18,14 @@ CG never forms M: Jacobi-preconditioned conjugate gradients on the operator
 v -> Pv + sigma v + A'(rho (Av)), warm-started from the previous iteration's
 xx (the cache carries it), the large sparse path's backend. AUTO resolves to
 CHOLESKY for dense problems with n + m <= MAX_DIRECT_KKT_DIM and to CG
-otherwise. KKT_LDL and KKT_MINRES are not ported (Settings rejects them).
+otherwise.
+
+KKT_LDL and KKT_MINRES solve the quasi-definite 2x2 KKT system
+K = [[P + sigma*I, A'], [A, -diag(1/rho)]] instead: LDL' factors K once a
+rho (a loop over its columns, two triangular solves a solve); MINRES
+iterates on K with the block-diagonal preconditioner
+[(P + sigma*I)^{-1}, diag(rho)] (the Jacobi diagonal of P + sigma*I on a
+sparse problem), which does not depend on rho, so its refactor is free.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 from ..core.problem import QP
 from ..core.settings import MAX_DIRECT_KKT_DIM, KKTBackendKind, Settings
 from ..ops.linalg import (add_scaled_identity, bf16_split, kernel_dtype_ok,
-                          matvec, spd_inverse, spd_solve)
+                          matvec, spd_inverse, spd_solve, sym)
 
 
 def resolve_backend(kind: KKTBackendKind, qp) -> KKTBackendKind:
@@ -124,8 +132,8 @@ def cholesky_init(qp: QP, rho, sigma, settings: Settings) -> dict:
             f"Settings.factor_precision={settings.factor_precision!r} off the "
             "fused slab factor (its gates fail for this problem: float32, or "
             "float64 on the CPU, one batch axis, n and m nonzero multiples "
-            "of 128) is not implemented by the PyTorch port yet (see "
-            "ROADMAP.md)")
+            "of 128) is not implemented by the PyTorch port yet (ROADMAP.md "
+            "Queue 1 item 3)")
     M = _build_normal_matrix(qp, rho_row, sigma)
     if settings.sigma_free_rhs:
         At = qp.A.transpose(-1, -2).expand(qp.batch_shape + (qp.n, qp.m))
@@ -164,6 +172,232 @@ def cholesky_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
     for _ in range(settings.kkt_refinement_steps):
         xx = xx + matvec(M_inv, b - _apply_normal(qp, rho_row, sigma, xx))
     return xx, qp.matvec_A(xx), cache
+
+
+# --------------------------------------------------------------------------
+# Quasi-definite KKT LDL' backend
+# --------------------------------------------------------------------------
+#
+# Factors K = [[P + sigma*I, A'], [A, -diag(1/rho)]] as L D L' with unit-lower
+# L and signed diagonal D, without pivoting (a quasi-definite matrix needs
+# none). Refactoring happens only when a lane's rho trips; each solve is two
+# batched triangular solves.
+
+
+def _build_kkt_matrix(qp: QP, rho_row, sigma):
+    """K (*B, n + m, n + m) with rho_row a full (*B, m) tensor."""
+    n, m = qp.n, qp.m
+    batch = qp.batch_shape
+    A = qp.A.expand(batch + (m, n))
+    Pn = add_scaled_identity(sym(qp.P), sigma).expand(batch + (n, n))
+    neg = (-1.0 / rho_row)[..., None] * torch.eye(m, dtype=qp.dtype,
+                                                  device=qp.device)
+    top = torch.cat([Pn, A.transpose(-1, -2)], dim=-1)
+    return torch.cat([top, torch.cat([A, neg], dim=-1)], dim=-2)
+
+
+def _ldl_factor(K):
+    """Batched dense LDL' without pivoting: K (*B, N, N) -> (L unit-lower,
+    d (*B, N)).
+
+    The JAX package scans the columns with a masked rank-1 update of the
+    whole matrix, which changes no element outside the trailing block (it
+    subtracts 0 there); this loop updates only W[j+1:, j+1:], with the same
+    arithmetic, so the bits are the same at about a third of the traffic.
+    """
+    N = K.shape[-1]
+    W = K.clone()
+    L = torch.zeros_like(K)
+    d = torch.empty(K.shape[:-1], dtype=K.dtype, device=K.device)
+    for j in range(N):
+        dj = W[..., j, j]
+        c = W[..., j + 1:, j]  # column j below the diagonal
+        lcol = c / dj[..., None]
+        L[..., j + 1:, j] = lcol
+        d[..., j] = dj
+        W[..., j + 1:, j + 1:] -= lcol[..., :, None] * c[..., None, :]
+    L.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    return L, d
+
+
+def _ldl_apply_kkt(qp: QP, rho_row, sigma, v):
+    """K @ v, matrix-free (the refinement residual, and MINRES's operator)."""
+    n = qp.n
+    v1, v2 = v[..., :n], v[..., n:]
+    top = qp.matvec_P(v1) + sigma * v1 + qp.matvec_At(v2)
+    bot = qp.matvec_A(v1) - v2 / rho_row
+    return torch.cat([top, bot], dim=-1)
+
+
+def kkt_ldl_init(qp: QP, rho, sigma, settings: Settings) -> dict:
+    L, d = _ldl_factor(_build_kkt_matrix(
+        qp, _full_rho_row(qp, rho, settings), sigma))
+    return {"L": L, "d": d}
+
+
+def kkt_ldl_refactor(cache, qp: QP, rho, sigma, settings: Settings) -> dict:
+    return kkt_ldl_init(qp, rho, sigma, settings)
+
+
+def _ldl_solve_vec(cache, b):
+    """K^{-1} b from the factor: L w = b, w /= d, L' v = w."""
+    L, d = cache["L"], cache["d"]
+    w = torch.linalg.solve_triangular(L, b[..., None], upper=False,
+                                      unitriangular=True)[..., 0] / d
+    return torch.linalg.solve_triangular(
+        L.transpose(-1, -2), w[..., None], upper=True,
+        unitriangular=True)[..., 0]
+
+
+def kkt_ldl_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
+    """Solve the whole KKT system, then zz = z + (v2 - y)/rho (per-row rho)."""
+    sigma = settings.sigma_for(qp.dtype)
+    rho_row = rho_rows(qp, rho, settings)
+    rhs = torch.cat([sigma * x - qp.q, z - y / rho_row], dim=-1)
+    v = _ldl_solve_vec(cache, rhs)
+    for _ in range(settings.kkt_refinement_steps):
+        v = v + _ldl_solve_vec(cache, rhs - _ldl_apply_kkt(qp, rho_row, sigma, v))
+    xx = v[..., : qp.n]
+    zz = z + (v[..., qp.n:] - y) / rho_row
+    return xx, zz, cache
+
+
+# --------------------------------------------------------------------------
+# Quasi-definite MINRES backend (iterative path on the 2x2 KKT)
+# --------------------------------------------------------------------------
+#
+# CG iterates on the normal matrix, whose condition number is the square of
+# the KKT system's; MINRES iterates on the symmetric indefinite KKT system
+# itself, preconditioned by the SPD block diagonal [(P + sigma*I)^{-1},
+# diag(rho)]. The dense preconditioner caches (P + sigma*I)^{-1} once (it
+# does not depend on rho, so a rho refactor is free); a sparse problem uses
+# the Jacobi diagonal of P + sigma*I instead.
+
+
+def kkt_minres_init(qp, rho, sigma, settings: Settings) -> dict:
+    cache = {"v": torch.zeros(qp.batch_shape + (qp.n + qp.m,),
+                              dtype=qp.dtype, device=qp.device)}
+    if qp.is_dense:
+        # spd_inverse: the Gauss-Jordan sweep around the pivot kernel on a
+        # fleet of >= 4 lanes at 128-multiple n. A P shared by the fleet
+        # gives one (n, n) inverse that every lane's product reads (no
+        # per-lane copy).
+        cache["P_inv"] = spd_inverse(add_scaled_identity(sym(qp.P), sigma))
+    else:
+        cache["d1_inv"] = 1.0 / (qp.diag_P() + sigma)
+    return cache
+
+
+def kkt_minres_refactor(cache, qp, rho, sigma, settings: Settings) -> dict:
+    # The preconditioner depends only on P and sigma: rho drift is free.
+    return cache
+
+
+def _kkt_precond(cache, qp, rho_row):
+    """The SPD block-diagonal preconditioner's inverse, as a function."""
+    n = qp.n
+
+    def apply(v):
+        v1, v2 = v[..., :n], v[..., n:]
+        if "P_inv" not in cache:
+            u1 = cache["d1_inv"] * v1
+        elif cache["P_inv"].dim() == 2:
+            u1 = torch.matmul(v1, cache["P_inv"].transpose(-1, -2))
+        else:
+            u1 = matvec(cache["P_inv"], v1)
+        return torch.cat([u1, rho_row * v2], dim=-1)
+
+    return apply
+
+
+def kkt_minres_solve(cache, qp, x, z, y, rho, settings: Settings):
+    sigma = settings.sigma_for(qp.dtype)
+    rho_row = rho_rows(qp, rho, settings)
+    rhs = torch.cat([sigma * x - qp.q, z - y / rho_row], dim=-1)
+    v = _minres(lambda w: _ldl_apply_kkt(qp, rho_row, sigma, w),
+                _kkt_precond(cache, qp, rho_row), rhs, cache["v"],
+                abs_tol=settings.cg_eps,
+                max_iterations=settings.cg_max_iterations)
+    xx = v[..., : qp.n]
+    zz = z + (v[..., qp.n:] - y) / rho_row
+    return xx, zz, {**cache, "v": v}
+
+
+def _minres(apply_K, precond, b, x0, abs_tol: float, max_iterations: int,
+            vdot=None, rel_tol: float = 0.0):
+    """Batched preconditioned MINRES (Paige and Saunders) with per-lane
+    masking (the JAX package's ``_minres``, models/kkt.py:393-470).
+
+    Solves K v = b for a symmetric (indefinite) K with an SPD preconditioner
+    ``precond`` (M^{-1} applied); ``phibar``, the M^{-1}-norm of the
+    residual, stops a lane at max(abs_tol, max(rel_tol, 10 ulp) ||b||), and
+    a Lanczos breakdown (beta <= ulp * beta1: the solution is exact) stops
+    it too. Every division is guarded, so a stopped lane stays finite.
+    ``vdot(a, b) -> (*batch,)`` overrides the inner product.
+
+    JAX's ``lax.while_loop`` becomes a host loop whose condition reads
+    "every lane done" back from the device once a step (``_minres.syncs``
+    counts these reads, ``_minres.steps`` the steps). A done lane keeps its
+    x bit for bit.
+    """
+    if vdot is None:
+        def vdot(a, c):
+            return (a * c).sum(-1)
+    eps = torch.finfo(b.dtype).eps
+    b_norm = torch.sqrt(torch.clamp(vdot(b, b), min=0.0))
+    tol = torch.clamp(max(rel_tol, 10 * eps) * b_norm, min=abs_tol)
+
+    def guard(t):
+        return torch.where(t == 0, torch.ones_like(t), t)
+
+    x = x0
+    r1 = b - apply_K(x0)
+    y = precond(r1)
+    beta1 = torch.sqrt(torch.clamp(vdot(r1, y), min=0.0))
+    breakdown = eps * beta1
+    r2 = r1
+    zero = torch.zeros_like(beta1)
+    beta, dbar, epsln, phibar = beta1, zero, zero, beta1
+    cs, sn = -torch.ones_like(beta1), zero
+    beta_g = oldb_g = guard(beta1)  # beta and the last step's, guarded
+    w = w2 = torch.zeros_like(b)
+    done = beta1 <= tol
+    it = 0
+    while it < max_iterations:
+        _minres.syncs += 1
+        if bool(done.all()):
+            break
+        v = y / beta_g[..., None]
+        yn = apply_K(v)
+        if it >= 1:  # JAX subtracts 0 * r1 at the first step
+            yn = yn - (beta / oldb_g)[..., None] * r1
+        alfa = vdot(v, yn)
+        yn = yn - (alfa / beta_g)[..., None] * r2
+        r1, r2 = r2, yn
+        y = precond(r2)
+        beta, oldb_g = torch.sqrt(torch.clamp(vdot(r2, y), min=0.0)), beta_g
+        beta_g = guard(beta)
+        oldeps = epsln
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        epsln = sn * beta
+        dbar = -cs * beta
+        gamma = torch.clamp(torch.sqrt(gbar * gbar + beta * beta), min=eps)
+        cs = gbar / gamma
+        sn = beta / gamma
+        phi = cs * phibar
+        phibar = sn * phibar
+        w1, w2 = w2, w
+        w = (v - oldeps[..., None] * w1 - delta[..., None] * w2) / gamma[..., None]
+        x = torch.where(done[..., None], x, torch.addcmul(x, phi[..., None], w))
+        done = done | (phibar <= tol) | (beta <= breakdown)
+        it += 1
+    _minres.steps += it
+    return x
+
+
+_minres.steps = 0
+_minres.syncs = 0
 
 
 # --------------------------------------------------------------------------
@@ -279,17 +513,17 @@ class Backend:
 BACKENDS = {
     KKTBackendKind.CHOLESKY: Backend(cholesky_init, cholesky_refactor,
                                      cholesky_solve),
+    KKTBackendKind.KKT_LDL: Backend(kkt_ldl_init, kkt_ldl_refactor,
+                                    kkt_ldl_solve),
     KKTBackendKind.CG: Backend(cg_init, cg_refactor, cg_solve,
                                cheap_refactor=True),
+    KKTBackendKind.KKT_MINRES: Backend(kkt_minres_init, kkt_minres_refactor,
+                                       kkt_minres_solve, cheap_refactor=True),
 }
 
 
 def get_backend(kind: KKTBackendKind, qp) -> Backend:
-    kind = resolve_backend(kind, qp)
-    if kind not in BACKENDS:
-        raise NotImplementedError(f"KKT backend {kind} is not implemented by "
-                                  "the PyTorch port yet (see ROADMAP.md)")
-    b = BACKENDS[kind]
+    b = BACKENDS[resolve_backend(kind, qp)]
     # The functions as this module holds them at the solve's start, so a
     # counter put on one (chip_smoke.py counts cholesky_init's builds) sees
     # every call.

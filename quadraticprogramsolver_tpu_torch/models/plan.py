@@ -30,8 +30,8 @@ from . import kkt as kkt_mod
 class SolvePlan:
     """Static description of the kernel paths one solve will execute."""
 
-    #: Resolved KKT backend ("cholesky" or "cg"; "prox_alm" for the prox
-    #: family).
+    #: Resolved KKT backend ("cholesky", "kkt_ldl", "cg" or "kkt_minres";
+    #: "prox_alm" for the prox family).
     backend: str
     #: Chunk implementation: "fused_kernel" or "torch" (the JAX plan's
     #: "xla").
@@ -39,12 +39,15 @@ class SolvePlan:
     #: Factor implementation: "fused_slab" (the slab kernels); "gj_sweep" or
     #: "sweep_inverse" (ops/linalg.py's Gauss-Jordan sweep around the pivot
     #: kernel, sigma-free or M^{-1} form); "torch_cholesky_solve" or
-    #: "torch_inverse" (Cholesky, off the sweep's shapes); "jacobi_diag"
-    #: (the CG backend); or "prepared" (a solve given a prepared factor).
+    #: "torch_inverse" (Cholesky, off the sweep's shapes); "ldl_scan"
+    #: (KKT_LDL's column loop); "minres_precond" (KKT_MINRES's
+    #: preconditioner); "jacobi_diag" (CG, and the matrix-free prox path);
+    #: or "prepared" (a solve given a prepared factor).
     factor: str
     #: KKT cache layout: "G_g", "slab" (Settings.slab_cache), "split_bf16"
-    #: (Settings.split_cache), "M_inv" or "diag" (CG) (ADMM); "Ga_Gc_g" or
-    #: "M_inv" (prox).
+    #: (Settings.split_cache), "M_inv", "L_d" (KKT_LDL), "P_inv" (dense
+    #: KKT_MINRES) or "diag" (CG, sparse KKT_MINRES) (ADMM); "Ga_Gc_g",
+    #: "M_inv" or "diag" (prox).
     cache: str
     #: (n_pad, m_pad) when the solve pads to 128-multiples ((n_pad, me_pad,
     #: mi_pad) for the prox family); else None.
@@ -167,10 +170,16 @@ def plan(qp, settings: Settings, prepared: bool = False) -> SolvePlan:
                 reasons)
 
     if kind is not KKTBackendKind.CHOLESKY:
-        # CG (the JAX plan adds no factor reasons off CHOLESKY).
+        # The JAX plan's names, and no factor reasons off CHOLESKY.
+        if kind is KKTBackendKind.KKT_LDL:
+            factor, cache = "ldl_scan", "L_d"
+        elif kind is KKTBackendKind.KKT_MINRES:
+            factor, cache = "minres_precond", "P_inv" if qp.is_dense else "diag"
+        else:
+            factor, cache = "jacobi_diag", "diag"
         return SolvePlan(backend=kind.value, chunk=chunk,
-                         factor="prepared" if prepared else "jacobi_diag",
-                         cache="diag", padded=padded,
+                         factor="prepared" if prepared else factor,
+                         cache=cache, padded=padded,
                          fallback_reasons=tuple(reasons), lanes=lanes,
                          dot_precision=dot_precision)
     if prepared:
@@ -233,6 +242,22 @@ def plan_proxqp(prob, settings, prepared: bool = False) -> SolvePlan:
     dtype_reason = _dtype_reason(prob.dtype, device)
     if device.type not in ("cpu", "cuda"):
         dtype_reason = f"no kernels for device {device}"
+    if not prob.is_dense:
+        # The matrix-free path (a SparseProxQP): CG with M's Jacobi diagonal
+        # as the factor; no chunk kernel, no pad. (sigma_free_rhs raises in
+        # the solve; the JAX plan names its dense factor there.)
+        if settings.fused_chunk:
+            reasons.append("fused prox chunk requires a dense ProxQPProblem")
+            if dtype_reason:
+                reasons.append(f"fused prox chunk: {dtype_reason}")
+            reasons.append("fused prox chunk requires exactly one batch axis "
+                           f"(got {batch})")
+        factor, cache = (("gj_sweep", "Ga_Gc_g") if settings.sigma_free_rhs
+                         else ("jacobi_diag", "diag"))
+        return SolvePlan(backend="prox_alm", chunk="torch",
+                         factor="prepared" if prepared else factor,
+                         cache=cache, padded=None,
+                         fallback_reasons=tuple(reasons))
 
     padded = None
     if (settings.fused_chunk and not prepared and dtype_reason is None

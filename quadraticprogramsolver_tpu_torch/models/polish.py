@@ -1,5 +1,5 @@
 """Solution polishing: masked active-set refinement with static shapes
-(counterpart of the JAX package's models/polish.py, its dense Schur path).
+(counterpart of the JAX package's models/polish.py).
 
 Rows of A are not sliced out of the KKT system; inactive rows are masked
 instead: E = diag(active) A, their dual equations become nu_i = 0, and
@@ -18,9 +18,13 @@ Cholesky), then ``polish_iterations - 1`` refinement passes against the
 unregularized operator. Acceptance is per lane: the polished (x, y) replace
 the ADMM ones only where the KKT error drops and x is finite.
 
-The JAX package sends m > n and sparse problems to a matrix-free MINRES
-polish (``polish_minres``), which needs the KKT_MINRES machinery this port
-does not have yet; that branch raises.
+Dense problems with m > n (where the m x m Schur complement would cost
+O(m^3)) and sparse ones (which have no dense A) take ``polish_minres``:
+batched matrix-free MINRES (models/kkt.py: ``_minres``) on the masked KKT
+system, preconditioned by its block-Jacobi diagonal, ``polish_iterations``
+corrections of the unregularized residual. It needs only the operator
+protocol (matvec_P, matvec_A, matvec_At, diag_P), so on a SparseQP stored as
+ELL every product is the ELL kernel.
 """
 
 from __future__ import annotations
@@ -57,16 +61,73 @@ def _active_set(qp, settings: Settings, x, z, y):
     return active, g
 
 
+def _accept(qp, x, y, px, pn):
+    """(x, y) replaced by (px, pn) on the lanes where the KKT error drops
+    and px is finite."""
+    accept = ((_kkt_error(qp, px, pn) < _kkt_error(qp, x, y))
+              & px.isfinite().all(-1))
+    return (torch.where(accept[..., None], px, x),
+            torch.where(accept[..., None], pn, y))
+
+
+def polish_minres(qp, settings: Settings, x, z, y, rho):
+    """Matrix-free masked-KKT polish by batched MINRES.
+
+    Solves [[P + delta I, E'], [E, -R]] [px; pn] = [-q; g] with E = diag(active)
+    A applied through the operator protocol, preconditioned by the block
+    Jacobi diagonal [1/(diag P + delta), 1/r]; each of ``polish_iterations``
+    sweeps runs MINRES (relative tolerance ``polish_eps``, at most
+    ``polish_max_krylov`` steps) on the residual of the unregularized
+    system, removing the O(delta) bias of the regularized one.
+    """
+    from .kkt import _minres
+
+    dt, dev = qp.dtype, qp.device
+    n = qp.n
+    delta = settings.delta
+    active, g = _active_set(qp, settings, x, z, y)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    r_diag = torch.where(active, one * delta, one)
+
+    def apply_K(v):
+        v1, v2 = v[..., :n], v[..., n:]
+        top = (qp.matvec_P(v1) + delta * v1
+               + qp.matvec_At(torch.where(active, v2, zero)))
+        bot = torch.where(active, qp.matvec_A(v1), zero) - r_diag * v2
+        return torch.cat([top, bot], dim=-1)
+
+    def apply_K_exact(v):
+        # The unregularized target [[P, E'], [E, 0]] on the active rows,
+        # nu = 0 elsewhere (delta appears only in the solver's operator).
+        v1, v2 = v[..., :n], v[..., n:]
+        top = qp.matvec_P(v1) + qp.matvec_At(torch.where(active, v2, zero))
+        bot = (torch.where(active, qp.matvec_A(v1), zero)
+               - torch.where(active, zero, v2))
+        return torch.cat([top, bot], dim=-1)
+
+    d1 = qp.diag_P() + delta
+    d1_inv = torch.where(d1 > 0, 1.0 / d1, one).expand(x.shape)
+
+    def precond(v):
+        return torch.cat([d1_inv * v[..., :n], v[..., n:] / r_diag], dim=-1)
+
+    b = torch.cat([-qp.q + torch.zeros_like(x), g], dim=-1)
+    v = torch.cat([x, torch.where(active, y, zero)], dim=-1)
+    for _ in range(max(1, settings.polish_iterations)):
+        r = b - apply_K_exact(v)
+        v = v + _minres(apply_K, precond, r, torch.zeros_like(b),
+                        abs_tol=0.0, rel_tol=settings.polish_eps,
+                        max_iterations=settings.polish_max_krylov)
+    return _accept(qp, x, y, v[..., :n], v[..., n:])
+
+
 def polish(qp, settings: Settings, x, z, y, rho):
     """Refine (x, y) on the active set; returns (x, y) with per-lane
-    acceptance. Dense QPs with m <= n only (see the module docstring)."""
+    acceptance. The dense Schur path for m <= n, :func:`polish_minres`
+    otherwise (see the module docstring)."""
     if not qp.is_dense or qp.m > qp.n:
-        raise NotImplementedError(
-            "polish of a sparse QP or of a dense one with m > n (here "
-            f"{'sparse' if not qp.is_dense else f'm={qp.m} > n={qp.n}'}) "
-            "runs the matrix-free MINRES polish of the KKT_MINRES backend, "
-            "which the PyTorch port does not implement yet (ROADMAP.md "
-            "Queue 1 item 4)")
+        return polish_minres(qp, settings, x, z, y, rho)
     dt, dev = qp.dtype, qp.device
     delta = settings.delta
     active, g = _active_set(qp, settings, x, z, y)
@@ -100,9 +161,4 @@ def polish(qp, settings: Settings, x, z, y, rho):
         dx, dn = kkt_solve(bx - ax, bn - an)
         px, pn = px + dx, pn + dn
 
-    err_before = _kkt_error(qp, x, y)
-    err_after = _kkt_error(qp, px, pn)
-    accept = (err_after < err_before) & px.isfinite().all(-1)
-    x_out = torch.where(accept[..., None], px, x)
-    y_out = torch.where(accept[..., None], pn, y)
-    return x_out, y_out
+    return _accept(qp, x, y, px, pn)

@@ -28,7 +28,13 @@ check on the device. Where the loop needs to
 know something (whether any lane still runs under ``early_exit``, whether any
 lane's rho tripped), it reads both in ONE device-to-host sync at the top of
 the next pass; ``lax.cond(any(trip))`` becomes a host ``if`` on that flag.
-Only the dense path is ported; the matrix-free one raises.
+
+The matrix-free path takes a :class:`~..core.sparse_problem.SparseProxQP`
+(operator protocol; every product the ELL kernel, or CSR): the x-update is
+Jacobi-preconditioned CG (models/kkt.py: ``_pcg``) on M = P + sigma*I +
+rho(A'A + C'C), warm-started from the current x, so the "factor" is M's
+diagonal, refreshed after every check's rho update (no sync), and the
+default start is :func:`warm_start_operator`, the unconstrained minimizer.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ import torch
 
 from ..core.problem import ProxQPProblem, pad_proxqp
 from ..core.settings import ProxQPSettings, chunk_precision
+from ..core.sparse_problem import SparseProxQP
 from ..core.state import Status
 from ..ops.fused_proxqp import (fused_proxqp_chunk, fused_proxqp_chunk_minv,
                                 fused_proxqp_chunk_plain)
 from ..ops.linalg import (add_scaled_identity, fp32_products, inf_norm,
                           kernel_dtype_ok, matvec, spd_inverse, spd_solve)
 from . import anderson as anderson_mod
+from .kkt import _pcg
 from .plan import check_require_fused, plan_proxqp
 
 
@@ -75,11 +83,10 @@ class ProxQPSolution:
     info: ProxQPInfo
 
 
-def _require_dense(prob) -> None:
-    if not isinstance(prob, ProxQPProblem):
-        raise NotImplementedError(
-            "the matrix-free (SparseProxQP) prox path is not implemented by "
-            "the PyTorch port yet (ROADMAP Queue 1 item 6)")
+def _require_problem(prob) -> None:
+    if not isinstance(prob, (ProxQPProblem, SparseProxQP)):
+        raise TypeError("the prox-ALM solver takes a ProxQPProblem or a "
+                        f"SparseProxQP; got {type(prob).__name__}")
 
 
 def _bcast(t: torch.Tensor, batch, *shape) -> torch.Tensor:
@@ -94,7 +101,6 @@ def warm_start(prob: ProxQPProblem, reg: float = 0.0):
     Solves [[P, A'], [A, -reg*I]] [x; y] = [-q; b] and sets
     s = max(d - Cx, 0), z = 0.
     """
-    _require_dense(prob)
     n, me, mi = prob.n, prob.n_eq, prob.n_ineq
     batch = prob.batch_shape
     kw = dict(dtype=prob.dtype, device=prob.device)
@@ -111,10 +117,27 @@ def warm_start(prob: ProxQPProblem, reg: float = 0.0):
 
 
 def warm_start_operator(prob, settings: ProxQPSettings):
-    """The matrix-free warm start (Jacobi-CG) is not ported yet."""
-    raise NotImplementedError(
-        "warm_start_operator belongs to the matrix-free prox path, which the "
-        "PyTorch port does not implement yet (ROADMAP Queue 1 item 6)")
+    """Matrix-free warm start: x0 = (P + sigma*I)^{-1}(-q) by Jacobi-CG,
+    y = z = 0, s = max(d - Cx0, 0).
+
+    The equality-KKT solve of :func:`warm_start` is the factorization the
+    matrix-free path exists to avoid; the unconstrained minimizer lands a
+    lightly constrained problem (a smoothing with a few pinned samples)
+    near a zero dual residual, and the ALM only has to enforce the
+    constraints.
+    """
+    _require_problem(prob)
+    sigma = settings.sigma
+    dP = prob.diag_P() + sigma
+    diag_inv = torch.where(dP > 0, 1.0 / dP, torch.ones_like(dP))
+    x = _pcg(lambda v: prob.matvec_P(v) + sigma * v, -prob.q,
+             torch.zeros_like(prob.q), diag_inv, abs_tol=settings.cg_eps,
+             max_iterations=settings.cg_max_iterations)
+    kw = dict(dtype=prob.dtype, device=prob.device)
+    y = torch.zeros(prob.batch_shape + (prob.n_eq,), **kw)
+    s = torch.clamp_min(prob.d - prob.matvec_C(x), 0.0)
+    z = torch.zeros(prob.batch_shape + (prob.n_ineq,), **kw)
+    return x, y, s, z
 
 
 def _gram(prob: ProxQPProblem) -> torch.Tensor:
@@ -175,13 +198,20 @@ def _apply_M(prob, rho, sigma, v):
                                 + prob.matvec_Ct(prob.matvec_C(v))))
 
 
+def _jacobi_inv(prob, rho, sigma):
+    """1 / diag(M): the matrix-free path's whole "factorization"."""
+    d = prob.diag_P() + sigma + rho[..., None] * (prob.diag_AtA()
+                                                  + prob.diag_CtC())
+    return torch.where(d > 0, 1.0 / d, torch.ones_like(d))
+
+
 @dataclasses.dataclass
 class PreparedProxFactor:
     """Prox-ALM factor prepared once for repeated solves (P, A, C fixed;
     q, b, d free). ``M_inv`` is carried only on the sigma-free path, to
     refresh the q-dependent g = M^{-1}q per solve."""
 
-    cache: object             # {"G"} (sigma-free) or M^{-1}
+    cache: object             # {"G"} (sigma-free), M^{-1}, or M's diagonal
     rho: torch.Tensor
     M_inv: torch.Tensor | None = None
 
@@ -194,42 +224,53 @@ class PreparedProxFactor:
 @fp32_products()
 def prepare(prob, settings: ProxQPSettings = ProxQPSettings(),
             rho0=None) -> PreparedProxFactor:
-    """Factor M = P + rho(A'A + C'C) (+ sigma*I) once for repeated solves.
+    """Factor M = P + rho(A'A + C'C) (+ sigma*I) once for repeated solves:
+    M^{-1}, the sigma-free {G} with M^{-1} for g, or (a SparseProxQP) M's
+    Jacobi diagonal.
 
     A prepared solve runs at the problem's own shape (no auto-pad): prepare
     on a pre-padded problem (:func:`~..core.problem.pad_proxqp`) if the
     fused chunk is wanted.
     """
-    _require_dense(prob)
+    _require_problem(prob)
     batch = prob.batch_shape
     kw = dict(dtype=prob.dtype, device=prob.device)
     rho = (torch.full(batch, settings.rho, **kw) if rho0 is None
            else torch.as_tensor(rho0, **kw).expand(batch).clone())
     if settings.sigma_free_rhs:
+        if not prob.is_dense:
+            raise ValueError("sigma_free_rhs needs a dense ProxQP problem")
         M_inv = spd_inverse(prob.P + rho[..., None, None] * _gram(prob))
         G = torch.cat([torch.matmul(M_inv, prob.A.transpose(-1, -2)),
                        torch.matmul(M_inv, prob.C.transpose(-1, -2))], dim=-1)
         return PreparedProxFactor(cache={"G": G}, rho=rho, M_inv=M_inv)
-    return PreparedProxFactor(cache=_build_M_inv(prob, rho, settings.sigma),
+    if prob.is_dense:
+        return PreparedProxFactor(
+            cache=_build_M_inv(prob, rho, settings.sigma), rho=rho)
+    return PreparedProxFactor(cache=_jacobi_inv(prob, rho, settings.sigma),
                               rho=rho)
 
 
 @fp32_products()
 def solve(prob, settings: ProxQPSettings = ProxQPSettings(),
           init=None, rho0=None, prepared=None) -> ProxQPSolution:
-    """Solve a (batched) dense split-form QP on the device its tensors are on.
+    """Solve a (batched) dense split-form QP, or one matrix-free
+    :class:`~..core.sparse_problem.SparseProxQP`, on the device its tensors
+    are on.
 
     ``init`` optionally provides (x, y, s, z); by default the equality-KKT
-    warm start is used. ``rho0`` (scalar or per-lane) warm-starts the
-    penalty; ``prepared`` (from :func:`prepare`) reuses a factor. A fleet
-    that the fused chunk wants in 128-multiples is padded first
+    warm start is used (:func:`warm_start_operator` on a SparseProxQP).
+    ``rho0`` (scalar or per-lane) warm-starts the penalty; ``prepared``
+    (from :func:`prepare`) reuses a factor. A fleet that the fused chunk
+    wants in 128-multiples is padded first
     (:func:`~..core.problem.pad_proxqp`), solved, and sliced back. With
     ``settings.require_fused`` any requested kernel that would not run is
     an error (models/plan.py). Torch's products run in full FP32 inside
     (:func:`~..ops.linalg.fp32_products`), here and in :func:`prepare`.
     """
-    _require_dense(prob)
-    prob = ProxQPProblem(*(t.contiguous() for t in prob.tensors()))
+    _require_problem(prob)
+    if prob.is_dense:
+        prob = ProxQPProblem(*(t.contiguous() for t in prob.tensors()))
     p = plan_proxqp(prob, settings, prepared=prepared is not None)
     if settings.require_fused:
         check_require_fused(p, "prox-ALM")
@@ -243,6 +284,8 @@ solve_jit = solve
 def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
                 prepared, p) -> ProxQPSolution:
     sigma_free = settings.sigma_free_rhs
+    if sigma_free and not prob.is_dense:
+        raise ValueError("sigma_free_rhs needs a dense ProxQP problem")
     if sigma_free and settings.kkt_refinement_steps:
         raise ValueError("sigma_free_rhs excludes kkt_refinement_steps "
                          "(refinement needs the explicit M^{-1})")
@@ -252,8 +295,10 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
 
     if init is not None:
         x, y, s, z = (torch.as_tensor(v, **kw) for v in init)
-    elif settings.kkt_warm_start:
+    elif settings.kkt_warm_start and prob.is_dense:
         x, y, s, z = warm_start(prob)
+    elif settings.kkt_warm_start:
+        x, y, s, z = warm_start_operator(prob, settings)
     else:
         x = torch.zeros(batch + (prob.n,), **kw)
         y = torch.zeros(batch + (prob.n_eq,), **kw)
@@ -283,7 +328,9 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
     def refresh_factor(rho):
         if sigma_free:
             return _build_sigma_free_cache(prob, rho, settings)
-        return _build_M_inv(prob, rho, sigma)
+        if prob.is_dense:
+            return _build_M_inv(prob, rho, sigma)
+        return _jacobi_inv(prob, rho, sigma)
 
     factor = (prepared.materialize(prob) if prepared is not None
               else refresh_factor(rho))
@@ -300,10 +347,16 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
             q = _bcast(prob.q, batch, n)
             P = _bcast(prob.P, batch, n, n) if refine > 0 else None
 
-    def ldiv(M_inv, rho, r):
-        v = matvec(M_inv, r)
+    def ldiv(factor, rho, r, x0):
+        if not prob.is_dense:
+            # factor: M's inverse diagonal; x0 the warm start.
+            return _pcg(lambda w: _apply_M(prob, rho, sigma, w), r, x0,
+                        factor, abs_tol=settings.cg_eps,
+                        max_iterations=settings.cg_max_iterations,
+                        rel_tol=settings.cg_rel_eps)
+        v = matvec(factor, r)
         for _ in range(refine):
-            v = v + matvec(M_inv, r - _apply_M(prob, rho, sigma, v))
+            v = v + matvec(factor, r - _apply_M(prob, rho, sigma, v))
         return v
 
     def run_chunk(x, s, y, z, rho, factor, active, it):
@@ -331,7 +384,7 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
             r = (-prob.q + sigma * x
                  + prob.matvec_At(rho_col * prob.b - y)
                  + prob.matvec_Ct(rho_col * (prob.d - s) - z))
-            x_new = ldiv(factor, rho, r)
+            x_new = ldiv(factor, rho, r, x)
             Cx = prob.matvec_C(x_new)
             s_new = torch.clamp_min(prob.d - Cx - z / rho_col, 0.0)
             y_new = y + rho_col * (prob.matvec_A(x_new) - prob.b)
@@ -442,6 +495,11 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
             rho = torch.where(trip, rho_new, rho)
             # rho changes the Anderson encoding u = s - z/rho and the map.
             aa = anderson_mod.reset_aa(aa, trip)
+            if not prob.is_dense:
+                # The O(n) diagonal is refreshed every check, with no sync
+                # (a lane whose rho did not trip keeps its diagonal).
+                factor = refresh_factor(rho)
+                trip = None
 
     status = status.masked_fill(status == Status.RUNNING,
                                 int(Status.MAX_ITERATIONS))

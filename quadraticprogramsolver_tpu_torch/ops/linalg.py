@@ -88,6 +88,20 @@ def sym(M: torch.Tensor) -> torch.Tensor:
     return 0.5 * (M + M.transpose(-1, -2))
 
 
+def spsd_sqrt(A: torch.Tensor, rank_tol: float = 1e-10) -> torch.Tensor:
+    """Batched M with M'M = A for a (possibly singular) symmetric PSD A.
+
+    With A = V diag(w) V', M = diag(sqrt(w)) V' after eigenvalues below
+    rank_tol * max|w| are clipped to zero (the numerical-rank cutoff of the
+    reference's CalcSPSDSquareRoot, SPSDMatSquareRoot.jl:63-118). Returns
+    (*B, n, n); rows beyond the rank are zero.
+    """
+    w, V = torch.linalg.eigh(sym(A))
+    w_max = w.abs().amax(-1, keepdim=True)
+    w = torch.where(w > rank_tol * w_max, w, torch.zeros_like(w))
+    return torch.sqrt(w)[..., None] * V.transpose(-1, -2)
+
+
 #: The code of each chunk product precision in the kernels' C entry points
 #: (csrc/common.cuh: Prec).
 PRECISIONS = {p: i for i, p in enumerate(DOT_PRECISIONS)}

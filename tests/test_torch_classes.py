@@ -89,10 +89,9 @@ def test_stack_qps_identical(pad):
 
 
 def test_top_level_names():
-    """Every public name of the JAX package but the matrix-free prox ones
-    (ROADMAP Queue 1 item 6) is a public name of the port."""
+    """Every public name of the JAX package is a public name of the port."""
     missing = set(qps.__all__) - set(pt.__all__)
-    assert missing == {"SparseProxQP", "make_sparse_proxqp"}, missing
+    assert not missing, missing
     for name in pt.__all__:
         assert hasattr(pt, name), name
     assert pt.__version__ == qps.__version__ == "0.1.0"

@@ -73,8 +73,11 @@ REJECTED = [
 PORTED = {"slab_cache", "split_cache", "chunk_lanes", "chunk_dot_precision",
           "first_chunk_dot_precision", "pivot_variant", "anderson_memory",
           "polish_iterations", "scaling_iters", "record_history"}
-#: Values of a knob that the port has implemented since (the CG backend).
-PORTED_VALUES = {("kkt_backend", pt.KKTBackendKind.CG)}
+#: Values of a knob that the port has implemented since (the CG, KKT_LDL
+#: and KKT_MINRES backends).
+PORTED_VALUES = {("kkt_backend", pt.KKTBackendKind.CG),
+                 ("kkt_backend", pt.KKTBackendKind.KKT_LDL),
+                 ("kkt_backend", pt.KKTBackendKind.KKT_MINRES)}
 
 
 @pytest.mark.parametrize("field,value", REJECTED,
@@ -269,6 +272,8 @@ def test_port_never_imports_jax():
     assert {PORT_DIR / f for f in (
         "models/anderson.py", "models/polish.py", "frontends/reuse.py",
         "frontends/sequence.py", "frontends/lsq.py")} <= set(files)
+    # And the operator builders of the smoothing application.
+    assert PORT_DIR / "problems/operators.py" in set(files)
     for f in files:
         m = bad.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"
@@ -278,6 +283,27 @@ def test_port_never_imports_jax():
         # Nor is a module of the JAX package loaded by its path.
         assert re.search(r"[\"']quadraticprogramsolver_tpu[\"']", text) is None, script
         assert "spec_from_file_location" not in text, script
+
+
+def test_every_refusal_names_its_queue_item():
+    """Static check: every NotImplementedError the port still raises names
+    the ROADMAP item that will lift it, Queue 1 item 3 (reduced product
+    precision) or item 7 (the mesh and the distributed modes)."""
+    raises = []
+    for f in sorted(PORT_DIR.rglob("*.py")):
+        text = f.read_text()
+        for m in re.finditer(r"raise NotImplementedError\(", text):
+            depth, i = 1, m.end()
+            while depth:
+                depth += {"(": 1, ")": -1}.get(text[i], 0)
+                i += 1
+            call = re.sub(r'"\s+f?"', "", text[m.start():i])
+            raises.append((f.name, call))
+            assert re.search(r"Queue 1 item [37]\b", call), (f, call)
+    # The refusals left: the settings validators (precision), the factor
+    # precision off the slab (precision) and CachedQPSolver's mesh.
+    assert sorted(name for name, _ in raises) == [
+        "kkt.py", "reuse.py", "settings.py", "settings.py"], raises
 
 
 def _smoke_oracle():

@@ -1744,3 +1744,81 @@ def test_prepared_sigma_free_solve_on_card(dev):
     _core_solve_on_card(dev, qp, st, (spd_kernels.spd_inverse_unrolled,
                                       fused_admm.fused_admm_chunk),
                         prepare=True)
+
+
+# --- The KKT_LDL and KKT_MINRES backends and the matrix-free prox path ------
+
+@pytest.mark.parametrize("kind", ["KKT_LDL", "KKT_MINRES"])
+def test_kkt_backend_solve_on_card(dev, kind):
+    """A fleet through LDL or MINRES on the card against the port's CPU f64
+    solve of the same fleet: every lane converged in both (flags 2 and 3 can
+    pass at one check, and which one a lane reports rests on rounding: the
+    CPU's own f32 solve flips 2 of these 8 lanes against its f64 one, on
+    CHOLESKY too), x within 1e-4."""
+    import numpy as np
+
+    qp = pt.generate_batch(pt.ProblemClass.RANDOM_QP, B, 64, seed=5,
+                           dtype=np.float32, device=dev)
+    st = pt.Settings(max_iterations=4000, eps_abs=1e-5, eps_rel=1e-5,
+                     rho=0.1, kkt_backend=pt.KKTBackendKind[kind])
+    sol = pt.solve(qp, st)
+    ref = pt.solve(qp.to("cpu", torch.float64), st)
+    assert bool((sol.info.status >= 2).all()) and bool((ref.info.status >= 2).all())
+    assert float((sol.x.cpu().double() - ref.x).abs().max()) <= 1e-4
+
+
+def test_minres_preconditioner_launches_row_2_once(dev):
+    """MINRES's dense preconditioner (P + sigma I)^{-1} is built once a
+    solve through row 2's sweep (n = 128: one launch); a rho refactor is
+    free."""
+    import numpy as np
+
+    qp = pt.generate_batch(pt.ProblemClass.RANDOM_QP, B, 128, seed=6,
+                           dtype=np.float32, device=dev)
+    st = pt.Settings(max_iterations=1000, eps_abs=1e-4, eps_rel=1e-4,
+                     rho=0.1, kkt_backend=pt.KKTBackendKind.KKT_MINRES)
+    spd_kernels.spd_inverse_unrolled.launches = 0
+    sol = pt.solve(qp, st)
+    assert spd_kernels.spd_inverse_unrolled.launches == 1
+    assert bool((sol.info.status >= 2).all())
+
+
+def test_sparse_prox_solve_on_card(dev):
+    """The n = 2000 monotone smoothing problem (large_smoothing.py's, f32)
+    as a SparseProxQP with ELL storage (row 13 in every product) against CSR
+    storage (no kernel of ours) on the card: the same status, x within
+    1e-4, and the ELL solve piecewise monotone within its primal residual,
+    which f64 recomputes within 10 % of the reported one (400 f32
+    iterations leave steps of the residual's size against the monotone
+    direction: 1e-6 or more here)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from quadraticprogramsolver_tpu_torch.ops import spmv
+    from quadraticprogramsolver_tpu_torch.problems.operators import (
+        monotone_smoothing_sparse_qp)
+
+    n = 2000
+    rng = np.random.default_rng(0)
+    y = np.sin(np.pi * np.linspace(0, 1, n)) + 0.05 * rng.standard_normal(n)
+    P, q, C, d = monotone_smoothing_sparse_qp(
+        y, np.array([0, n // 2, n - 1]), smooth_order=2, lam=50.0)
+    A = sp.csr_matrix(([1.0], ([0], [0])), shape=(1, n))
+    args = (P, q, A, np.array([y[0]]), C, d)
+    st = pt.ProxQPSettings(max_iterations=400, eps_abs=1e-5, eps_rel=1e-5,
+                           cg_eps=1e-10, cg_max_iterations=300,
+                           cg_rel_eps=1e-4)
+    before = spmv.ell_matvec.launches
+    ell = pt.solve_proxqp(pt.make_sparse_proxqp(*args, device=dev), st)
+    assert spmv.ell_matvec.launches > before
+    before = spmv.ell_matvec.launches
+    csr = pt.solve_proxqp(pt.make_sparse_proxqp(*args, storage="bcoo",
+                                                device=dev), st)
+    assert spmv.ell_matvec.launches == before
+    assert int(ell.info.status) == int(csr.info.status)
+    assert float((ell.x - csr.x).abs().max()) <= 1e-4
+    x, s = (t.double().cpu().numpy() for t in (ell.x, ell.s))
+    res_prim = max(abs(x[0] - y[0]), float(np.abs(C @ x - d + s).max()))
+    assert abs(res_prim - float(ell.info.res_prim)) <= 0.1 * res_prim
+    steps = np.concatenate([-np.diff(x[: n // 2 + 1]), np.diff(x[n // 2:])])
+    assert steps.max() <= max(1e-6, res_prim)

@@ -27,6 +27,7 @@ import quadraticprogramsolver_tpu_torch as pt
 from quadraticprogramsolver_tpu_torch.frontends import lsq as plsq
 from quadraticprogramsolver_tpu_torch.frontends import sequence as pseq
 from quadraticprogramsolver_tpu_torch.models import admm as padmm
+from quadraticprogramsolver_tpu_torch.models import kkt as pkkt
 from quadraticprogramsolver_tpu_torch.models import polish as ppolish
 from quadraticprogramsolver_tpu_torch.models import proxqp as pprox
 from quadraticprogramsolver_tpu_torch.utils.interop import (
@@ -100,12 +101,24 @@ def test_polished_solve_matches_jax():
 
 
 def test_polish_refuses_m_greater_than_n():
-    """The JAX package sends m > n to the MINRES polish of KKT_MINRES."""
-    _, qp = _fleet(batch=2, n=10, m=30, seed=0,
-                   cls=qps.ProblemClass.INEQUALITY_QP)
-    st = pt.Settings(max_iterations=200, polish_iterations=3)
-    with pytest.raises(NotImplementedError, match="KKT_MINRES"):
-        pt.solve(qp, st)
+    """m > n no longer refuses: as in the JAX package the polish takes the
+    matrix-free MINRES route (polish_minres), and the whole solve matches
+    JAX's (identical statuses and iterations, x and y within 1e-9, the
+    accept mask identical)."""
+    qp_j, qp = _fleet(batch=2, n=10, m=30, seed=0,
+                      cls=qps.ProblemClass.INEQUALITY_QP)
+    assert qp.m > qp.n
+    st = qps.Settings(max_iterations=2000, eps_abs=1e-5, eps_rel=1e-5,
+                      rho=0.1, polish_iterations=3)
+    ref = qps.solve_jit(qp_j, st)
+    steps = pkkt._minres.steps
+    sol = pt.solve(qp, _pst(st))
+    assert pkkt._minres.steps > steps
+    _same(sol, ref, tol=1e-9)
+    plain = pt.solve(qp, _pst(dataclasses.replace(st, polish_iterations=0)))
+    moved = (sol.x != plain.x).any(-1).numpy()
+    moved_j = (np.asarray(ref.x) != np.asarray(plain.x)).any(-1)
+    np.testing.assert_array_equal(moved, moved_j)
 
 
 # --- prepared factors ---------------------------------------------------------

@@ -336,10 +336,24 @@ def test_interop_and_device_default(monkeypatch):
 
 
 def test_sparse_path_raises():
-    with pytest.raises(NotImplementedError):
+    """The matrix-free path is ported (tests/test_torch_sparse_prox.py holds
+    it to JAX): warm_start_operator runs on a SparseProxQP; an object that
+    is no problem still raises."""
+    with pytest.raises(TypeError):
         pt.solve_proxqp(object(), pt.ProxQPSettings())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         pt_proxqp.warm_start_operator(None, pt.ProxQPSettings())
+    import scipy.sparse as sp
+
+    n = 12
+    prob = pt.make_sparse_proxqp(sp.identity(n, format="csr") * 2.0,
+                                 np.ones(n), sp.csr_matrix(np.eye(1, n)),
+                                 np.zeros(1), sp.csr_matrix(-np.eye(n)),
+                                 np.zeros(n), dtype=np.float64, device="cpu")
+    x, y, s, z = pt_proxqp.warm_start_operator(prob, pt.ProxQPSettings())
+    assert torch.allclose(x, torch.full((n,), -1 / (2.0 + 1e-2),
+                                        dtype=torch.float64))
+    assert (y.shape, s.shape, z.shape) == ((1,), (n,), (n,))
 
 
 def test_device_prox_fleet_family():

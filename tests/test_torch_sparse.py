@@ -187,8 +187,11 @@ def test_backend_resolution_matches_jax(data):
                                 big(4000, 1001, True)) is pt.KKTBackendKind.CG
     assert pkkt.resolve_backend(pt.KKTBackendKind.AUTO,
                                 big(4000, 1000, True)) is pt.KKTBackendKind.CHOLESKY
-    with pytest.raises(NotImplementedError, match="kkt_backend"):
-        pt.Settings(kkt_backend=pt.KKTBackendKind.KKT_MINRES)
+    # KKT_MINRES is accepted, and on a sparse problem it resolves to itself
+    # in both packages.
+    st = pt.Settings(kkt_backend=pt.KKTBackendKind.KKT_MINRES)
+    assert pkkt.resolve_backend(st.kkt_backend, pq) is pt.KKTBackendKind.KKT_MINRES
+    assert jkkt.resolve_backend(JKind.KKT_MINRES, jq) is JKind.KKT_MINRES
 
 
 @pytest.mark.parametrize("knobs", [
