@@ -276,9 +276,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     alone (its init function, best of 3), every lane status 2/3, a 4 + 4
     lane audit tightening eps (1e-5, 2e-6, 1e-6) while it misses the
     target, and LDL's x within 1e-4 of CHOLESKY's; 13b the script's
-    crossover (portfolio, huber with m 60, random_qp at n=256, CG against
-    MINRES with cg_max_iterations 500; a cell whose counted run takes over
-    5 s is timed by it alone); 13c the MINRES polish on a tall
+    crossover (portfolio and huber with m 60 at B=16, random_qp at B=64,
+    n=256, CG against MINRES with cg_max_iterations 500; a cell whose
+    counted run takes over 5 s is timed by it alone); 13c the MINRES polish on a tall
     INEQUALITY_QP fleet (n=64, m=640, B=256, polish_iterations 3: lanes
     accepted, at least half, p50 KKT error before and after, the audit
     reported) and on config 4 (accepted or not, the ELL launches inside
@@ -4254,9 +4254,12 @@ FACTOR_FNS = {"CHOLESKY": ("cholesky_init", "cholesky_refactor"),
               "KKT_MINRES": ("kkt_minres_init", "kkt_minres_refactor")}
 #: 13b: compare_kkt_backends.py's crossover (:133-185): the ill-conditioned
 #: families at n=256 (HUBER's m capped at 60), CG against MINRES with
-#: cg_max_iterations 500. A cell whose counted run takes longer than
-#: CROSSOVER_REPEAT_S is not repeated (its one run is its time).
-CROSSOVER = (("PORTFOLIO", 0), ("HUBER", 60), ("RANDOM_QP", 0))
+#: cg_max_iterations 500, each family at its B (family, m cap, B). A cell
+#: whose counted run takes longer than CROSSOVER_REPEAT_S is not repeated
+#: (its one run is its time). Portfolio and huber run at B=16, not 13a's
+#: 64: their MINRES cells, host-bound at ~1 ms a step, took 123-153 s of
+#: the script at B=64, and both backends of a family share its B.
+CROSSOVER = (("PORTFOLIO", 0, 16), ("HUBER", 60, 16), ("RANDOM_QP", 0, KKT_B))
 CROSSOVER_REPEAT_S = 5.0
 #: 13c: a tall dense fleet (INEQUALITY_QP, m = 10 n) from the 9-class
 #: generator, polished by MINRES; config 4 with the polish on.
@@ -4411,8 +4414,8 @@ def phase_kkt_crossover(torch, pkg, cnt):
 
     total, rows = {}, []
     n = KKT_SIZES[-1]
-    for family, cap in CROSSOVER:
-        qp = pkg.generate_batch(pkg.ProblemClass[family], KKT_B, n, cap,
+    for family, cap, b in CROSSOVER:
+        qp = pkg.generate_batch(pkg.ProblemClass[family], b, n, cap,
                                 seed=KKT_SEED, dtype=np.float32, device=DEVICE)
         for name in ("CG", "KKT_MINRES"):
             st = pkg.Settings(kkt_backend=pkg.KKTBackendKind[name],
@@ -4428,10 +4431,10 @@ def phase_kkt_crossover(torch, pkg, cnt):
                 dt = min(dt, best_seconds(torch, lambda: pkg.solve(qp, st), 2))
                 how = "best of 3"
             steps = k["cg_steps"] + k["minres_steps"]
-            log(f"[{label}] (n={qp.n}, m={qp.m}, B={KKT_B}) {line}; "
+            log(f"[{label}] (n={qp.n}, m={qp.m}, B={b}) {line}; "
                 f"{krylov_line(k)}; solve {dt * 1e3:.2f} ms ({how})")
             rows.append({"family": family, "backend": name, "n": qp.n,
-                         "m": qp.m, "ms": dt * 1e3, "solved": solved,
+                         "m": qp.m, "B": b, "ms": dt * 1e3, "solved": solved,
                          "p50_iterations": float(np.median(iters)),
                          "krylov_steps": steps, **k})
         del qp
@@ -4749,6 +4752,472 @@ def phase_kkt(torch, pkg, cnt, config4=None):
     return paths
 
 
+# --- Phase 14: reduced product precision and the host utilities -------------
+
+#: 14a: benchmarks/factor_precision.py:49-66: bench.py's random_qp fleet
+#: (n=512, m=256, seed 1234) at B=2048, rho 0.3 adaptive, check interval 25,
+#: eps 1e-4 (tightened while the audit misses the target), the fused M^{-1}
+#: chunk; its three configurations and "high" with one refinement step.
+PREC_SETTINGS = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.3,
+                     adaptive_rho=True, check_interval=25,
+                     kkt_refinement_steps=0, fused_chunk=True,
+                     require_fused=True)
+FACTOR_CONFIGS = {"highest refine 0": {},
+                  "default refine 1": dict(factor_precision="default",
+                                           kkt_refinement_steps=1),
+                  "default refine 2": dict(factor_precision="default",
+                                           kkt_refinement_steps=2),
+                  "high refine 1": dict(factor_precision="high",
+                                        kkt_refinement_steps=1)}
+#: The configurations that one bf16 pass leaves without a converging
+#: solve on this fleet, run once and reported: ||I - M~^{-1} M||_2 ~ 0.09
+#: at rho 0.3 (a CPU measurement at B=4), so one refinement step leaves a
+#: residual floor near 1e-2 relative; the adaptive rule then drives rho
+#: towards RHO_MIN, where the approximate inverse stops contracting
+#: (||E|| > 1) and the iterates diverge (a CPU rehearsal at B=8: every lane
+#: non-finite at 2000 iterations; at a static rho 0.3 every lane stalls).
+UNGATED_FACTOR = ("default refine 1",)
+#: tests/test_fused_admm.py:93's limit on x against the "highest" solve,
+#: printed beside each reduced factor's (JAX's CPU run ignores the knob).
+FACTOR_X_LIMIT = 1e-5
+AUDIT_EPS = (1e-4, 2e-5, 1e-5)
+#: 14b: matmul_precision on phase 7a's fleet and settings (bench.py's
+#: defaults row: default Settings, eps 1e-4, the torch chunk). "default"
+#: floors the residuals near 1e-2 (the stall the JAX package documents,
+#: models/admm.py:664-668; tests/test_torch_precision.py): it runs once at
+#: 1e-4, where every x must stay finite, then at DEFAULT_EPS, where at least
+#: DEFAULT_SHARE of the lanes must converge and the audit of the converged
+#: ones stay within DEFAULT_X (the CPU test's bound). On the H100, 20 of
+#: 2048 lanes stalled there.
+DEFAULT_EPS, DEFAULT_SHARE, DEFAULT_X = 3e-2, 0.95, 5e-2
+#: 14c: the card's bf16 products against an f64 recomputation from the same
+#: bf16-rounded operands, relative to the max (only the FP32 accumulation
+#: differs).
+BF16_PRODUCT_LIMIT = 1e-6
+#: 14e: the port's f64 reference (native LDL') against f64_oracle.py's
+#: (splu) on the same lanes.
+ORACLE_AGREEMENT = 1e-8
+#: 14e: the problem lanes of the checkpoint round trip.
+CKPT_LANES = 64
+#: The kernels phase 14's runs may launch (its paths line).
+PREC_KERNELS = ("pivot_sweep_v3", "admm_chunk_minv", "admm_chunk_minv_cluster")
+
+
+def precision_fleet(torch, pkg):
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qp = device_random_qp_fleet(B_DEFAULTS, N, M, generator=g)
+    torch.cuda.synchronize()
+    return qp
+
+
+def max_dev(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def laddered_solve(torch, pkg, cnt, qp, settings, path, label, pool,
+                   eps_ladder=AUDIT_EPS, required=True):
+    """A counted solve (every launch counter at 0 before it; rows 2 a factor
+    build, no Cholesky: ``counted_solve``) at each eps of the ladder while
+    the audit of 8 spread and 8 straggling lanes misses the target; with
+    ``required`` every lane must end with status 2 or 3 and the last audit
+    pass. Returns (settings, solution, launches, builds, audit, the last
+    counted solve's seconds)."""
+    import dataclasses
+
+    from quadraticprogramsolver_tpu_torch.models import kkt
+
+    for eps in eps_ladder:
+        st = dataclasses.replace(settings, eps_abs=eps, eps_rel=eps)
+        lbl = f"{label} eps {eps:.0e}"
+        t0 = time.perf_counter()
+        sol, counts, builds = counted_solve(
+            torch, cnt, lambda: pkg.solve(qp, st), kkt, "cholesky_init", path,
+            lbl)
+        sec = time.perf_counter() - t0
+        if "admm_chunk_minv" in path:
+            counts.update(minv_cluster_only(cnt, "admm_chunk_minv", lbl))
+        status = sol.info.status.cpu().numpy()
+        if not required and not ((status == 2) | (status == 3)).all():
+            return st, sol, counts, builds, None, sec
+        x, status, iters = report_solve(qp, sol, None, None, f"{lbl} counted")
+        dev = audit(qp, x, status, iters, lbl, required=False,
+                    prefix="phase 14", pool=pool)
+        if dev <= AUDIT_TARGET:
+            break
+    require(not required or dev <= AUDIT_TARGET,
+            f"{label}: audit {dev:.3e} > {AUDIT_TARGET:.0e} at eps "
+            f"{eps_ladder[-1]:.0e}")
+    return st, sol, counts, builds, dev, sec
+
+
+def phase_precision_factor(torch, pkg, cnt, pool, qp):
+    """14a: factor_precision on the M^{-1} route."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.models import kkt
+
+    paths, x_highest = {}, None
+    for name, kw in FACTOR_CONFIGS.items():
+        label = f"phase 14a {name}"
+        settings = pkg.Settings(**{**PREC_SETTINGS, **kw})
+        p = pkg.plan(qp, settings)
+        require((p.factor, p.chunk, p.cache)
+                == ("sweep_inverse", "fused_kernel", "M_inv"),
+                f"{label}: unexpected plan {p}")
+        if name in UNGATED_FACTOR:
+            t0 = time.perf_counter()
+            sol, counts, builds = counted_solve(
+                torch, cnt, lambda: pkg.solve(qp, settings), kkt,
+                "cholesky_init", ADMM_MINV_PATH, label)
+            dt = time.perf_counter() - t0
+            counts.update(minv_cluster_only(cnt, "admm_chunk_minv", label))
+            paths[name] = counts
+            status = sol.info.status.cpu().numpy()
+            iters = sol.info.iterations.cpu().numpy()
+            finite = int(sol.x.isfinite().all(-1).sum())
+            rho = sol.info.rho
+            log(f"[{label}] eps 1e-4, one run: {dt * 1e3:.2f} ms, statuses "
+                f"{ {int(k): int(v) for k, v in zip(*np.unique(status, return_counts=True))} }, "
+                f"iterations p50 {np.median(iters):.0f} max {iters.max()}, "
+                f"lanes with a finite x {finite}/{status.size}, final rho "
+                f"{float(rho.min()):.3g}-{float(rho.max()):.3g}, pivot "
+                f"launches {counts['pivot_sweep_v3']} for {builds} builds "
+                f"(reported, not gated: one refinement step does not carry "
+                f"a one-pass bf16 M^-1 here)")
+            del sol
+            continue
+        st, sol, counts, builds, dev, _ = laddered_solve(
+            torch, pkg, cnt, qp, settings, ADMM_MINV_PATH, label, pool)
+        paths[name] = counts
+        iters = sol.info.iterations.cpu().numpy()
+        if x_highest is None:
+            x_highest = sol.x
+            vs = "(the reference)"
+        else:
+            d = max_dev(sol.x, x_highest)
+            vs = (f"max |x - x_highest| {d:.3e} (tests/test_fused_admm.py's "
+                  f"limit {FACTOR_X_LIMIT:.0e}: "
+                  f"{'within' if d <= FACTOR_X_LIMIT else 'beyond'})")
+        del sol
+        _, dt = run_main(torch, lambda: pkg.solve(qp, st))
+        fdt = factor_seconds(torch, qp, st)
+        log(f"[{label}] eps {st.eps_abs:.0e}: solve {dt * 1e3:.2f} ms (best of "
+            f"3), factor {fdt * 1e3:.2f} ms alone (best of 4), iterations p50 "
+            f"{np.median(iters):.0f} max {iters.max()}, audit {dev:.3e}, "
+            f"pivot launches {counts['pivot_sweep_v3']} for {builds} builds; "
+            f"{vs}")
+    return paths
+
+
+def phase_precision_matmul(torch, pkg, cnt, pool, qp):
+    """14b: matmul_precision "high" and "default" on phase 7a's fleet beside
+    "highest"."""
+    import dataclasses
+
+    import numpy as np
+
+    paths = {}
+    base = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4)
+    for prec in ("highest", "high", "default"):
+        label = f"phase 14b {prec}"
+        settings = dataclasses.replace(base, matmul_precision=prec)
+        if prec == "default":
+            for eps in (1e-4, DEFAULT_EPS):
+                # Its stragglers run to max_iterations: the counted run is
+                # its one timed run.
+                st, sol, counts, _, dev, dt = laddered_solve(
+                    torch, pkg, cnt, qp, settings, ADMM_DEFAULTS_PATH, label,
+                    pool, eps_ladder=(eps,), required=False)
+                status = sol.info.status.cpu().numpy()
+                iters = sol.info.iterations.cpu().numpy()
+                solved = int(((status == 2) | (status == 3)).sum())
+                if dev is None and solved:
+                    dev = audit(qp, sol.x.double().cpu().numpy(), status, iters,
+                                f"{label} eps {eps:.0e}", required=False,
+                                prefix="phase 14", pool=pool)
+                log(f"[{label}] eps {eps:.0e}: statuses "
+                    f"{ {int(k): int(v) for k, v in zip(*np.unique(status, return_counts=True))} }, "
+                    f"solved {solved}/{status.size}, iterations p50 "
+                    f"{np.median(iters):.0f} max {iters.max()}, lanes with a "
+                    f"finite x {int(sol.x.isfinite().all(-1).sum())}, audit of "
+                    f"the converged lanes {dev}")
+                require(bool(sol.x.isfinite().all()),
+                        f"{label} eps {eps:.0e}: a non-finite x")
+                if eps != DEFAULT_EPS:
+                    del sol
+            require(solved >= DEFAULT_SHARE * status.size
+                    and dev is not None and dev <= DEFAULT_X,
+                    f"{label}: {solved}/{status.size} lanes converged at eps "
+                    f"{DEFAULT_EPS:.0e} (at least {DEFAULT_SHARE:.0%} needed), "
+                    f"audit {dev} (limit {DEFAULT_X:.0e})")
+            runs = "one run"
+        else:
+            st, sol, counts, _, dev, _ = laddered_solve(
+                torch, pkg, cnt, qp, settings, ADMM_DEFAULTS_PATH, label, pool)
+        iters = sol.info.iterations.cpu().numpy()
+        del sol
+        if prec != "default":
+            _, dt = run_main(torch, lambda: pkg.solve(qp, st))
+            runs = "best of 3"
+        paths[prec] = counts
+        log(f"[{label}] eps {st.eps_abs:.0e}: solve {dt * 1e3:.2f} ms ({runs}), "
+            f"iterations p50 {np.median(iters):.0f} max {iters.max()}, "
+            f"audit {dev:.3e}")
+    return paths
+
+
+BF16_GEMM = ("nvjet_t", "bf16")
+
+
+def bf16_gemms(names):
+    """The traced kernels that are cuBLAS bf16 GEMMs (cuBLASLt's nvjet
+    kernels name a bf16 A operand "t"; others name bf16)."""
+    return {k: v for k, v in names.items()
+            if k.startswith(BF16_GEMM[0]) or BF16_GEMM[1] in k.lower()}
+
+
+def phase_precision_products(torch, pkg, qp):
+    """14c: one factor's M at "default" and "high" against an f64
+    recomputation from the same bf16-rounded operands, and the factor's
+    traced kernels at each precision."""
+    from quadraticprogramsolver_tpu_torch.models import kkt
+    from quadraticprogramsolver_tpu_torch.ops import linalg
+
+    routed = "aten::mm.dtype" in str(torch._C._jit_get_schemas_for_operator("aten::mm"))
+    log(f"[phase 14c] bf16 products on the card: torch.mm/torch.bmm with "
+        f"out_dtype=float32 (aten::mm.dtype registered: {routed})")
+    require(routed, "phase 14c: this torch has no out_dtype product")
+    sigma = 1e-6
+    rho_row = torch.full((B_DEFAULTS, M), 0.3, device=DEVICE)
+    Aw = qp.A.transpose(-1, -2) * rho_row[..., None, :]
+    out = {}
+    for prec in ("default", "high"):
+        with linalg.products(prec):
+            Mn = kkt._build_normal_matrix(qp, rho_row, sigma)
+        torch.cuda.synchronize()
+        if prec == "default":
+            gram = linalg.bf16_round(Aw).double() @ linalg.bf16_round(qp.A).double()
+        else:
+            (ah, al), (bh, bl) = (tuple(h.double() for h in linalg.bf16_split(t))
+                                  for t in (Aw, qp.A))
+            gram = ah @ bh + ah @ bl + al @ bh
+            del ah, al, bh, bl
+        ref = qp.P.double() + gram + sigma * torch.eye(N, device=DEVICE,
+                                                       dtype=torch.float64)
+        del gram
+        rel = max_dev(Mn, ref) / float(ref.abs().max())
+        full = max_dev(Mn, qp.P.double() + Aw.double() @ qp.A.double()
+                       + sigma * torch.eye(N, device=DEVICE, dtype=torch.float64))
+        del ref, Mn
+        log(f"[phase 14c] M at {prec} (B={B_DEFAULTS}, n={N}, m={M}): "
+            f"{rel:.3e} of max from the f64 product of the bf16-rounded "
+            f"operands (limit {BF16_PRODUCT_LIMIT:.0e}); {full:.3e} from "
+            f"the exact M")
+        require(rel <= BF16_PRODUCT_LIMIT, f"phase 14c: M at {prec} {rel:.3e} "
+                f"from its plain version")
+        out[prec] = rel
+    del Aw
+    rho = torch.full((B_DEFAULTS,), 0.3, device=DEVICE)
+    for prec in ("highest", "default", "high"):
+        st = pkg.Settings(factor_precision=prec)
+        traced_k = device_kernels(
+            torch, lambda: kkt.cholesky_init(qp, rho, sigma, st))
+        gemms = bf16_gemms(traced_k)
+        others = sorted(k for k in traced_k if "gemm" in k.lower()
+                        or k.startswith("nvjet"))
+        log(f"[phase 14c] one factor at {prec}: bf16 GEMM kernels "
+            f"{ {k[:60]: v[0] for k, v in gemms.items()} }; every GEMM "
+            f"kernel traced: {[k[:60] for k in others]}")
+        require(bool(gemms) == (prec != "highest"),
+                f"phase 14c: the {prec} factor traced bf16 GEMMs {list(gemms)}")
+    return out
+
+
+def phase_precision_gram_finding(torch):
+    """14d, a finding only: one (2048, 256, 512) gram A'A five ways."""
+    from quadraticprogramsolver_tpu_torch.ops import linalg
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    A = torch.randn((B_DEFAULTS, M, N), generator=g, device=DEVICE)
+    At = A.transpose(1, 2)
+    ref = At.double() @ A.double()
+    scale = float(ref.abs().max())
+
+    def tf32_split(t):
+        hi = (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+        return hi, t - hi
+
+    def with_tf32(fn):
+        def run():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return fn()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        return run
+
+    def tf32x3():
+        (ah, al), (bh, bl) = tf32_split(At.contiguous()), tf32_split(A)
+        return torch.bmm(ah, bh) + torch.bmm(ah, bl) + torch.bmm(al, bh)
+
+    ways = {"fp32": lambda: torch.bmm(At, A),
+            "tf32": with_tf32(lambda: torch.bmm(At, A)),
+            "3xtf32": with_tf32(tf32x3),
+            "bf16 fp32-out": lambda: linalg.mm(At, A, "default"),
+            "bf16x3": lambda: linalg.mm(At, A, "high")}
+    out = {}
+    for name, fn in ways.items():
+        err = max_dev(fn(), ref) / scale
+        ms = cuda_ms(fn)
+        out[name] = (ms, err)
+        log(f"[phase 14d] gram (2048, 256, 512) {name}: {ms:.4f} ms, "
+            f"{err:.3e} of max from f64")
+    require(not torch.backends.cuda.matmul.allow_tf32, "phase 14d: TF32 left on")
+    return out
+
+
+def phase_precision_utils(torch, pkg, pool):
+    """14e: the host utilities on card results."""
+    import glob
+    import tempfile
+
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+    from quadraticprogramsolver_tpu_torch.problems.generator import (
+        ProblemClass, generate_random_qp)
+    from quadraticprogramsolver_tpu_torch.utils import (
+        checkpoint, diagnostics, feasibility, oracle, profiling)
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    qp = device_random_qp_fleet(B_MAIN, N, M, generator=g)
+    static = pkg.Settings(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                          rho=0.4, check_interval=11, kkt_refinement_steps=0,
+                          sigma_free_rhs=True, fused_factor=True,
+                          fused_chunk=True, require_fused=True,
+                          adaptive_rho=False)
+    sol = pkg.solve(qp, static)
+    torch.cuda.synchronize()
+    # The whole solution, and the problem's first CKPT_LANES lanes (its
+    # (B, n, n) P alone is 4.3 GB at B=4096).
+    head = pkg.QP(*(t[:CKPT_LANES] for t in qp.tensors()))
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_qp(os.path.join(tmp, "qp.npz"), head)
+        checkpoint.save_solution(os.path.join(tmp, "sol.npz"), sol)
+        qp2 = checkpoint.load_qp(os.path.join(tmp, "qp.npz"))
+        sol2 = checkpoint.load_solution(os.path.join(tmp, "sol.npz"))
+        same = (all(a.is_cuda and torch.equal(a, b)
+                    for a, b in zip(qp2.tensors(), head.tensors()))
+                and all(getattr(sol2, k).is_cuda
+                        and torch.equal(getattr(sol2, k), getattr(sol, k))
+                        for k in ("x", "z", "y"))
+                and all(torch.equal(getattr(sol2.info, k), getattr(sol.info, k))
+                        for k in ("status", "iterations", "res_prim",
+                                  "res_dual", "rho", "objective")))
+        size = sum(os.path.getsize(f) for f in glob.glob(f"{tmp}/*.npz"))
+    log(f"[phase 14e] checkpoint round trip of phase 3's solution (B={B_MAIN}) "
+        f"and its problem's first {CKPT_LANES} lanes ({size / 1e6:.1f} MB of "
+        f".npz): loaded back onto the card bit for bit: {same}")
+    require(same, "phase 14e: the checkpoint round trip changed a bit")
+    del qp2, sol2, head
+
+    iters = sol.info.iterations.cpu().numpy()
+    lane = int(np.argmax(iters))
+    text = diagnostics.solve_report(tuple(t[lane] for t in qp.tensors()), sol,
+                                    lane=lane, check_interval=11)
+    for line in text.rstrip().splitlines():
+        log(f"[phase 14e report, lane {lane}] {line}")
+    require(f"iterations : {iters[lane]}\n" in text,
+            f"phase 14e: the report of lane {lane} does not name its iterations")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            sol_t = pkg.solve(qp, static)
+            profiling.hard_sync(sol_t)
+        (path,) = glob.glob(os.path.join(tmp, "*.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        n_chunk = sum(1 for e in events
+                      if "admm_chunk_cluster_kernel" in str(e.get("name", ""))
+                      and e.get("cat") == "kernel")
+        log(f"[phase 14e] profiling.trace: {os.path.getsize(path) / 1e6:.1f} MB "
+            f"Chrome trace, {len(events)} events, {n_chunk} "
+            f"admm_chunk_cluster_kernel kernel events")
+        require(n_chunk > 0, "phase 14e: the trace holds no chunk kernel")
+    del sol_t
+
+    lanes = [tuple(t[i].double().cpu().numpy() for t in qp.tensors())
+             for i in (0, 1, 2, lane)]
+    kw = dict(eps_abs=1e-6, eps_rel=1e-6, rho=0.1, max_iterations=20000)
+    t0 = time.perf_counter()
+    ours = [oracle.solve_qp_reference(*ln, linsys="ldl", **kw) for ln in lanes]
+    t_ldl = time.perf_counter() - t0
+    refs = oracle_solves(lanes, pool, **kw)
+    devs = [float(np.abs(a.x - b.x).max()) for a, b in zip(ours, refs)]
+    log(f"[phase 14e] solve_qp_reference(linsys='ldl') on 4 lanes "
+        f"({t_ldl:.1f} s): statuses {[r.status for r in ours]}, iterations "
+        f"{[r.iterations for r in ours]} (f64_oracle {[r.iterations for r in refs]}), "
+        f"max |x - x_f64_oracle| {max(devs):.3e} (limit {ORACLE_AGREEMENT:.0e})")
+    require(max(devs) <= ORACLE_AGREEMENT and all(r.status == 3 for r in ours),
+            "phase 14e: the native-LDL oracle disagrees with f64_oracle.py")
+    del sol, qp
+
+    insts = [generate_random_qp(ProblemClass.EQUALITY_QP, 20, seed=s)
+             for s in range(8, 16)]
+    fleet = pkg.stack_qps([pkg.make_qp(*d.dense(np.float32), device=DEVICE)
+                           for d in insts], pad=True)
+    fsol = pkg.solve(fleet, pkg.Settings(max_iterations=4000, eps_abs=1e-4,
+                                         eps_rel=1e-4, rho=0.1))
+    status = fsol.info.status.cpu().numpy()
+    flagged = [int(i) + 8 for i in np.where(np.isin(status, (4, 5)))[0]]
+    bad = feasibility.verify_status_flags(fleet.tensors(), fsol.info.status)
+    log(f"[phase 14e] EQUALITY_QP n=20 seeds 8-15 on the card: statuses "
+        f"{status.tolist()}, flagged infeasible at seeds {flagged}; "
+        f"verify_status_flags false positives: {bad}")
+    require(13 in flagged and not bad, "phase 14e: the infeasibility flags "
+            f"are wrong ({flagged}, {bad})")
+
+
+def phase_precision(torch, pkg, cnt):
+    """Phase 14; returns 14a's and 14b's launches of PREC_KERNELS."""
+    import concurrent.futures
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    paths = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        qp = precision_fleet(torch, pkg)
+        for tag, fn in (("14a", lambda: phase_precision_factor(
+                             torch, pkg, cnt, pool, qp)),
+                        ("14b", lambda: phase_precision_matmul(
+                             torch, pkg, cnt, pool, qp)),
+                        ("14c", lambda: phase_precision_products(torch, pkg, qp))):
+            t1 = time.perf_counter()
+            out = fn()
+            if tag != "14c":
+                paths.update({f"{tag} {k}": {n: v.get(n, 0) for n in PREC_KERNELS}
+                              for k, v in out.items()})
+            log(f"[phase {tag}] {time.perf_counter() - t1:.1f} s")
+        del qp
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        phase_precision_gram_finding(torch)
+        torch.cuda.empty_cache()
+        log(f"[phase 14d] {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase_precision_utils(torch, pkg, pool)
+        torch.cuda.empty_cache()
+        log(f"[phase 14e] {time.perf_counter() - t1:.1f} s")
+    log(f"[phase 14] {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -4792,6 +5261,13 @@ def main() -> int:
         kkt_paths = phase_kkt(torch, pkg, counters())
         log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
         print(json.dumps({"paths": kkt_paths}))
+        print(card)
+        return 0
+
+    if "--precision-only" in sys.argv[1:]:
+        prec_paths = phase_precision(torch, pkg, counters())
+        log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"paths": prec_paths}))
         print(card)
         return 0
 
@@ -4895,6 +5371,9 @@ def main() -> int:
     kkt_paths = phase_kkt(torch, pkg, cnt, config4)
     del config4
 
+    # Phase 14: reduced product precision and the host utilities.
+    prec_paths = phase_precision(torch, pkg, cnt)
+
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
         by_path = {k: v.get(name) for k, v in paths.items()}
@@ -4968,7 +5447,7 @@ def main() -> int:
                         **extra.get(name, {})})
     kernels += sparse_entries
     log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
-    print(json.dumps({"paths": {**core_paths, **kkt_paths}}))
+    print(json.dumps({"paths": {**core_paths, **kkt_paths, **prec_paths}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

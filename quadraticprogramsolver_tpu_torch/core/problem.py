@@ -17,6 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.linalg import mv, mv_t
+
 
 @dataclasses.dataclass(frozen=True)
 class QP:
@@ -58,14 +60,16 @@ class QP:
     def tensors(self):
         return (self.P, self.q, self.A, self.l, self.u)
 
+    # The products run at the scope's precision (ops/linalg.py: products),
+    # as the JAX package's einsums follow its matmul precision.
     def matvec_P(self, v: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(self.P, v.unsqueeze(-1)).squeeze(-1)
+        return mv(self.P, v)
 
     def matvec_A(self, v: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(self.A, v.unsqueeze(-1)).squeeze(-1)
+        return mv(self.A, v)
 
     def matvec_At(self, v: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(v.unsqueeze(-2), self.A).squeeze(-2)
+        return mv_t(self.A, v)
 
     def diag_P(self) -> torch.Tensor:
         return torch.diagonal(self.P, dim1=-2, dim2=-1)

@@ -2,11 +2,9 @@
 
 Same field names, defaults and ``ValueError`` checks as
 ``quadraticprogramsolver_tpu.core.settings`` (that module cannot be imported
-here: its package imports jax). The validators RAISE on every knob the port
-does not implement yet (reduced matmul precision, a reduced-precision factor
-off the slab, a chunk product precision outside "highest"/"high"/"default")
-instead of ignoring it, so a configuration never runs a path other than the
-one it names.
+here: its package imports jax). One check is the port's own: an unknown
+``matmul_precision`` or ``factor_precision`` raises ``ValueError`` here,
+where the JAX package raises only when a solve opens its scope.
 """
 
 from __future__ import annotations
@@ -53,10 +51,18 @@ def chunk_precision(settings, iteration: int) -> str:
     """The sigma-free chunk's product precision for the chunk that starts at
     ``iteration``: first_chunk_dot_precision for the first one, when set,
     else chunk_dot_precision (both families; the kernels' plain versions
-    run any non-float32 dtype in full)."""
+    run any non-float32 dtype in full). A chunk_dot_precision other than
+    "high" and "default" runs as "highest", as the JAX package's chunk
+    kernels run it."""
     if iteration == 0 and settings.first_chunk_dot_precision is not None:
         return settings.first_chunk_dot_precision
-    return settings.chunk_dot_precision
+    return dot_precision(settings.chunk_dot_precision)
+
+
+def dot_precision(name: str) -> str:
+    """A chunk_dot_precision as the chunk kernels read it: "high" and
+    "default" as they are, any other string "highest"."""
+    return name if name in DOT_PRECISIONS else "highest"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +103,16 @@ class Settings:
     eps_prim_inf: float = 1e-4
     eps_dual_inf: float = 1e-4
     scaling_iters: int = 0
+    #: The precision of the solve's torch products (ops/linalg.py:
+    #: products): "highest" (FP32), "high" (bf16x3) or "default" (one bf16
+    #: pass), or JAX's other names for them (PRECISION_NAMES). The chunk
+    #: kernels, the pivot kernel and the sparse products stay FP32.
     matmul_precision: str = "highest"
-    #: The factor's product precision: None/"highest" (FP32), or "high"
-    #: (bf16x3 slab-level dots, csrc/slab_level.cu) and "default" (the FP32
-    #: level, as in the JAX package) on the fused slab factor only.
+    #: The factor's product precision (None: matmul_precision). Off the
+    #: slab, the products of M's build and of the blocked sweep around the
+    #: FP32 pivot kernel (M^{-1}, or G and g); on the fused slab factor
+    #: "high" runs the bf16x3 slab-level dots (csrc/slab_level.cu) and
+    #: "default" the FP32 level, as in the JAX package.
     factor_precision: str | None = None
     #: Sigma-free right-hand side: cache G = M^{-1}A' and g = M^{-1}q, and
     #: iterate xx = G(rho z - y) - g. No f32 sigma floor (sigma_for).
@@ -170,14 +182,10 @@ class Settings:
             if self.split_cache:
                 raise ValueError("first_chunk_dot_precision excludes "
                                  "split_cache (its G halves force 'high')")
-        if self.factor_precision not in FACTOR_PRECISIONS:
-            raise ValueError(f"factor_precision must be one of "
-                             f"{FACTOR_PRECISIONS}; got {self.factor_precision!r}")
+        product_precision(self.matmul_precision, "matmul_precision")
+        if self.factor_precision is not None:
+            product_precision(self.factor_precision, "factor_precision")
         pivot_rank(self.pivot_variant)
-        for name, reason in _unimplemented(self):
-            raise NotImplementedError(
-                f"Settings.{name}: {reason} is not implemented by the "
-                "PyTorch port yet (ROADMAP.md Queue 1 item 3)")
 
     @property
     def eps_admm(self) -> float:
@@ -262,10 +270,6 @@ class ProxQPSettings:
                 raise ValueError("first_chunk_dot_precision needs the fused "
                                  "sigma-free prox chunk (fused_chunk + "
                                  "sigma_free_rhs)")
-        for name, reason in _prox_unimplemented(self):
-            raise NotImplementedError(
-                f"ProxQPSettings.{name}: {reason} is not implemented by the "
-                "PyTorch port yet (ROADMAP.md Queue 1 item 3)")
 
     @property
     def num_checks(self) -> int:
@@ -275,8 +279,25 @@ class ProxQPSettings:
 #: The chunk kernels' product precisions, in the order of their codes
 #: (csrc/common.cuh: Prec): full FP32, bf16x3, one bf16 pass.
 DOT_PRECISIONS = ("highest", "high", "default")
-#: Settings.factor_precision's values (None: as matmul_precision).
-FACTOR_PRECISIONS = (None, "highest", "high", "default")
+#: Every name the JAX package's precision scope takes for the three levels
+#: (``lax.Precision``'s strings), and the level it means.
+PRECISION_NAMES = {
+    "highest": "highest", "float32": "highest",
+    "high": "high", "bfloat16_3x": "high", "tensorfloat32": "high",
+    "default": "default", "bfloat16": "default", "fastest": "default",
+}
+
+
+def product_precision(name: str, field: str = "precision") -> str:
+    """The level ("highest", "high" or "default") a precision name means;
+    ValueError on any other name (``field`` names it in the message)."""
+    try:
+        return PRECISION_NAMES[name]
+    except (KeyError, TypeError):
+        raise ValueError(f"{field} must be one of {sorted(PRECISION_NAMES)}; "
+                         f"got {name!r}") from None
+
+
 #: The pivot sweep's named formulations; "r<q>" adds one per divisor q of 128.
 PIVOT_VARIANTS = ("v3", "ref", "value", "panel")
 
@@ -294,26 +315,3 @@ def pivot_rank(variant: str, nb: int = 128):
         return q
     raise ValueError(f"pivot_variant must be one of {PIVOT_VARIANTS} or "
                      f"'r<q>' with q dividing {nb}; got {variant!r}")
-
-
-def _prox_unimplemented(s: ProxQPSettings):
-    """(field, reason) for every prox knob this slice of the port rejects."""
-    if s.chunk_dot_precision not in DOT_PRECISIONS:
-        # The JAX package runs any other value as "highest".
-        yield "chunk_dot_precision", f"precision {s.chunk_dot_precision!r}"
-
-
-def _unimplemented(s: Settings):
-    """(field, reason) for every knob this slice of the port rejects."""
-    if s.chunk_dot_precision not in DOT_PRECISIONS:
-        # The JAX package runs any other value as "highest".
-        yield "chunk_dot_precision", f"precision {s.chunk_dot_precision!r}"
-    if s.factor_precision in ("high", "default") and not (
-            s.fused_factor and s.sigma_free_rhs):
-        # The JAX package runs its XLA factor products at this precision
-        # off the slab factor; the port has no such route yet.
-        yield "factor_precision", (f"a {s.factor_precision!r}-precision "
-                                   "factor off the fused slab factor "
-                                   "(fused_factor + sigma_free_rhs)")
-    if s.matmul_precision != "highest":
-        yield "matmul_precision", "reduced matmul precision"

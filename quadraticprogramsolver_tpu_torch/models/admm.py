@@ -38,6 +38,7 @@ per-check residual trace. :func:`prepare` factors once for repeated solves
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -45,7 +46,7 @@ from ..core.problem import QP, pad_qp
 from ..core.settings import (RHO_MAX, RHO_MIN, KKTBackendKind, Settings,
                              chunk_precision)
 from ..core.state import SolveInfo, Solution, SolverState, Status
-from ..ops.linalg import (fp32_products, inf_norm, kernel_dtype_ok, matvec,
+from ..ops.linalg import (inf_norm, kernel_dtype_ok, mm, mv, products,
                           spd_inverse)
 from . import anderson as anderson_mod
 from . import kkt as kkt_mod
@@ -455,6 +456,18 @@ def _solve_impl(qp, settings: Settings, x0, z0, y0, rho0, scaling=None,
     return (out, aa) if return_aa else out
 
 
+def _at_matmul_precision(fn):
+    """fn(qp, settings, ...) inside ``products(settings.matmul_precision)``:
+    the JAX package's ``jax.default_matmul_precision`` around its solve,
+    prepare and Anderson-carrying solve (models/admm.py:185, 669, 843)."""
+    @functools.wraps(fn)
+    def scoped(qp, settings: Settings = Settings(), *args, **kwargs):
+        with products(settings.matmul_precision):
+            return fn(qp, settings, *args, **kwargs)
+
+    return scoped
+
+
 def _with_lanes(qp: QP) -> QP:
     """qp with every tensor carrying the fleet's batch axes, for the kernels
     that read one matrix a lane (a P or A shared by the fleet is stored
@@ -467,7 +480,7 @@ def _with_lanes(qp: QP) -> QP:
                 for t, k in zip(qp.tensors(), (2, 1, 2, 1, 1))))
 
 
-@fp32_products()
+@_at_matmul_precision
 def solve(qp, settings: Settings = Settings(), x0=None, z0=None, y0=None,
           rho0=None, scaling=None, prepared=None) -> Solution:
     """Solve a (batched) box-constrained QP on the device its tensors are on.
@@ -489,8 +502,9 @@ def solve(qp, settings: Settings = Settings(), x0=None, z0=None, y0=None,
     the batch axes (shared by the fleet) is broadcast, and copied to one a
     lane only when a kernel of the plan reads it by lane. With
     ``settings.require_fused`` any requested kernel that would not run is
-    an error (models/plan.py). Torch's products run in full FP32 inside
-    (:func:`~..ops.linalg.fp32_products`).
+    an error (models/plan.py). Torch's products run at
+    ``settings.matmul_precision`` inside (:func:`~..ops.linalg.products`),
+    the factor's at ``factor_precision``; TF32 stays off.
     """
     if prepared is not None and (scaling is not None or settings.scaling_iters):
         raise ValueError("prepared factors cannot be combined with scaling "
@@ -547,11 +561,11 @@ class PreparedFactor:
         passed on as it is, a contiguous (*B, n, m) tensor the sigma-free
         chunk kernel reads without a copy."""
         if self.M_inv is not None:
-            return {"G": self.cache["G"], "g": matvec(self.M_inv, qp.q)}
+            return {"G": self.cache["G"], "g": mv(self.M_inv, qp.q)}
         return self.cache
 
 
-@fp32_products()
+@_at_matmul_precision
 def prepare(qp: QP, settings: Settings = Settings(),
             rho0=None) -> PreparedFactor:
     """Factor the KKT system once for repeated :func:`solve` calls.
@@ -587,8 +601,9 @@ def prepare(qp: QP, settings: Settings = Settings(),
     if kind is KKTBackendKind.CHOLESKY and settings.sigma_free_rhs:
         rho_row = kkt_mod.rho_rows(qp, rho, settings).expand(
             batch + (qp.m,)).contiguous()
-        M_inv = spd_inverse(kkt_mod._build_normal_matrix(qp, rho_row, sigma))
-        G = torch.matmul(M_inv, qp.A.transpose(-1, -2)).contiguous()
+        with products(settings.factor_precision or settings.matmul_precision):
+            M_inv = spd_inverse(kkt_mod._build_normal_matrix(qp, rho_row, sigma))
+            G = mm(M_inv, qp.A.transpose(-1, -2)).contiguous()
         return PreparedFactor(cache={"G": G}, rho=rho, M_inv=M_inv)
     return PreparedFactor(cache=backend.init(qp, rho, sigma, settings),
                           rho=rho)
@@ -598,7 +613,7 @@ def prepare(qp: QP, settings: Settings = Settings(),
 prepare_jit = prepare
 
 
-@fp32_products()
+@_at_matmul_precision
 def _solve_carry_aa(qp: QP, settings: Settings, x0, z0, y0, rho0, scaling,
                     aa0):
     """:func:`solve` at the problem's own shape that threads the Anderson
@@ -625,7 +640,7 @@ def _rho_candidate(qp: QP, x, z, y, rho):
     return torch.where(ok, cand, rho)
 
 
-@fp32_products()
+@_at_matmul_precision
 def solve_segmented(qp: QP, settings: Settings = Settings(),
                     segment_iterations: int = 100, x0=None, z0=None, y0=None,
                     host_rho_adaptation: bool = False,

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..core.state import SolverState, Status
-from ..ops.linalg import inf_norm
+from ..ops.linalg import inf_norm, mm, mv, mv_t
 from . import kkt as kkt_mod
 
 
@@ -88,10 +88,11 @@ def aa_mix(aa, s_in, s_plain, mem, reg):
     S = torch.where(push, ds[..., None, :], aa["S"])
     F = torch.where(push, df[..., None, :], aa["F"])
 
-    G = torch.matmul(F, F.transpose(-1, -2))
-    rhs = torch.matmul(F, f.unsqueeze(-1)).squeeze(-1)
+    # At the scope's precision, as the JAX package's einsums (:111-114).
+    G = mm(F, F.transpose(-1, -2))
+    rhs = mv(F, f)
     gamma = aa_gamma(G, rhs, mem, reg, s_in.dtype)
-    s_aa = s_plain - torch.matmul(gamma.unsqueeze(-2), S + F).squeeze(-2)
+    s_aa = s_plain - mv_t(S + F, gamma)
     return s_aa, S, F, f, have_prev
 
 

@@ -38,7 +38,7 @@ import torch
 from ..core.problem import QP
 from ..core.settings import MAX_DIRECT_KKT_DIM, KKTBackendKind, Settings
 from ..ops.linalg import (add_scaled_identity, bf16_split, kernel_dtype_ok,
-                          matvec, spd_inverse, spd_solve, sym)
+                          mm, mv, products, spd_inverse, spd_solve, sym)
 
 
 def resolve_backend(kind: KKTBackendKind, qp) -> KKTBackendKind:
@@ -79,8 +79,8 @@ def _full_rho_row(qp, rho, settings: Settings) -> torch.Tensor:
 
 
 def _build_normal_matrix(qp: QP, rho_row, sigma):
-    """P + sigma*I + A' diag(rho_row) A."""
-    AtWA = torch.matmul(qp.A.transpose(-1, -2) * rho_row[..., None, :], qp.A)
+    """P + sigma*I + A' diag(rho_row) A, the gram at the scope's precision."""
+    AtWA = mm(qp.A.transpose(-1, -2) * rho_row[..., None, :], qp.A)
     return add_scaled_identity(qp.P + AtWA, sigma)
 
 
@@ -127,20 +127,20 @@ def cholesky_init(qp: QP, rho, sigma, settings: Settings) -> dict:
         # Copies: the chunk kernel takes a contiguous (B, n, m) G, and the
         # slab (n x (kp + n) per lane) is freed when this returns.
         return {"G": S[..., : qp.m].contiguous(), "g": g}
-    if settings.factor_precision in ("high", "default"):
-        raise NotImplementedError(
-            f"Settings.factor_precision={settings.factor_precision!r} off the "
-            "fused slab factor (its gates fail for this problem: float32, or "
-            "float64 on the CPU, one batch axis, n and m nonzero multiples "
-            "of 128) is not implemented by the PyTorch port yet (ROADMAP.md "
-            "Queue 1 item 3)")
-    M = _build_normal_matrix(qp, rho_row, sigma)
-    if settings.sigma_free_rhs:
-        At = qp.A.transpose(-1, -2).expand(qp.batch_shape + (qp.n, qp.m))
-        R = torch.cat([At, qp.q[..., :, None]], dim=-1)
-        X = spd_solve(M, R)
-        return {"G": X[..., : qp.m].contiguous(), "g": X[..., qp.m].contiguous()}
-    return {"M_inv": spd_inverse(M)}
+    # Off the slab the factor's products run at factor_precision (default:
+    # matmul_precision), as the JAX package's do (models/kkt.py:182): M's
+    # build and the sweep's products around the FP32 pivot kernel. A
+    # reduced M^{-1} is a preconditioner; the refinement's residual runs at
+    # the solve's precision.
+    with products(settings.factor_precision or settings.matmul_precision):
+        M = _build_normal_matrix(qp, rho_row, sigma)
+        if settings.sigma_free_rhs:
+            At = qp.A.transpose(-1, -2).expand(qp.batch_shape + (qp.n, qp.m))
+            R = torch.cat([At, qp.q[..., :, None]], dim=-1)
+            X = spd_solve(M, R)
+            return {"G": X[..., : qp.m].contiguous(),
+                    "g": X[..., qp.m].contiguous()}
+        return {"M_inv": spd_inverse(M)}
 
 
 def cholesky_refactor(cache, qp: QP, rho, sigma, settings: Settings) -> dict:
@@ -164,13 +164,13 @@ def cholesky_solve(cache, qp: QP, x, z, y, rho, settings: Settings):
         # The slab and split caches exist only where the fused chunk runs
         # (Settings requires fused_chunk for them, and the fused factor's
         # gate implies the chunk's), so this path always holds a copy of G.
-        xx = matvec(cache["G"], rho_row * z - y) - cache["g"]
+        xx = mv(cache["G"], rho_row * z - y) - cache["g"]
         return xx, qp.matvec_A(xx), cache
     b = _normal_rhs(qp, x, z, y, rho_row, sigma)
     M_inv = cache["M_inv"]
-    xx = matvec(M_inv, b)
+    xx = mv(M_inv, b)
     for _ in range(settings.kkt_refinement_steps):
-        xx = xx + matvec(M_inv, b - _apply_normal(qp, rho_row, sigma, xx))
+        xx = xx + mv(M_inv, b - _apply_normal(qp, rho_row, sigma, xx))
     return xx, qp.matvec_A(xx), cache
 
 
@@ -302,9 +302,9 @@ def _kkt_precond(cache, qp, rho_row):
         if "P_inv" not in cache:
             u1 = cache["d1_inv"] * v1
         elif cache["P_inv"].dim() == 2:
-            u1 = torch.matmul(v1, cache["P_inv"].transpose(-1, -2))
+            u1 = mm(v1, cache["P_inv"].transpose(-1, -2))
         else:
-            u1 = matvec(cache["P_inv"], v1)
+            u1 = mv(cache["P_inv"], v1)
         return torch.cat([u1, rho_row * v2], dim=-1)
 
     return apply

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from ..core.settings import KKTBackendKind, Settings
+from ..core.settings import KKTBackendKind, Settings, dot_precision
 from ..ops.linalg import kernel_dtype_ok, resolve_precision, sweep_ok
 from . import kkt as kkt_mod
 
@@ -91,8 +91,8 @@ def _chunk_knobs(batch, sigma_free: bool, dtype, settings, reasons: list):
         reasons.append(f"chunk_lanes={lanes} does not divide the fleet size "
                        f"B={B}; the kernel falls back to 1 lane")
         lanes = 1
-    prec = (resolve_precision(settings.chunk_dot_precision, dtype)
-            if sigma_free else "highest")
+    prec = (resolve_precision(dot_precision(settings.chunk_dot_precision),
+                              dtype) if sigma_free else "highest")
     return lanes, prec
 
 

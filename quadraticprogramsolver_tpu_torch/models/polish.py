@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..core.settings import Settings
-from ..ops.linalg import (add_scaled_identity, inf_norm, matvec, matvec_t,
+from ..ops.linalg import (add_scaled_identity, inf_norm, mm, mv, mv_t,
                           spd_inverse, sym)
 
 
@@ -138,21 +138,21 @@ def polish(qp, settings: Settings, x, z, y, rho):
 
     # Schur-complement direct solve of [[H, E'], [E, -R]].
     H_inv = spd_inverse(add_scaled_identity(sym(qp.P), delta))
-    EHiEt = torch.matmul(torch.matmul(E, H_inv), E.transpose(-1, -2))
+    EHiEt = mm(mm(E, H_inv), E.transpose(-1, -2))
     S = sym(EHiEt) + r_diag[..., None] * torch.eye(qp.m, dtype=dt, device=dev)
     S_inv = spd_inverse(S)
 
     def kkt_solve(rx, rn):
-        w = matvec(H_inv, rx)
-        dn = matvec(S_inv, matvec(E, w) - rn)
-        dx = w - matvec(H_inv, matvec_t(E, dn))
+        w = mv(H_inv, rx)
+        dn = mv(S_inv, mv(E, w) - rn)
+        dx = w - mv(H_inv, mv_t(E, dn))
         return dx, dn
 
     def kkt_apply_exact(px, pn):
         # The unregularized target [[P, E'], [E, 0]] on the active rows,
         # nu = 0 elsewhere: refinement against it removes the O(delta) bias.
-        return (matvec(qp.P, px) + matvec_t(E, pn),
-                matvec(E, px) - torch.where(active, zero, pn))
+        return (mv(qp.P, px) + mv_t(E, pn),
+                mv(E, px) - torch.where(active, zero, pn))
 
     bx, bn = -qp.q, g
     px, pn = kkt_solve(bx, bn)

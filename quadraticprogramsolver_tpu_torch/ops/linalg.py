@@ -8,13 +8,15 @@ import threading
 
 import torch
 
-from ..core.settings import DOT_PRECISIONS
+from ..core.settings import DOT_PRECISIONS, product_precision
 
 
-#: The open FP32 scopes of the process, and the settings the outermost one
+#: The open product scopes of the process, and the settings the outermost one
 #: found (guarded by the lock: only the outermost exit restores them).
 _scope_lock = threading.Lock()
 _scope = {"depth": 0, "saved": None}
+#: The product precision of this thread's innermost scope (unset: "highest").
+_local = threading.local()
 
 
 def _read_product_settings():
@@ -37,45 +39,75 @@ def _read_product_settings():
     return precision, [(m, m.fp32_precision) for m in backends]
 
 
-@contextlib.contextmanager
-def fp32_products():
-    """Full-FP32 torch products inside the block, whatever the caller set:
-    the float32 matmul precision "highest", which also turns cuBLAS's TF32
-    off (``torch.backends.cuda.matmul.allow_tf32`` reads the same setting).
-    On exit, also when the block raises, the caller's settings come back
-    exactly: the precision and, on a torch with per-backend precisions, the
-    cuda and mkldnn matmul ones. The JAX package's counterpart is
-    ``jax.default_matmul_precision`` around each solve (models/admm.py:669,
-    843; "highest" in models/proxqp.py:258, 295). The hand-written kernels
-    compute in FP32 either way; this scopes the products torch computes
-    around them.
+def current_precision() -> str:
+    """The product precision of the innermost open :func:`products` scope
+    of this thread: "highest", "high" or "default" ("highest" outside any
+    scope). :func:`mm`, :func:`mv` and :func:`mv_t` compute at it."""
+    return getattr(_local, "precision", "highest")
 
-    Torch's settings are global to the process, where JAX's scope is local
-    to a thread. Scopes nest and may overlap across threads: the outermost
-    entry saves the caller's settings and the last exit restores them, so
-    concurrent solves all run in FP32. While any scope is open, code of
-    other threads outside it also sees "highest", and a setting another
-    thread changes meanwhile is overwritten at the last exit.
+
+@contextlib.contextmanager
+def products(precision: str | None = None):
+    """A scope of torch products at ``precision`` (any name of
+    :data:`~..core.settings.PRECISION_NAMES`; None keeps the enclosing
+    scope's, "highest" outside any): the JAX package's
+    ``jax.default_matmul_precision`` around each solve (models/admm.py:185,
+    669, 843) and its factor (models/kkt.py:182). The port's product
+    helpers (:func:`mm`, :func:`mv`, :func:`mv_t`, :func:`sub_mm_`) read
+    it: "highest" is FP32, "default" the product of the operands rounded to
+    bf16 once, "high" the bf16x3 sum of their halves, both accumulated in
+    FP32 (the TPU's arithmetic, and that of the chunk kernels' "high" and
+    "default"); float64 products run in full whatever the scope says.
+
+    Whatever the precision, torch's own float32 products run in full FP32
+    inside: the float32 matmul precision "highest", which also turns
+    cuBLAS's TF32 off (``torch.backends.cuda.matmul.allow_tf32`` reads the
+    same setting). On exit, also when the block raises, the caller's
+    settings come back exactly: the precision and, on a torch with
+    per-backend precisions, the cuda and mkldnn matmul ones. The
+    hand-written kernels compute as they are written either way.
+
+    The precision is local to the thread, as JAX's scope is. Torch's
+    settings are global to the process: scopes nest and may overlap across
+    threads, the outermost entry saves the caller's settings and the last
+    exit restores them, so concurrent solves all run without TF32. While
+    any scope is open, code of other threads outside it also sees
+    "highest", and a setting another thread changes meanwhile is
+    overwritten at the last exit.
     """
+    inner = current_precision() if precision is None else product_precision(precision)
     with _scope_lock:
         if _scope["depth"] == 0:
             _scope["saved"] = _read_product_settings()
             torch.set_float32_matmul_precision("highest")
         _scope["depth"] += 1
+    outer = current_precision()
+    _local.precision = inner
     try:
         yield
     finally:
+        _local.precision = outer
         with _scope_lock:
             _scope["depth"] -= 1
             if _scope["depth"] == 0:
-                precision, backends = _scope["saved"]
-                torch.set_float32_matmul_precision(precision)
+                saved, backends = _scope["saved"]
+                torch.set_float32_matmul_precision(saved)
                 for m, value in backends:
                     m.fp32_precision = value
 
 
+def fp32_products():
+    """A :func:`products` scope at "highest": full-FP32 products inside,
+    whatever the caller set (the prox family, which pins "highest" as the
+    JAX package's models/proxqp.py:258, 295 do, and the SPD-inverse entry
+    points that no solver calls)."""
+    return products("highest")
+
+
 def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Batched M @ v: (*B, r, c) x (*B, c) -> (*B, r)."""
+    """Batched M @ v: (*B, r, c) x (*B, c) -> (*B, r), in the input's dtype
+    (the kernels' plain versions; the solvers' products go through
+    :func:`mv`)."""
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
 
 
@@ -145,6 +177,65 @@ def matvec_at(op: tuple, v: torch.Tensor, precision: str) -> torch.Tensor:
         vh, vl = (h.to(v.dtype) for h in bf16_split(v))
         return matvec(op[0], vh) + matvec(op[0], vl) + matvec(op[1], vh)
     return matvec(op[0], v)
+
+
+def _bf16_mm(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """a @ b of two bfloat16 tensors (batch axes broadcast), accumulated in
+    FP32 and returned in ``dtype``. On the card: cuBLAS's bf16 GEMM with
+    FP32 output (``torch.mm``/``torch.bmm`` with ``out_dtype``), a 2-D
+    operand folded into one ``mm``. Elsewhere: the product of the same
+    bf16 values in ``dtype`` (a product of two bf16 values is exact in
+    FP32, so only the accumulation order differs)."""
+    if a.device.type != "cuda":
+        return torch.matmul(a.to(dtype), b.to(dtype))
+    f32 = torch.float32
+    if b.dim() == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=f32)
+        return out.reshape(a.shape[:-1] + b.shape[-1:])
+    if a.dim() == 2:
+        return _bf16_mm(b.transpose(-1, -2), a.transpose(-1, -2),
+                        dtype).transpose(-1, -2)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(batch + a.shape[-2:]).reshape((-1,) + a.shape[-2:])
+    b3 = b.expand(batch + b.shape[-2:]).reshape((-1,) + b.shape[-2:])
+    out = torch.bmm(a3, b3, out_dtype=f32)
+    return out.reshape(batch + out.shape[-2:])
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """a @ b (``torch.matmul``'s shapes, at least 2-D each) at ``precision``
+    (None: the scope's, :func:`current_precision`), resolved for a's dtype:
+    "highest" ``torch.matmul``; "default" the product of bf16(a) and
+    bf16(b); "high" (ah bh + ah bl) + al bh of their bf16 halves, the chunk
+    kernels' order (:func:`matvec_at`)."""
+    prec = resolve_precision(current_precision() if precision is None
+                             else precision, a.dtype)
+    if prec == "highest":
+        return torch.matmul(a, b)
+    if prec == "default":
+        return _bf16_mm(a.to(torch.bfloat16), b.to(torch.bfloat16), a.dtype)
+    ah, al = bf16_split(a)
+    bh, bl = bf16_split(b)
+    return (_bf16_mm(ah, bh, a.dtype) + _bf16_mm(ah, bl, a.dtype)
+            + _bf16_mm(al, bh, a.dtype))
+
+
+def mv(M: torch.Tensor, v: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """Batched M @ v at the scope's precision (:func:`mm`)."""
+    return mm(M, v.unsqueeze(-1), precision).squeeze(-1)
+
+
+def mv_t(M: torch.Tensor, v: torch.Tensor, precision: str | None = None) -> torch.Tensor:
+    """Batched M' @ v at the scope's precision (:func:`mm`)."""
+    return mm(v.unsqueeze(-2), M, precision).squeeze(-2)
+
+
+def sub_mm_(W: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """W -= a @ b in place on (B, r, c) W at the scope's precision: one
+    ``baddbmm_`` at "highest", else W minus the :func:`mm` product."""
+    if resolve_precision(current_precision(), W.dtype) == "highest":
+        return W.baddbmm_(a, b, alpha=-1.0)
+    return W.sub_(mm(a, b))
 
 
 def inf_norm(v: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,13 @@ paired-64 sweep and the normal-matrix inverse. The first kernels of "ref",
 normal-matrix inverse stay beside theirs as witnesses in the same way
 (:func:`pivot_sweep_ref_prev`, :func:`pivot_sweep_group_prev`,
 :func:`pivot_sweep_2d_prev`, :func:`pivot_sweep_v3p_prev`,
-:func:`normal_inverse_prev`). Every public
-entry point here that computes torch products around the kernels
-(``spd_inverse_sweep_fused``, ``gj_solve_sweep``, ``spd_inverse_sweep``,
-``spd_inverse_128_schur``, ``normal_inverse_plain``) runs them in full FP32
-(:func:`~.linalg.fp32_products`), as do the solves that call them.
+:func:`normal_inverse_prev`). The two sweeps
+the solvers call (``spd_inverse_sweep_fused``, ``gj_solve_sweep``) run their
+torch products at the caller's precision scope (:func:`~.linalg.products`,
+"highest" outside one); the entry points no solver calls
+(``spd_inverse_sweep``, ``spd_inverse_128_schur``, ``normal_inverse_plain``)
+run theirs in full FP32 (:func:`~.linalg.fp32_products`). TF32 is off in
+every one.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from .. import _build
 from ..core.settings import pivot_rank
-from .linalg import cholesky_inverse, fp32_products
+from .linalg import cholesky_inverse, fp32_products, mm, products, sub_mm_
 
 NB = 128
 #: The panel formulation's panel width (the JAX kernel's pw).
@@ -330,7 +332,7 @@ def _check_sweep_shape(M: torch.Tensor) -> int:
     return n
 
 
-@fp32_products()
+@products()
 def spd_inverse_sweep_fused(M: torch.Tensor) -> torch.Tensor:
     """Batched SPD inverse by the flat blocked Gauss-Jordan sweep.
 
@@ -340,7 +342,10 @@ def spd_inverse_sweep_fused(M: torch.Tensor) -> torch.Tensor:
     (C, R: the block column and row before the level), then the block
     column, row and diagonal become C Dinv, Dinv R and -Dinv; the inverse
     is -W. Symmetric only to rounding, as in the JAX package. M is
-    (..., n, n) with n % 128 == 0; W is updated in place.
+    (..., n, n) with n % 128 == 0; W is updated in place. The products
+    around the pivot kernel run at the caller's scope (the factor's
+    precision, ops/linalg.py: products), as JAX's einsums follow it; the
+    pivot inverses stay FP32.
     """
     n = _check_sweep_shape(M)
     W = M.reshape(-1, n, n).clone(memory_format=torch.contiguous_format)
@@ -348,16 +353,16 @@ def spd_inverse_sweep_fused(M: torch.Tensor) -> torch.Tensor:
         s = slice(k * NB, (k + 1) * NB)
         Dinv = spd_inverse_unrolled(W[:, s, s])
         R = W[:, s, :].clone()
-        CDinv = torch.bmm(W[:, :, s], Dinv)
-        DinvR = torch.bmm(Dinv, R)
-        W.baddbmm_(CDinv, R, alpha=-1.0)
+        CDinv = mm(W[:, :, s], Dinv)
+        DinvR = mm(Dinv, R)
+        sub_mm_(W, CDinv, R)
         W[:, :, s] = CDinv
         W[:, s, :] = DinvR
         W[:, s, s] = -Dinv
     return W.neg_().reshape(M.shape)
 
 
-@fp32_products()
+@products()
 def gj_solve_sweep(M: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """Batched M^{-1} R by blocked Gauss-Jordan, without forming M^{-1}.
 
@@ -365,7 +370,8 @@ def gj_solve_sweep(M: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     inverts the pivot block of the not yet eliminated columns, then updates
     the right-hand side and only the trailing pivot columns (in place, in a
     working copy of M): rows of block j take Dinv times their old values,
-    every other row subtracts C times those (C: block column j).
+    every other row subtracts C times those (C: block column j). The
+    products follow the caller's scope, as :func:`spd_inverse_sweep_fused`'s.
     """
     n = _check_sweep_shape(M)
     W = M.reshape(-1, n, n).clone(memory_format=torch.contiguous_format)
@@ -374,13 +380,13 @@ def gj_solve_sweep(M: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
         s = slice(j * NB, (j + 1) * NB)
         Dinv = spd_inverse_unrolled(W[:, s, s])
         C = W[:, :, s]
-        DinvY = torch.bmm(Dinv, Y[:, s, :])
-        Y.baddbmm_(C, DinvY, alpha=-1.0)
+        DinvY = mm(Dinv, Y[:, s, :])
+        sub_mm_(Y, C, DinvY)
         Y[:, s, :] = DinvY
         if (j + 1) * NB < n:
             T = W[:, :, (j + 1) * NB:]   # the trailing pivot columns
-            DinvT = torch.bmm(Dinv, T[:, s, :])
-            T.baddbmm_(C, DinvT, alpha=-1.0)
+            DinvT = mm(Dinv, T[:, s, :])
+            sub_mm_(T, C, DinvT)
             T[:, s, :] = DinvT
     return Y.reshape(R.shape)
 

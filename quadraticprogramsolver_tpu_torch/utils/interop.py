@@ -15,6 +15,13 @@ from ..core.settings import KKTBackendKind, ProxQPSettings, Settings
 from ..core.state import Solution
 
 
+def to_host(v) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array on the host."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
 def qp_from_numpy(P, q, A, l, u, *, device="cuda", dtype=torch.float64) -> QP:
     """The port's QP from numpy arrays (e.g. ``np.asarray`` of a JAX QP)."""
     return make_qp(*(np.asarray(v) for v in (P, q, A, l, u)),
@@ -31,8 +38,8 @@ def _check_keys(cls, d: dict) -> None:
 def settings_from_dict(d: dict) -> Settings:
     """The port's Settings from ``dataclasses.asdict(jax_settings)``.
 
-    Raises ValueError on a key the port's Settings does not have, and
-    NotImplementedError (from the validator) on a knob the port rejects.
+    Raises ValueError on a key the port's Settings does not have, and the
+    validator's ValueError on a value it rejects.
     """
     _check_keys(Settings, d)
     kw = dict(d)
@@ -52,7 +59,7 @@ def proxqp_from_numpy(P, q, A, b, C, d, *, device="cuda",
 
 def prox_settings_from_dict(d: dict) -> ProxQPSettings:
     """The port's ProxQPSettings from ``dataclasses.asdict(jax_settings)``
-    (ValueError on an unknown key, NotImplementedError on a rejected knob)."""
+    (ValueError on an unknown key or a rejected value)."""
     _check_keys(ProxQPSettings, d)
     return ProxQPSettings(**d)
 
@@ -78,7 +85,7 @@ def _info_fields(info, out: dict) -> dict:
             out.update({f"{f.name}_{k}": t for k, t in v.items()})
         elif v is not None:
             out[f.name] = v
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    return {k: to_host(v) for k, v in out.items()}
 
 
 def solution_to_numpy(sol: Solution) -> dict:

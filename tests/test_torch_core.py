@@ -56,6 +56,8 @@ def test_sigma_for_matches_jax(sigma_free):
     assert p.sigma_for(torch.float64) == j.sigma_for(jnp.float64)
 
 
+#: Knobs the port once refused (NotImplementedError); every one is ported
+#: since, the reduced product precisions last.
 REJECTED = [
     ("slab_cache", True), ("split_cache", True), ("chunk_lanes", 2),
     ("chunk_dot_precision", "high"), ("first_chunk_dot_precision", "default"),
@@ -68,25 +70,11 @@ REJECTED = [
 ]
 
 
-#: Knobs of REJECTED that the port has implemented since: set alone, each
-#: now does what it does in the JAX package (the same ValueError, or none).
-PORTED = {"slab_cache", "split_cache", "chunk_lanes", "chunk_dot_precision",
-          "first_chunk_dot_precision", "pivot_variant", "anderson_memory",
-          "polish_iterations", "scaling_iters", "record_history"}
-#: Values of a knob that the port has implemented since (the CG, KKT_LDL
-#: and KKT_MINRES backends).
-PORTED_VALUES = {("kkt_backend", pt.KKTBackendKind.CG),
-                 ("kkt_backend", pt.KKTBackendKind.KKT_LDL),
-                 ("kkt_backend", pt.KKTBackendKind.KKT_MINRES)}
-
-
 @pytest.mark.parametrize("field,value", REJECTED,
                          ids=[f"{f}={v}" for f, v in REJECTED])
 def test_unimplemented_knob_raises(field, value):
-    if field not in PORTED and (field, value) not in PORTED_VALUES:
-        with pytest.raises(NotImplementedError, match=field):
-            pt.Settings(**{field: value})
-        return
+    """Each knob the port once refused, set alone, now does what it does in
+    the JAX package: the same ValueError, or none."""
     try:
         qps.Settings(**{field: value})
     except ValueError as e:
@@ -129,9 +117,13 @@ def test_settings_from_dict():
         assert _value(getattr(p, f.name)) == _value(getattr(j, f.name))
     with pytest.raises(ValueError, match="unknown"):
         interop.settings_from_dict({"rho": 0.1, "not_a_knob": 1})
-    with pytest.raises(NotImplementedError):
-        interop.settings_from_dict(
-            dataclasses.asdict(qps.Settings(matmul_precision="high")))
+    # The reduced precisions carry over; a name no package knows raises.
+    for kw in (dict(matmul_precision="high"), dict(factor_precision="default"),
+               dict(matmul_precision="bfloat16", factor_precision="high")):
+        p = interop.settings_from_dict(dataclasses.asdict(qps.Settings(**kw)))
+        assert {k: getattr(p, k) for k in kw} == kw
+    with pytest.raises(ValueError, match="matmul_precision"):
+        interop.settings_from_dict({"matmul_precision": "bf16"})
 
 
 def _random_np_qp(seed, n=12, m=7):
@@ -287,8 +279,9 @@ def test_port_never_imports_jax():
 
 def test_every_refusal_names_its_queue_item():
     """Static check: every NotImplementedError the port still raises names
-    the ROADMAP item that will lift it, Queue 1 item 3 (reduced product
-    precision) or item 7 (the mesh and the distributed modes)."""
+    the ROADMAP item that will lift it. Since the reduced product
+    precisions (Queue 1 item 3) run, the one left is CachedQPSolver's
+    mesh (item 7, the distributed modes)."""
     raises = []
     for f in sorted(PORT_DIR.rglob("*.py")):
         text = f.read_text()
@@ -299,11 +292,8 @@ def test_every_refusal_names_its_queue_item():
                 i += 1
             call = re.sub(r'"\s+f?"', "", text[m.start():i])
             raises.append((f.name, call))
-            assert re.search(r"Queue 1 item [37]\b", call), (f, call)
-    # The refusals left: the settings validators (precision), the factor
-    # precision off the slab (precision) and CachedQPSolver's mesh.
-    assert sorted(name for name, _ in raises) == [
-        "kkt.py", "reuse.py", "settings.py", "settings.py"], raises
+            assert re.search(r"Queue 1 item 7\b", call), (f, call)
+    assert [name for name, _ in raises] == ["reuse.py"], raises
 
 
 def _smoke_oracle():

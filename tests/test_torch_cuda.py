@@ -1822,3 +1822,71 @@ def test_sparse_prox_solve_on_card(dev):
     assert abs(res_prim - float(ell.info.res_prim)) <= 0.1 * res_prim
     steps = np.concatenate([-np.diff(x[: n // 2 + 1]), np.diff(x[n // 2:])])
     assert steps.max() <= max(1e-6, res_prim)
+
+
+# --------------------------------------------- reduced product precision
+
+def _f64_from_bf16(a, b, prec):
+    """The f64 product of a and b as the precision reads them."""
+    if prec == "default":
+        return linalg.bf16_round(a).double() @ linalg.bf16_round(b).double()
+    ah, al = (h.double() for h in linalg.bf16_split(a))
+    bh, bl = (h.double() for h in linalg.bf16_split(b))
+    return ah @ bh + ah @ bl + al @ bh
+
+
+@pytest.mark.parametrize("prec", ["default", "high"])
+def test_bf16_products_match_plain_on_card(dev, prec):
+    """The card's bf16 products (cuBLAS, FP32 output) within 1e-6 of the max
+    of an f64 recomputation from the same bf16-rounded operands, and of the
+    CPU's plain version, on every operand layout the solvers use: batched,
+    a shared 2-D operand on either side, matvecs, the in-place update; at
+    "highest" the helpers are torch.matmul, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(16, 256, 512, generator=g, device=dev)
+    b = torch.randn(16, 512, 128, generator=g, device=dev)
+    v = torch.randn(16, 512, generator=g, device=dev)
+
+    def rel(x, ref):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    cases = [(lambda: linalg.mm(a, b), a, b),
+             (lambda: linalg.mm(a, b[0]), a, b[0]),
+             (lambda: linalg.mm(a[0], b), a[0], b),
+             (lambda: linalg.mv(a, v), a, v[..., None]),
+             (lambda: linalg.mv_t(a.transpose(1, 2), v), v[:, None, :], a.transpose(1, 2))]
+    with linalg.products(prec):
+        for fn, x, y in cases:
+            out = fn()
+            ref = _f64_from_bf16(x, y, prec).reshape(out.shape)
+            assert out.dtype == torch.float32 and rel(out, ref) <= 1e-6
+            plain = linalg.mm(x.cpu(), y.cpu()).reshape(out.shape)
+            assert rel(out.cpu(), plain.double()) <= 1e-6
+        W = torch.zeros(16, 256, 128, device=dev)
+        linalg.sub_mm_(W, a, b)
+        assert rel(-W, _f64_from_bf16(a, b, prec)) <= 1e-6
+    assert torch.equal(linalg.mm(a, b), torch.matmul(a, b))
+
+
+def test_default_factor_on_card(dev):
+    """One "default" factor off the slab on the card (the M^{-1} route at
+    n=256: 2 pivot launches, FP32): an approximate inverse, far from the
+    FP32 factor (> 1e-4 of its max) yet a contraction for refinement
+    (||I - M~^{-1} M||_2 < 0.5), as the CPU's plain version's is."""
+    from quadraticprogramsolver_tpu_torch.models import kkt
+
+    qp, _ = _fleet(dev, 9)
+    rho = torch.full((B,), 0.3, device=dev)
+    st = pt.Settings(factor_precision="default")
+    spd_kernels.spd_inverse_unrolled.launches = 0
+    Mi = kkt.cholesky_init(qp, rho, 1e-4, st)["M_inv"]
+    assert spd_kernels.spd_inverse_unrolled.launches == N // 128
+    full = kkt.cholesky_init(qp, rho, 1e-4, pt.Settings())["M_inv"]
+    assert float((Mi - full).abs().max()) > 1e-4 * float(full.abs().max())
+    M64 = kkt._build_normal_matrix(qp.to(torch.float64),
+                                   rho[:, None].double().expand(B, M), 1e-4)
+    E = torch.eye(N, device=dev, dtype=torch.float64) - Mi.double() @ M64
+    assert float(torch.linalg.matrix_norm(E, ord=2).max()) < 0.5
+    cpu = kkt.cholesky_init(qp.to("cpu"), rho.cpu(), 1e-4, st)["M_inv"]
+    Ec = torch.eye(N, dtype=torch.float64) - cpu.double() @ M64.cpu()
+    assert float(torch.linalg.matrix_norm(Ec, ord=2).max()) < 0.5

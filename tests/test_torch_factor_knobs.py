@@ -251,30 +251,34 @@ _SLAB = dict(fused_factor=True, sigma_free_rhs=True, kkt_refinement_steps=0)
 
 
 def test_factor_precision_on_and_off_the_slab():
-    """factor_precision "high"/"default" run on the slab factor; off it
-    (deliberate difference: JAX runs its XLA factor products at that
-    precision) the port raises NotImplementedError in Settings, and in
-    cholesky_init when the slab gate fails for the problem; other strings
-    raise ValueError."""
+    """factor_precision "high"/"default" run on the slab factor and off it:
+    Settings takes them with or without the slab's knobs, and off the
+    slab's shapes (m = 100, no fused_chunk to pad it: the unfused
+    sigma-free route) cholesky_init runs the factor's products at that
+    precision, as JAX's XLA factor does: bit for bit the factor under
+    matmul_precision at the same level (factor_precision inherits it), and
+    apart from the FP32 factor. Other strings raise ValueError."""
     for prec in ("high", "default"):
         assert pt.Settings(factor_precision=prec, **_SLAB).factor_precision == prec
-        with pytest.raises(NotImplementedError, match="factor_precision"):
-            pt.Settings(factor_precision=prec)
-        with pytest.raises(NotImplementedError, match="factor_precision"):
-            pt.Settings(factor_precision=prec, sigma_free_rhs=True,
-                        kkt_refinement_steps=0)
+        assert pt.Settings(factor_precision=prec).factor_precision == prec
+        assert pt.Settings(factor_precision=prec, sigma_free_rhs=True,
+                           kkt_refinement_steps=0).factor_precision == prec
     with pytest.raises(ValueError, match="factor_precision"):
         pt.Settings(factor_precision="bf16", **_SLAB)
-    # m = 100 is off the slab's shapes and the solve does not pad it
-    # (no fused_chunk): the unfused route would run.
     rng = np.random.default_rng(0)
     P = np.eye(NB)[None].repeat(4, 0)
     A = rng.standard_normal((4, 100, NB))
     qp = qp_from_numpy(P, np.zeros((4, NB)), A, -np.ones((4, 100)),
                        np.ones((4, 100)), device="cpu", dtype=torch.float32)
-    st = pt.Settings(factor_precision="high", **_SLAB)
-    with pytest.raises(NotImplementedError, match="factor_precision"):
-        pt_kkt.cholesky_init(qp, torch.full((4,), 0.1), 1e-6, st)
+    rho = torch.full((4,), 0.1)
+    full = pt_kkt.cholesky_init(qp, rho, 1e-6, pt.Settings(**_SLAB))["G"]
+    for prec in ("high", "default"):
+        G = pt_kkt.cholesky_init(qp, rho, 1e-6, pt.Settings(
+            factor_precision=prec, **_SLAB))["G"]
+        inherited = pt_kkt.cholesky_init(qp, rho, 1e-6, pt.Settings(
+            matmul_precision=prec, **_SLAB))["G"]
+        assert torch.equal(G, inherited), prec
+        assert float((G - full).abs().max()) > 1e-7, prec
 
 
 # ----------------------------------------------------------------- solves

@@ -21,6 +21,7 @@ from quadraticprogramsolver_tpu.models import plan as jax_plan
 from quadraticprogramsolver_tpu.models import proxqp as jax_proxqp
 
 import quadraticprogramsolver_tpu_torch as pt
+from quadraticprogramsolver_tpu_torch.core import settings as pt_settings
 from quadraticprogramsolver_tpu_torch.models import proxqp as pt_proxqp
 from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
     device_prox_fleet)
@@ -293,11 +294,12 @@ def test_settings_fields_defaults_and_validators_match_jax():
     for kw in (dict(anderson_memory=4), dict(record_history=True)):
         qps.ProxQPSettings(**kw)
         pt.ProxQPSettings(**kw)  # ported: accepted as in the JAX package
-    rejected = [dict(chunk_dot_precision="fastest")]
-    for kw in rejected:
+    # Any other chunk precision runs as "highest" in both packages (the
+    # port refused it until the reduced precisions were ported).
+    for kw in (dict(chunk_dot_precision="fastest", **sf),):
         qps.ProxQPSettings(**kw)  # valid for the JAX package
-        with pytest.raises(NotImplementedError):
-            pt.ProxQPSettings(**kw)
+        st = pt.ProxQPSettings(**kw)
+        assert pt_settings.chunk_precision(st, 0) == "highest"
     # The M^{-1}-form fused chunk (default refinement) is accepted and plans
     # the M^{-1} prox chunk kernel behind the sweep factor.
     minv = pt.ProxQPSettings(fused_chunk=True, require_fused=True)
