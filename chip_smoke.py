@@ -293,6 +293,31 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     exactly monotone, within 1e-6 of the port's CPU f64 solve. Phase 13's
     launches of rows 2 and 13 join the ``paths`` line.
 
+14. Reduced product precision (``matmul_precision``, ``factor_precision``)
+    and the host utilities (``phase_precision``).
+
+15. The distributed modes (parallel/): 15a this process as a one-rank NCCL
+    world: ``solve_fleet`` on phase 3's fleet and stack and
+    ``solve_prox_fleet`` on phase 6's, each bit for bit the single-card
+    solve (x, y, z (s), statuses, iterations, residuals) with the same
+    launches of rows 1-3 and 4a / 5a; ``solve_fleet_block_split`` on a
+    (1, 1) mesh at B=64 (row 2 in its factor) against the single-card solve
+    at the same settings (statuses and iterations identical, x within
+    PARALLEL_X_TOL); the one-rank block splits of a 512/256 QP and a
+    512/128/128 prox QP; config 4 as one shard (``solve_sparse_mesh``, row
+    13 counted) held to 11a's status and f64 audit, with the iterations and
+    max |x - x_11a| printed. 15b two gloo ranks on the one card, CUDA
+    tensors (``rank_15b``, spawned after 15a's world is gone; gloo's
+    all_reduce and all_gather on CUDA tensors checked first): the fleets as
+    2 x 2048, the block splits 2 ways, config 4 at 2 shards, each held to
+    its one-rank run (statuses and iterations identical, x within
+    PARALLEL_X_TOL, PARALLEL_SPARSE_X_TOL for config 4, which also passes
+    the f64 audit). 15c ``dryrun_multichip(2, device="cuda")`` over gloo.
+    Each entry's ms per rank (best of 3) is printed beside the one-rank or
+    single-card run's, with the ranks' device; the launches of the path
+    kernels inside the entry points join the kernels line
+    (``launches_by_path``). ``--parallel-only`` runs phases 1 and 15 alone.
+
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho solve of
 phase 3 (the ADMM headline), one profiled static-rho prox solve,
 one profiled solve each of phases 7a, 7b and 7c, one each of 8a, 8e and 8f
@@ -302,11 +327,12 @@ must trace one ``slab_build_kernel`` and 4 ``level_strip_kernel``-family
 launches and none of the previous factor kernels, 9g 4
 ``level_strip_kernel_high`` and 9c-9f 4 ``group_sweep_kernel``). ``--sparse-only`` runs phases 1 and 11 alone and
 prints no ``ok`` line; ``--core-only`` runs phases 1 and 12 alone, the
-same way, and ``--kkt-only`` phases 1 and 13. ``--time-chunks`` adds,
+same way, ``--kkt-only`` phases 1 and 13, ``--precision-only`` phases 1
+and 14 and ``--parallel-only`` phases 1 and 15. ``--time-chunks`` adds,
 after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
-The last lines are the total wall time, phases 12 and 13's ``paths`` JSON, the
+The last lines are the total wall time, phases 12-15's ``paths`` JSON, the
 kernels JSON (the seven kernels,
 the four cluster chunks and the previous build, level and v3 kernels, the eleven variants of
 rows 4c and 5c, the six pivot formulations and the bf16x3 level of rows
@@ -5218,6 +5244,366 @@ def phase_precision(torch, pkg, cnt):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the distributed modes (parallel/) on the card.
+
+#: Seconds a collective of phase 15 may wait before its group raises; the
+#: two-rank spawns are killed after PARALLEL_DEADLINE seconds.
+PARALLEL_TIMEOUT, PARALLEL_DEADLINE = 300.0, 600.0
+#: Phase 3's and phase 6's static stacks (the fleets of 15a and 15b).
+ADMM_STATIC = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4, rho=0.4,
+                   check_interval=11, kkt_refinement_steps=0,
+                   sigma_free_rhs=True, fused_factor=True, fused_chunk=True,
+                   require_fused=True, adaptive_rho=False)
+PROX_STATIC = dict(max_iterations=2000, eps_abs=5e-5, eps_rel=5e-5,
+                   rho=0.0125, adaptive_rho=False, check_interval=25,
+                   kkt_warm_start=False, kkt_refinement_steps=0,
+                   sigma_free_rhs=True, fused_chunk=True, require_fused=True)
+#: The block splits: bench.py's headline shape (B=64 for the 2-D mesh, one
+#: lane for the 1-D split) and phase 6's prox shape, at phase 3's and phase
+#: 6's static rho and eps, in the M^{-1} form (no sigma-free form there).
+B_SPLIT = 64
+SPLIT_SETTINGS = dict(max_iterations=2000, eps_abs=1e-4, eps_rel=1e-4,
+                      rho=0.4, adaptive_rho=False, check_interval=11)
+PROX_SPLIT_SETTINGS = dict(max_iterations=2000, eps_abs=5e-5, eps_rel=5e-5,
+                           rho=0.0125, adaptive_rho=False, check_interval=25,
+                           kkt_warm_start=False)
+#: A distributed run against its one-rank (or single-card) run: statuses
+#: and iterations identical, x within these of max(|x_ref|_inf, 1)
+#: (__graft_entry__.py:197-203 pins the sparse mesh at 1e-4 on x of order
+#: 1). Config 4's inexact CG (cg_rel_eps 1e-4, f32) carries a sum-order
+#: difference into x at ~1e-4 (the one-shard mesh against 11a's solve:
+#: 1.29e-4; |x|_inf ~ 4), so the 2-shard solve also passes 11a's f64 audit.
+PARALLEL_X_TOL, PARALLEL_SPARSE_X_TOL = 1e-5, 1e-4
+
+
+def main_fleet(torch, B=B_MAIN):
+    from quadraticprogramsolver_tpu_torch.problems.device_fleet import (
+        device_random_qp_fleet)
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return device_random_qp_fleet(B, N, M, generator=g)
+
+
+def main_prox_fleet(torch, B=B_MAIN):
+    from quadraticprogramsolver_tpu_torch.problems.prox_fleet import (
+        device_prox_fleet)
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    return device_prox_fleet(B, N, ME, MI, generator=g)
+
+
+def lane0(problem):
+    """The first lane of a fleet problem, unbatched."""
+    import dataclasses
+
+    return dataclasses.replace(problem, **{
+        f.name: getattr(problem, f.name)[0].contiguous()
+        for f in dataclasses.fields(problem)})
+
+
+def config4_scaled(pkg):
+    """Config 4 (sparse_problem's generation and Ruiz) as scipy matrices:
+    (data, (P, q, A, l, u) scaled, ScalingData on the card)."""
+    from quadraticprogramsolver_tpu_torch.models.scaling import (
+        equilibrate_sparse_host)
+
+    data = pkg.generate_large_sparse_qp(SPARSE_N, seed=0)
+    *scaled, scal = equilibrate_sparse_host(data.P, data.q, data.A, data.l,
+                                            data.u, 10, device=DEVICE)
+    return data, tuple(scaled), scal
+
+
+def timed_run(torch, cnt, fn, path, label, factor=False):
+    """One counted run of fn (every counter at 0 before it; every kernel of
+    ``path`` must launch and no witness wrapper, ``read``; with ``factor``
+    the sigma-free factor's launches as ``factor_kernels`` wants them), then
+    its best of 3: (solution, {kernel: launches} of the path, best ms)."""
+    reset(cnt)
+    sol = fn()
+    torch.cuda.synchronize()
+    launches = read(cnt, path, label)
+    if factor:
+        factor_kernels(cnt, label)
+    return sol, launches, best_seconds(torch, fn, 3) * 1e3
+
+
+def host_result(sol, names=("x",)):
+    """A solution's statuses, iterations and named leaves on the host."""
+    out = {n: getattr(sol, n).cpu() for n in names}
+    out.update(status=sol.info.status.cpu(),
+               iterations=sol.info.iterations.cpu())
+    return out
+
+
+def held_to(label, got, ref, tol):
+    """A distributed run against its reference run: statuses and iterations
+    identical, max |x - x_ref| within tol of max(|x_ref|_inf, 1). Returns
+    max |dx| (0.0: bit for bit)."""
+    import torch
+
+    require(torch.equal(got["status"], ref["status"]),
+            f"{label}: statuses differ from the reference run")
+    require(torch.equal(got["iterations"], ref["iterations"]),
+            f"{label}: iterations differ from the reference run")
+    dx = float((got["x"].double() - ref["x"].double()).abs().max())
+    scale = max(float(ref["x"].abs().max()), 1.0)
+    require(dx <= tol * scale, f"{label}: max |x - x_ref| {dx:.3e} > "
+            f"{tol:.0e} x max(|x_ref|_inf, 1) = {tol * scale:.3e}")
+    return dx
+
+
+def rank_15b(sq2, scal, m_orig):
+    """One of 15b's two gloo ranks on the card: each entry point's counted
+    run, its best of 3 and its launches, on the host for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    import quadraticprogramsolver_tpu_torch as pkg
+    from quadraticprogramsolver_tpu_torch.parallel import (
+        consensus, mesh, prox_consensus, sparse_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cnt = counters()
+    dev = torch.cuda.current_device()
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "device": f"cuda:{dev} {torch.cuda.get_device_name(dev)}"}
+    # gloo's collectives on CUDA tensors: the two this package uses.
+    probe = torch.full((4,), float(dist.get_rank() + 1), device=DEVICE)
+    dist.all_reduce(probe, op=dist.ReduceOp.SUM)
+    parts = [torch.empty_like(probe) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, probe)
+    require(float(probe[0]) == 3.0 and all(float(p[0]) == 3.0 for p in parts),
+            "gloo all_reduce/all_gather on CUDA tensors gave wrong values")
+    out["gloo_cuda"] = "all_reduce and all_gather on CUDA tensors: ok"
+
+    fleet = mesh.make_fleet_mesh(DEVICE)
+    qp = main_fleet(torch)
+    st = pkg.Settings(**ADMM_STATIC)
+    label = f"phase 15b fleet rank {out['rank']}"
+    sol, n, ms = timed_run(torch, cnt, lambda: mesh.solve_fleet(qp, st, fleet),
+                           ADMM_PATH, label, factor=True)
+    out["fleet"] = dict(host_result(sol), launches=n, ms=ms)
+    del qp, sol
+    prob = main_prox_fleet(torch)
+    pst = pkg.ProxQPSettings(**PROX_STATIC)
+    label = f"phase 15b prox fleet rank {out['rank']}"
+    sol, n, ms = timed_run(
+        torch, cnt, lambda: mesh.solve_prox_fleet(prob, pst, fleet), PROX_PATH,
+        label, factor=True)
+    out["prox fleet"] = dict(host_result(sol), launches=n, ms=ms)
+    del prob, sol
+    torch.cuda.empty_cache()
+
+    blocks = mesh.make_mesh((2,), ("blocks",), DEVICE)
+    qp1 = lane0(main_fleet(torch, B_SPLIT))
+    st = pkg.Settings(**SPLIT_SETTINGS)
+    sol, n, ms = timed_run(
+        torch, cnt, lambda: consensus.solve_block_split(qp1, st, blocks), (),
+        f"phase 15b block split rank {out['rank']}")
+    out["block split"] = dict(host_result(sol), launches=n, ms=ms)
+    prob1 = lane0(main_prox_fleet(torch, 1))
+    pst = pkg.ProxQPSettings(**PROX_SPLIT_SETTINGS)
+    sol, n, ms = timed_run(torch, cnt, lambda: prox_consensus.
+                           solve_prox_block_split(prob1, pst, blocks), (),
+                           f"phase 15b prox block split rank {out['rank']}")
+    out["prox block split"] = dict(host_result(sol), launches=n, ms=ms)
+
+    rows = mesh.make_mesh((2,), ("rows",), DEVICE)
+    st = pkg.Settings(**SPARSE_SETTINGS)
+    sol, n, ms = timed_run(torch, cnt, lambda: sparse_mesh.solve_sparse_mesh(
+        sq2, st, rows, m_orig=m_orig, scaling=scal), ("ell_matvec",),
+        f"phase 15b sparse mesh rank {out['rank']}")
+    out["sparse mesh"] = dict(host_result(sol, ("x", "z", "y")), launches=n,
+                              ms=ms)
+    return out
+
+
+def phase_parallel(torch, pkg, cnt):
+    """Phase 15: the distributed modes. Returns the launches of the path
+    kernels inside the distributed entry points, by run."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from quadraticprogramsolver_tpu_torch.parallel import (
+        consensus, mesh, prox_consensus, sparse_mesh)
+    from quadraticprogramsolver_tpu_torch.parallel.dryrun import (
+        dryrun_multichip)
+    from quadraticprogramsolver_tpu_torch.parallel.launch import (free_port,
+                                                                  spawn)
+
+    t0 = time.perf_counter()
+    paths = {}
+    refs = {}
+    dev_name = torch.cuda.get_device_name(0)
+
+    # 15a: this process as a one-rank NCCL world.
+    mesh.init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                          backend="nccl", device=DEVICE,
+                          timeout=PARALLEL_TIMEOUT)
+    try:
+        fleet = mesh.make_fleet_mesh(DEVICE)
+        for label, make, settings, entry, single, path, names in (
+                ("15a fleet", main_fleet, pkg.Settings(**ADMM_STATIC),
+                 mesh.solve_fleet, pkg.solve, ADMM_PATH, ("x", "z", "y")),
+                ("15a prox fleet", main_prox_fleet,
+                 pkg.ProxQPSettings(**PROX_STATIC), mesh.solve_prox_fleet,
+                 pkg.solve_proxqp, PROX_PATH, ("x", "s", "y", "z"))):
+            prob = make(torch)
+            torch.cuda.synchronize()
+            ref, n_ref, ms_ref = timed_run(
+                torch, cnt, lambda: single(prob, settings), path,
+                f"phase {label} single-card solve", factor=True)
+            sol, n, ms = timed_run(
+                torch, cnt, lambda: entry(prob, settings, fleet), path,
+                f"phase {label}", factor=True)
+            require(n == n_ref, f"phase {label}: launches {n} != the "
+                    f"single-card solve's {n_ref}")
+            for name in names + ("info.status", "info.iterations",
+                                 "info.res_prim", "info.res_dual"):
+                a, b = sol, ref
+                for part in name.split("."):
+                    a, b = getattr(a, part), getattr(b, part)
+                require(torch.equal(a, b), f"phase {label}: {name} differs "
+                        "from the single-card solve's")
+            refs[label[4:]] = dict(host_result(sol), ms=ms)
+            paths[f"phase_{label}"] = n
+            log(f"[phase {label}] 1 NCCL rank on cuda:0 {dev_name}: B="
+                f"{prob.batch_shape[0]}, {ms:.2f} ms (best of 3) beside the "
+                f"single-card solve's {ms_ref:.2f} ms; x, y, z, statuses, "
+                f"iterations and residuals bit for bit; launches {n} (the "
+                f"single-card solve's: the same)")
+            del prob, ref, sol
+            torch.cuda.empty_cache()
+
+        # The 2-D mesh at (1, 1): the block split against the single-card
+        # solve at the same settings; its factor through row 2's sweep.
+        qp64 = main_fleet(torch, B_SPLIT)
+        st = pkg.Settings(**SPLIT_SETTINGS)
+        grid = mesh.make_mesh((1, 1), ("qp", "blocks"), DEVICE)
+        ref, n_ref, ms_ref = timed_run(
+            torch, cnt, lambda: pkg.solve(qp64, st), ("pivot_sweep_v3",),
+            "phase 15a 2-D mesh single-card solve")
+        sol, n, ms = timed_run(torch, cnt, lambda: consensus.
+                               solve_fleet_block_split(qp64, st, grid),
+                               ("pivot_sweep_v3",), "phase 15a 2-D mesh")
+        dx = held_to("phase 15a 2-D mesh", host_result(sol),
+                     host_result(ref), PARALLEL_X_TOL)
+        paths["phase_15a 2-D mesh"] = n
+        log(f"[phase 15a 2-D mesh] (1, 1) mesh, B={B_SPLIT}: {ms:.2f} ms "
+            f"(best of 3) beside the single-card solve's {ms_ref:.2f} ms; "
+            f"statuses and iterations identical (p50 "
+            f"{float(sol.info.iterations.float().median()):.0f}), max |dx| "
+            f"{dx:.3e}; row 2 launches {n['pivot_sweep_v3']} (single card "
+            f"{n_ref['pivot_sweep_v3']})")
+        qp1 = lane0(qp64)
+        del qp64, ref, sol
+
+        # The one-rank block splits that 15b is held to.
+        blocks = mesh.make_mesh((1,), ("blocks",), DEVICE)
+        for label, fn in (
+                ("block split", lambda: consensus.solve_block_split(
+                    qp1, st, blocks)),
+                ("prox block split", lambda: prox_consensus.
+                 solve_prox_block_split(lane0(main_prox_fleet(torch, 1)),
+                                        pkg.ProxQPSettings(
+                                            **PROX_SPLIT_SETTINGS), blocks))):
+            sol, _, ms = timed_run(torch, cnt, fn, (), f"phase 15a {label}")
+            refs[label] = dict(host_result(sol), ms=ms)
+            log(f"[phase 15a {label}] 1 rank: status {int(sol.info.status)},"
+                f" iterations {int(sol.info.iterations)}, {ms:.2f} ms (best "
+                "of 3)")
+
+        # Config 4 as one shard, against 11a's solve.
+        data, scaled, scal = config4_scaled(pkg)
+        st = pkg.Settings(**SPARSE_SETTINGS)
+        ell = pkg.make_sparse_qp(*scaled, dtype=np.float32, device=DEVICE)
+        ref, n_ref, ms_ref = timed_run(
+            torch, cnt, lambda: pkg.solve(ell, st, scaling=scal),
+            ("ell_matvec",), "phase 15a 11a's solve")
+        del ell
+        sq1 = sparse_mesh.shard_sparse_qp(*scaled, 1, dtype=np.float32,
+                                          scaling=scal, device=DEVICE)
+        rows = mesh.make_mesh((1,), ("rows",), DEVICE)
+        sol, n, ms = timed_run(torch, cnt, lambda: sparse_mesh.
+                               solve_sparse_mesh(sq1, st, rows,
+                                                 m_orig=data.m, scaling=scal),
+                               ("ell_matvec",), "phase 15a sparse mesh")
+        require(int(sol.info.status) == int(ref.info.status),
+                f"phase 15a sparse mesh: status {int(sol.info.status)} != "
+                f"11a's {int(ref.info.status)}")
+        ok, _ = osqp_f64(data, sol, "phase 15a sparse mesh")
+        require(ok, "phase 15a sparse mesh: the f64 audit failed")
+        dx11 = float((sol.x - ref.x).abs().max())
+        refs["sparse mesh"] = dict(host_result(sol), ms=ms)
+        paths["phase_15a sparse mesh"] = n
+        log(f"[phase 15a sparse mesh] config 4, 1 shard: status "
+            f"{int(sol.info.status)}, {int(sol.info.iterations)} iterations "
+            f"(11a's solve {int(ref.info.iterations)}), max |x - x_11a| "
+            f"{dx11:.3e} (|x_11a|_inf {float(ref.x.abs().max()):.3f}); "
+            f"{ms:.2f} ms (best of 3) beside 11a's {ms_ref:.2f} "
+            f"ms; row 13 launches {n['ell_matvec']} (11a's "
+            f"{n_ref['ell_matvec']})")
+        del sq1, ref, sol
+        sq2 = sparse_mesh.shard_sparse_qp(*scaled, 2, dtype=np.float32,
+                                          scaling=scal, device="cpu")
+        scal_cpu = scal.to(torch.float64, "cpu")
+        m_orig = data.m
+        del scaled, scal
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"[phase 15a] {time.perf_counter() - t0:.1f} s")
+
+    # 15b: two gloo ranks on the one card, CUDA tensors.
+    t1 = time.perf_counter()
+    ranks = spawn(rank_15b, 2, args=(sq2, scal_cpu, m_orig), device=DEVICE,
+                  backend="gloo", timeout=PARALLEL_TIMEOUT,
+                  deadline=PARALLEL_DEADLINE)
+    log(f"[phase 15b] {ranks[0]['gloo_cuda']} ({ranks[0]['backend']})")
+    for label, tol in (("fleet", PARALLEL_X_TOL), ("prox fleet", PARALLEL_X_TOL),
+                       ("block split", PARALLEL_X_TOL),
+                       ("prox block split", PARALLEL_X_TOL),
+                       ("sparse mesh", PARALLEL_SPARSE_X_TOL)):
+        ref = {k: torch.as_tensor(v) if k in ("x", "status", "iterations")
+               else v for k, v in refs[label].items()}
+        devs = []
+        for r in ranks:
+            got = {k: torch.as_tensor(v) if k in ("x", "status", "iterations")
+                   else v for k, v in r[label].items()}
+            devs.append(held_to(f"phase 15b {label} rank {r['rank']}", got,
+                                ref, tol))
+            paths[f"phase_15b {label} rank {r['rank']}"] = got["launches"]
+        same = "bit for bit" if max(devs) == 0.0 else f"max |dx| {max(devs):.3e}"
+        if label == "sparse mesh":
+            import types
+
+            r0 = ranks[0][label]
+            ok, _ = osqp_f64(data, types.SimpleNamespace(**{
+                k: torch.as_tensor(r0[k]) for k in ("x", "z", "y")}),
+                "phase 15b sparse mesh rank 0")
+            require(ok, "phase 15b sparse mesh: the f64 audit failed")
+        log(f"[phase 15b {label}] 2 gloo ranks on one card ("
+            + ", ".join(f"rank {r['rank']} {r['device']} "
+                        f"{r[label]['ms']:.2f} ms" for r in ranks)
+            + f", best of 3) beside the one-rank run's "
+            f"{refs[label]['ms']:.2f} ms: statuses and iterations identical, "
+            f"{same} (|x_ref|_inf {float(ref['x'].abs().max()):.3f}); "
+            "launches "
+            f"{[r[label]['launches'] for r in ranks]}")
+    del data
+    log(f"[phase 15b] {time.perf_counter() - t1:.1f} s")
+
+    # 15c: the dry run, two gloo ranks on the card.
+    t1 = time.perf_counter()
+    line = dryrun_multichip(2, device=DEVICE, backend="gloo",
+                            timeout=PARALLEL_TIMEOUT)
+    log(f"[phase 15c] {line}; {time.perf_counter() - t1:.1f} s")
+    log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -5268,6 +5654,13 @@ def main() -> int:
         prec_paths = phase_precision(torch, pkg, counters())
         log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
         print(json.dumps({"paths": prec_paths}))
+        print(card)
+        return 0
+
+    if "--parallel-only" in sys.argv[1:]:
+        par_paths = phase_parallel(torch, pkg, counters())
+        log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"paths": par_paths}))
         print(card)
         return 0
 
@@ -5374,6 +5767,16 @@ def main() -> int:
     # Phase 14: reduced product precision and the host utilities.
     prec_paths = phase_precision(torch, pkg, cnt)
 
+    # Phase 15: the distributed modes (one NCCL rank, two gloo ranks on the
+    # card, the dry run); their kernel launches join the kernels line.
+    par_paths = phase_parallel(torch, pkg, cnt)
+    paths.update(par_paths)
+    for e in sparse_entries:
+        if e["name"] == "ell_matvec":
+            e["launches_by_path"] = {k: v["ell_matvec"]
+                                     for k, v in par_paths.items()
+                                     if "ell_matvec" in v}
+
     def entry(name, src, rep):
         err, ms, pms, lms, (bms, by) = kstats[name]
         by_path = {k: v.get(name) for k, v in paths.items()}
@@ -5447,7 +5850,8 @@ def main() -> int:
                         **extra.get(name, {})})
     kernels += sparse_entries
     log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
-    print(json.dumps({"paths": {**core_paths, **kkt_paths, **prec_paths}}))
+    print(json.dumps({"paths": {**core_paths, **kkt_paths, **prec_paths,
+                                **par_paths}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@ The JAX package's ``while_loop`` becomes a host loop over check intervals:
 each pass runs one chunk of ``check_interval`` iterations (one kernel launch
 on the fused path), one convergence check on the device, and ONE
 device-to-host sync that reads "any lane still running" together with "any
-lane's rho tripped" (``_solve_core.syncs`` counts them). Lanes that finished
-are frozen by masking. The KKT backend (models/kkt.py) is CHOLESKY for dense
+lane's rho tripped" (``_solve_core.syncs`` counts them; in a distributed
+solve the ranks agree on it, core/lockstep.py). Lanes that finished are
+frozen by masking. The KKT backend (models/kkt.py) is CHOLESKY for dense
 problems or CG, the matrix-free path of a :class:`~..core.sparse_problem.
 SparseQP`; CG's inner loop reads its own flag once per step (``kkt._pcg``).
 
@@ -45,6 +46,7 @@ import torch
 from ..core.problem import QP, pad_qp
 from ..core.settings import (RHO_MAX, RHO_MIN, KKTBackendKind, Settings,
                              chunk_precision)
+from ..core.lockstep import read_flags
 from ..core.state import SolveInfo, Solution, SolverState, Status
 from ..ops.linalg import (inf_norm, kernel_dtype_ok, mm, mv, products,
                           spd_inverse)
@@ -368,7 +370,7 @@ def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0,
         flags = [(state.status == Status.RUNNING).any()]
         if tripped is not None:
             flags.append(tripped.any())
-        flags = torch.stack(flags).tolist()  # the check's one host sync
+        flags = read_flags(torch.stack(flags))  # the check's one host sync
         _solve_core.syncs += 1
         if not flags[0]:
             break

@@ -35,6 +35,7 @@ from typing import Any
 
 import torch
 
+from ..core.lockstep import read_flags
 from ..core.problem import QP
 from ..core.settings import MAX_DIRECT_KKT_DIM, KKTBackendKind, Settings
 from ..ops.linalg import (add_scaled_identity, bf16_split, kernel_dtype_ok,
@@ -337,7 +338,8 @@ def _minres(apply_K, precond, b, x0, abs_tol: float, max_iterations: int,
 
     JAX's ``lax.while_loop`` becomes a host loop whose condition reads
     "every lane done" back from the device once a step (``_minres.syncs``
-    counts these reads, ``_minres.steps`` the steps). A done lane keeps its
+    counts these reads, ``_minres.steps`` the steps; inside a distributed
+    solve the ranks agree on it, core/lockstep.py). A done lane keeps its
     x bit for bit.
     """
     if vdot is None:
@@ -365,7 +367,7 @@ def _minres(apply_K, precond, b, x0, abs_tol: float, max_iterations: int,
     it = 0
     while it < max_iterations:
         _minres.syncs += 1
-        if bool(done.all()):
+        if not read_flags((~done).any().reshape(1))[0]:
             break
         v = y / beta_g[..., None]
         yn = apply_K(v)
@@ -451,7 +453,8 @@ def _pcg(apply_M, b, x0, diag_inv, abs_tol: float, max_iterations: int,
 
     JAX's ``lax.while_loop`` becomes a host loop whose condition reads
     "every lane done" back from the device once per step (``_pcg.syncs``
-    counts these reads, ``_pcg.steps`` the steps). A done lane takes
+    counts these reads, ``_pcg.steps`` the steps; inside a distributed
+    solve the ranks agree on it, core/lockstep.py). A done lane takes
     alpha = beta = 0, so its x stays unchanged bit for bit.
     """
     dtype = b.dtype
@@ -472,7 +475,7 @@ def _pcg(apply_M, b, x0, diag_inv, abs_tol: float, max_iterations: int,
     it = 0
     while it < max_iterations:
         _pcg.syncs += 1
-        if bool(done.all()):
+        if not read_flags((~done).any().reshape(1))[0]:
             break
         Ap = apply_M(p)
         pAp = (p * Ap).sum(-1)

@@ -27,7 +27,9 @@ kernel on the fused path, sigma-free or M^{-1} form) and one convergence
 check on the device. Where the loop needs to
 know something (whether any lane still runs under ``early_exit``, whether any
 lane's rho tripped), it reads both in ONE device-to-host sync at the top of
-the next pass; ``lax.cond(any(trip))`` becomes a host ``if`` on that flag.
+the next pass (agreed across the ranks of a distributed solve,
+core/lockstep.py); ``lax.cond(any(trip))`` becomes a host ``if`` on that
+flag.
 
 The matrix-free path takes a :class:`~..core.sparse_problem.SparseProxQP`
 (operator protocol; every product the ELL kernel, or CSR): the x-update is
@@ -43,6 +45,7 @@ import dataclasses
 
 import torch
 
+from ..core.lockstep import read_flags
 from ..core.problem import ProxQPProblem, pad_proxqp
 from ..core.settings import ProxQPSettings, chunk_precision
 from ..core.sparse_problem import SparseProxQP
@@ -425,7 +428,7 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
             flags = [(status == Status.RUNNING).any()]
             if trip is not None:
                 flags.append(trip.any())
-            flags = torch.stack(flags).tolist()  # the pass's one host sync
+            flags = read_flags(torch.stack(flags))  # the pass's one host sync
             if settings.early_exit and not flags[0]:
                 break
             if trip is not None and flags[1]:

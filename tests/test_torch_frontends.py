@@ -249,8 +249,13 @@ def test_cached_solver_matches_jax():
         sp.update(q=np.zeros((4, 13)))
     with pytest.raises(ValueError, match="shape"):
         sp.refactor(P=np.eye(3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        pt.CachedQPSolver(qp, _pst(SET), mesh=object())
+    # mesh= runs since the distributed modes were ported (held to JAX's
+    # mesh solver on a 4-rank world in tests/test_torch_parallel_dense.py);
+    # an object that is no mesh fails in both packages alike.
+    for pkg, q in ((qps, qp_j), (pt, qp)):
+        with pytest.raises(AttributeError, match="shape"):
+            pkg.CachedQPSolver(q, SET if pkg is qps else _pst(SET),
+                               mesh=object())
     with pytest.raises(ValueError, match="scaling_iters"):
         pt.CachedQPSolver(qp, pt.Settings(scaling_iters=2))
 
