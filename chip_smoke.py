@@ -269,16 +269,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 13. The rest of the KKT layer and the matrix-free prox path, f32: 13a
     ``benchmarks/compare_kkt_backends.py``'s size sweep (RANDOM_QP, B=64,
     n in {64, 128, 256}, m = n/2, seed 1234, rho 0.1 adaptive, eps 1e-5,
-    4000 iterations) through CHOLESKY, KKT_LDL, CG and KKT_MINRES: best of
-    3 ms (the counted run one), solved, p50 iterations, the factor
+    4000 iterations) through CHOLESKY and KKT_LDL, and at n=256 alone CG
+    and KKT_MINRES: best of 3 ms (the counted run one; the Krylov
+    backends' counted run alone), solved, p50 iterations, the factor
     functions' calls, Krylov steps and host syncs, row 2's launches (n/128
     a CHOLESKY build, n/128 a MINRES solve: its preconditioner), the factor
     alone (its init function, best of 3), every lane status 2/3, a 4 + 4
     lane audit tightening eps (1e-5, 2e-6, 1e-6) while it misses the
     target, and LDL's x within 1e-4 of CHOLESKY's; 13b the script's
-    crossover (portfolio and huber with m 60 at B=16, random_qp at B=64,
-    n=256, CG against MINRES with cg_max_iterations 500; a cell whose
-    counted run takes over 5 s is timed by it alone); 13c the MINRES polish on a tall
+    crossover (portfolio and huber with m 60 at B=4, n=256, at most 100
+    outer iterations, CG against MINRES with cg_max_iterations 500, each
+    timed by its counted run, with its ms and Krylov steps an outer
+    iteration); 13c the MINRES polish on a tall
     INEQUALITY_QP fleet (n=64, m=640, B=256, polish_iterations 3: lanes
     accepted, at least half, p50 KKT error before and after, the audit
     reported) and on config 4 (accepted or not, the ELL launches inside
@@ -318,6 +320,24 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     kernels inside the entry points join the kernels line
     (``launches_by_path``). ``--parallel-only`` runs phases 1 and 15 alone.
 
+16. The benchmark harness, the blocked-Schur inverse and the examples
+    (``phase_harness``): 16a ``bench/harness.py: run_sweep`` over
+    ``default_sweep()`` (9 classes x n in {20, 100}, B=64) at its default
+    settings in f32 on the card, 3 samples, into a CSV and a JSONL in a
+    temporary directory: every case returns, the sweep printed as one
+    table (ms, solves/s, iterations/s, p50 iterations, solved/total), the
+    CSV header ``CSV_COLUMNS``, the device column "gpu:" and the
+    nvidia-smi line in every row, a second run appended and two headline
+    records appended through the guards, a drifted CSV and a drifted
+    headline record refused; the random_qp n=100 case re-solved and 16
+    lanes audited against f64_oracle.py (the phase-4 ladder). 16b
+    ``ops/linalg.py: spd_inverse_blocked`` beside ``cholesky_inverse`` and
+    ``torch.linalg.inv`` at (2048, 500, 500) f32 and (256, 512, 512) f64:
+    ms and the error against numpy f64 inverses of 3 lanes. 16c the six
+    ``examples/*_torch.py`` on the card at their default sizes, each in
+    its own process (all started together, each with its own timeout),
+    every one exiting 0. ``--harness-only`` runs phases 1 and 16 alone.
+
 ``python3 chip_smoke.py --profile`` adds one profiled static-rho solve of
 phase 3 (the ADMM headline), one profiled static-rho prox solve,
 one profiled solve each of phases 7a, 7b and 7c, one each of 8a, 8e and 8f
@@ -328,11 +348,12 @@ launches and none of the previous factor kernels, 9g 4
 ``level_strip_kernel_high`` and 9c-9f 4 ``group_sweep_kernel``). ``--sparse-only`` runs phases 1 and 11 alone and
 prints no ``ok`` line; ``--core-only`` runs phases 1 and 12 alone, the
 same way, ``--kkt-only`` phases 1 and 13, ``--precision-only`` phases 1
-and 14 and ``--parallel-only`` phases 1 and 15. ``--time-chunks`` adds,
+and 14, ``--parallel-only`` phases 1 and 15 and ``--harness-only``
+phases 1 and 16. ``--time-chunks`` adds,
 after phase 2, the times of the sigma-free chunks and their variants at the
 main path's B=4096 with every lane active (``time_chunks``).
 
-The last lines are the total wall time, phases 12-15's ``paths`` JSON, the
+The last lines are the total wall time, phases 12-16's ``paths`` JSON, the
 kernels JSON (the seven kernels,
 the four cluster chunks and the previous build, level and v3 kernels, the eleven variants of
 rows 4c and 5c, the six pivot formulations and the bf16x3 level of rows
@@ -4271,6 +4292,11 @@ KKT_SETTINGS = dict(max_iterations=4000, eps_abs=1e-5, eps_rel=1e-5,
                     rho=0.1, adaptive_rho=True)
 KKT_EPS = (1e-5, 2e-6, 1e-6)
 KKT_BACKENDS = ("CHOLESKY", "KKT_LDL", "CG", "KKT_MINRES")
+#: The host-bound Krylov backends run at the sweep's largest n alone, each
+#: timed by its counted run: at every n and best of 3 they took 13a to
+#: 104.8 s on the H100 (MINRES 5.7-9.3 s a solve, CG 2.2-2.4 s).
+KKT_KRYLOV = ("CG", "KKT_MINRES")
+KKT_KRYLOV_SIZES = (KKT_SIZES[-1],)
 #: LDL's x against CHOLESKY's on the same fleet at the sweep's eps.
 LDL_VS_CHOLESKY = 1e-4
 #: Each backend's factor functions (models/kkt.py): (init, refactor).
@@ -4280,13 +4306,14 @@ FACTOR_FNS = {"CHOLESKY": ("cholesky_init", "cholesky_refactor"),
               "KKT_MINRES": ("kkt_minres_init", "kkt_minres_refactor")}
 #: 13b: compare_kkt_backends.py's crossover (:133-185): the ill-conditioned
 #: families at n=256 (HUBER's m capped at 60), CG against MINRES with
-#: cg_max_iterations 500, each family at its B (family, m cap, B). A cell
-#: whose counted run takes longer than CROSSOVER_REPEAT_S is not repeated
-#: (its one run is its time). Portfolio and huber run at B=16, not 13a's
-#: 64: their MINRES cells, host-bound at ~1 ms a step, took 123-153 s of
-#: the script at B=64, and both backends of a family share its B.
-CROSSOVER = (("PORTFOLIO", 0, 16), ("HUBER", 60, 16), ("RANDOM_QP", 0, KKT_B))
-CROSSOVER_REPEAT_S = 5.0
+#: cg_max_iterations 500, each family at its B (family, m cap, B), every
+#: cell timed by its counted run, its ms an outer iteration beside it. Cut
+#: to B=4 and CROSSOVER_ITERATIONS outer iterations (both backends of a
+#: family alike), and random_qp left to 13a's n=256 cells: at B=16 and 4000
+#: iterations with random_qp at B=64 13b took 142.3 s on the H100 (MINRES
+#: 52.4 s portfolio, 62.0 s huber, host-bound at ~1 ms a step).
+CROSSOVER = (("PORTFOLIO", 0, 4), ("HUBER", 60, 4))
+CROSSOVER_ITERATIONS = 100
 #: 13c: a tall dense fleet (INEQUALITY_QP, m = 10 n) from the 9-class
 #: generator, polished by MINRES; config 4 with the polish on.
 TALL_N, TALL_B = 64, 256
@@ -4377,6 +4404,8 @@ def phase_kkt_sweep(torch, pkg, cnt, pool):
         first_x = {}
         rho = torch.full((KKT_B,), KKT_SETTINGS["rho"], device=DEVICE)
         for name in KKT_BACKENDS:
+            if name in KKT_KRYLOV and n not in KKT_KRYLOV_SIZES:
+                continue
             base = pkg.Settings(kkt_backend=pkg.KKTBackendKind[name],
                                 **KKT_SETTINGS)
             for eps in KKT_EPS:
@@ -4401,15 +4430,19 @@ def phase_kkt_sweep(torch, pkg, cnt, pool):
                 timed = ""
                 if eps == KKT_EPS[0]:
                     first_x[name] = sol.x
-                    best = min(dt, best_seconds(
-                        torch, lambda: pkg.solve(qp, st), 2))
+                    if name in KKT_KRYLOV:
+                        best, how = dt, "its counted run alone"
+                    else:
+                        best = min(dt, best_seconds(
+                            torch, lambda: pkg.solve(qp, st), 2))
+                        how = "best of 3, the counted run one"
                     sigma = st.sigma_for(torch.float32)
                     init = getattr(kkt, FACTOR_FNS[name][0])
                     fdt = best_seconds(
                         torch, lambda: init(qp, rho, sigma, st), 3)
                     row.update(ms=best * 1e3, factor_ms=fdt * 1e3)
-                    timed = (f"; solve {best * 1e3:.2f} ms (best of 3, the "
-                             f"counted run one), factor {fdt * 1e3:.3f} ms "
+                    timed = (f"; solve {best * 1e3:.2f} ms ({how}), "
+                             f"factor {fdt * 1e3:.3f} ms "
                              f"({FACTOR_FNS[name][0]} alone, best of 3)")
                 log(f"[{label}] {line}; factor builds {inits}, refactor "
                     f"calls {refactors}; row-2 launches {piv}; "
@@ -4443,25 +4476,29 @@ def phase_kkt_crossover(torch, pkg, cnt):
     for family, cap, b in CROSSOVER:
         qp = pkg.generate_batch(pkg.ProblemClass[family], b, n, cap,
                                 seed=KKT_SEED, dtype=np.float32, device=DEVICE)
-        for name in ("CG", "KKT_MINRES"):
+        for name in KKT_KRYLOV:
             st = pkg.Settings(kkt_backend=pkg.KKTBackendKind[name],
-                              cg_max_iterations=500, **KKT_SETTINGS)
+                              cg_max_iterations=500, **dict(
+                                  KKT_SETTINGS,
+                                  max_iterations=CROSSOVER_ITERATIONS))
             label = f"phase 13b {family.lower()} {name.lower()}"
             sol, launches, _, k, dt = kkt_solve(torch, pkg, cnt, qp, st,
                                                 label)
             add_counts(total, launches)
             _, iters, solved, line = stats_line(sol)
             del sol
-            how = "its counted run alone"
-            if dt < CROSSOVER_REPEAT_S:
-                dt = min(dt, best_seconds(torch, lambda: pkg.solve(qp, st), 2))
-                how = "best of 3"
             steps = k["cg_steps"] + k["minres_steps"]
-            log(f"[{label}] (n={qp.n}, m={qp.m}, B={b}) {line}; "
-                f"{krylov_line(k)}; solve {dt * 1e3:.2f} ms ({how})")
+            outer = int(iters.max())
+            log(f"[{label}] (n={qp.n}, m={qp.m}, B={b}, at most "
+                f"{CROSSOVER_ITERATIONS} iterations) {line}; "
+                f"{krylov_line(k)}; solve {dt * 1e3:.2f} ms (its counted "
+                f"run alone), {dt * 1e3 / outer:.3f} ms an outer iteration, "
+                f"{steps / outer:.1f} Krylov steps an outer iteration")
             rows.append({"family": family, "backend": name, "n": qp.n,
                          "m": qp.m, "B": b, "ms": dt * 1e3, "solved": solved,
                          "p50_iterations": float(np.median(iters)),
+                         "outer_iterations": outer,
+                         "ms_per_outer_iteration": dt * 1e3 / outer,
                          "krylov_steps": steps, **k})
         del qp
         torch.cuda.empty_cache()
@@ -4816,6 +4853,12 @@ AUDIT_EPS = (1e-4, 2e-5, 1e-5)
 #: ones stay within DEFAULT_X (the CPU test's bound). On the H100, 20 of
 #: 2048 lanes stalled there.
 DEFAULT_EPS, DEFAULT_SHARE, DEFAULT_X = 3e-2, 0.95, 5e-2
+#: "default"'s ungated run at eps 1e-4 (its stall: no lane converges, every
+#: x finite) stops at this many iterations; at 2000, as the gated run at
+#: DEFAULT_EPS keeps (at 500 that run converged 1937/2048 lanes, under
+#: DEFAULT_SHARE), it took ~15 s of 14b's 56.7 on the H100. "high" is
+#: timed by its counted run (4.5 s a solve).
+DEFAULT_STALL_ITERATIONS = 500
 #: 14c: the card's bf16 products against an f64 recomputation from the same
 #: bf16-rounded operands, relative to the max (only the FP32 accumulation
 #: differs).
@@ -4951,12 +4994,15 @@ def phase_precision_matmul(torch, pkg, cnt, pool, qp):
         label = f"phase 14b {prec}"
         settings = dataclasses.replace(base, matmul_precision=prec)
         if prec == "default":
-            for eps in (1e-4, DEFAULT_EPS):
+            for eps, cap in ((1e-4, DEFAULT_STALL_ITERATIONS),
+                             (DEFAULT_EPS, settings.max_iterations)):
                 # Its stragglers run to max_iterations: the counted run is
                 # its one timed run.
                 st, sol, counts, _, dev, dt = laddered_solve(
-                    torch, pkg, cnt, qp, settings, ADMM_DEFAULTS_PATH, label,
-                    pool, eps_ladder=(eps,), required=False)
+                    torch, pkg, cnt, qp,
+                    dataclasses.replace(settings, max_iterations=cap),
+                    ADMM_DEFAULTS_PATH, label, pool, eps_ladder=(eps,),
+                    required=False)
                 status = sol.info.status.cpu().numpy()
                 iters = sol.info.iterations.cpu().numpy()
                 solved = int(((status == 2) | (status == 3)).sum())
@@ -4981,11 +5027,12 @@ def phase_precision_matmul(torch, pkg, cnt, pool, qp):
                     f"audit {dev} (limit {DEFAULT_X:.0e})")
             runs = "one run"
         else:
-            st, sol, counts, _, dev, _ = laddered_solve(
+            st, sol, counts, _, dev, dt = laddered_solve(
                 torch, pkg, cnt, qp, settings, ADMM_DEFAULTS_PATH, label, pool)
+            runs = "its counted run"
         iters = sol.info.iterations.cpu().numpy()
         del sol
-        if prec != "default":
+        if prec == "highest":
             _, dt = run_main(torch, lambda: pkg.solve(qp, st))
             runs = "best of 3"
         paths[prec] = counts
@@ -5314,18 +5361,19 @@ def config4_scaled(pkg):
     return data, tuple(scaled), scal
 
 
-def timed_run(torch, cnt, fn, path, label, factor=False):
+def timed_run(torch, cnt, fn, path, label, factor=False, reps=3):
     """One counted run of fn (every counter at 0 before it; every kernel of
     ``path`` must launch and no witness wrapper, ``read``; with ``factor``
     the sigma-free factor's launches as ``factor_kernels`` wants them), then
-    its best of 3: (solution, {kernel: launches} of the path, best ms)."""
+    its best of ``reps``: (solution, {kernel: launches} of the path, best
+    ms)."""
     reset(cnt)
     sol = fn()
     torch.cuda.synchronize()
     launches = read(cnt, path, label)
     if factor:
         factor_kernels(cnt, label)
-    return sol, launches, best_seconds(torch, fn, 3) * 1e3
+    return sol, launches, best_seconds(torch, fn, reps) * 1e3
 
 
 def host_result(sol, names=("x",)):
@@ -5351,6 +5399,11 @@ def held_to(label, got, ref, tol):
     require(dx <= tol * scale, f"{label}: max |x - x_ref| {dx:.3e} > "
             f"{tol:.0e} x max(|x_ref|_inf, 1) = {tol * scale:.3e}")
     return dx
+
+
+#: 15b's config 4 at two shards is timed by one run after its counted one:
+#: at 4.3-6.6 s a solve its best of 3 took ~17 s of 15b's 37.8 (H100).
+SPARSE_15B_REPS = 1
 
 
 def rank_15b(sq2, scal, m_orig):
@@ -5414,7 +5467,7 @@ def rank_15b(sq2, scal, m_orig):
     st = pkg.Settings(**SPARSE_SETTINGS)
     sol, n, ms = timed_run(torch, cnt, lambda: sparse_mesh.solve_sparse_mesh(
         sq2, st, rows, m_orig=m_orig, scaling=scal), ("ell_matvec",),
-        f"phase 15b sparse mesh rank {out['rank']}")
+        f"phase 15b sparse mesh rank {out['rank']}", reps=SPARSE_15B_REPS)
     out["sparse mesh"] = dict(host_result(sol, ("x", "z", "y")), launches=n,
                               ms=ms)
     return out
@@ -5584,10 +5637,12 @@ def phase_parallel(torch, pkg, cnt):
                 k: torch.as_tensor(r0[k]) for k in ("x", "z", "y")}),
                 "phase 15b sparse mesh rank 0")
             require(ok, "phase 15b sparse mesh: the f64 audit failed")
+        timed = ("one timed run after the counted one"
+                 if label == "sparse mesh" else "best of 3")
         log(f"[phase 15b {label}] 2 gloo ranks on one card ("
             + ", ".join(f"rank {r['rank']} {r['device']} "
                         f"{r[label]['ms']:.2f} ms" for r in ranks)
-            + f", best of 3) beside the one-rank run's "
+            + f", {timed}) beside the one-rank run's "
             f"{refs[label]['ms']:.2f} ms: statuses and iterations identical, "
             f"{same} (|x_ref|_inf {float(ref['x'].abs().max()):.3f}); "
             "launches "
@@ -5602,6 +5657,252 @@ def phase_parallel(torch, pkg, cnt):
     log(f"[phase 15c] {line}; {time.perf_counter() - t1:.1f} s")
     log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
     return paths
+
+
+# --- Phase 16: the benchmark harness, the blocked-Schur inverse, examples ---
+
+#: 16a: the port's harness over its default sweep (bench/harness.py:
+#: default_sweep, 9 classes x n in {20, 100}, B=64, the m=100n families
+#: capped at 60 rows) at run_sweep's default settings, f32, 3 samples.
+HARNESS_SAMPLES = 3
+#: run_sweep's default settings (bench/harness.py), for 16a's audit.
+HARNESS_SETTINGS = dict(max_iterations=4000, eps_abs=1e-4, eps_rel=1e-4,
+                        rho=0.1, adaptive_rho=True)
+#: 16a's audited case (the sweep's random_qp n=100).
+HARNESS_AUDIT_CASE = ("RANDOM_QP", 100)
+#: 16b: spd_inverse_blocked beside the Cholesky route and torch.linalg.inv
+#: at shapes off the sweep's (n % 128 != 0 in f32; f64, which the card's
+#: sweep does not take): (B, n, dtype). M = W W'/n + 0.1 I (cond ~ 40),
+#: errors against numpy f64 inverses of BLOCKED_LANES lanes.
+BLOCKED_SHAPES = ((2048, 500, "float32"), (256, 512, "float64"))
+BLOCKED_LANES = 3
+BLOCKED_LIMIT = {"float32": 1e-4, "float64": 1e-10}
+#: 16c: the port-side examples, each run in its own process at its default
+#: size on the card, all six at once, each with its own timeout (s).
+EXAMPLES = ("portfolio_fleet_torch", "prox_fleet_torch",
+            "monotone_smoothing_torch", "mpc_fleet_torch",
+            "anderson_acceleration_torch", "diagnostics_report_torch")
+EXAMPLE_TIMEOUT = 300.0
+
+
+def phase_harness_sweep(torch, pkg, cnt, card, tmp):
+    """16a: run_sweep over the default sweep on the card into a CSV and a
+    JSONL under ``tmp``, the files' schema, device column and guards, and
+    the audit of the random_qp n=100 case. Returns the sweep's launches."""
+    import csv
+    import dataclasses
+
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.bench import harness
+
+    csv_path = os.path.join(tmp, "sweep.csv")
+    jsonl_path = os.path.join(tmp, "sweep.jsonl")
+    cases = harness.default_sweep()
+    reset(cnt)
+    t0 = time.perf_counter()
+    results = harness.run_sweep(cases, samples=HARNESS_SAMPLES,
+                                csv_path=csv_path, jsonl_path=jsonl_path,
+                                verbose=False, device=DEVICE)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    read(cnt, (), "phase 16a run_sweep")
+    launches = {k: cnt[k].launches for k in CORE_KERNELS}
+    require(len(results) == len(cases) == 18,
+            f"phase 16a: {len(results)} results for {len(cases)} cases")
+    log(f"[phase 16a] run_sweep(default_sweep(), samples={HARNESS_SAMPLES}) "
+        f"on {card}, f32: {sweep_s:.1f} s; per case the best of "
+        f"{HARNESS_SAMPLES} solves after a warm one:")
+    log(f"[phase 16a] {'class':>16} {'n':>4} {'m cap':>5} {'B':>3} "
+        f"{'ms':>9} {'solves/s':>10} {'iter/s':>11} {'p50 it':>7} solved")
+    table = []
+    for r in results:
+        c = r.case
+        log(f"[phase 16a] {c.problem_class.value:>16} {c.num_elements:>4} "
+            f"{c.num_constraints:>5} {c.batch:>3} "
+            f"{r.best_time_sec * 1e3:9.3f} {r.solves_per_sec:10.1f} "
+            f"{r.iterations_per_sec:11.1f} {r.median_iterations:7.1f} "
+            f"{r.solved}/{r.total}")
+        table.append({"class": c.problem_class.value, "n": c.num_elements,
+                      "m_cap": c.num_constraints, "B": c.batch,
+                      "ms": r.best_time_sec * 1e3,
+                      "mean_ms": r.mean_time_sec * 1e3,
+                      "solves_per_s": r.solves_per_sec,
+                      "iterations_per_s": r.iterations_per_sec,
+                      "median_iterations": r.median_iterations,
+                      "solved": r.solved, "total": r.total})
+    log("[phase 16a] table: " + json.dumps(table))
+
+    # The files: CSV_COLUMNS, the card and its power limit in every row.
+    with open(csv_path, newline="") as f:
+        header = next(csv.reader(f))
+    with open(csv_path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    require(header == harness.CSV_COLUMNS,
+            f"phase 16a: CSV header {header} != CSV_COLUMNS")
+    want = f"gpu:{card}"
+    with open(jsonl_path) as f:
+        devices = {r["device"] for r in rows} | {
+            json.loads(ln)["device"] for ln in f}
+    require(len(rows) == 18 and devices == {want},
+            f"phase 16a: {len(rows)} CSV rows, device column {devices} "
+            f"(want {want!r})")
+    require({r["label"] for r in rows} == {"qps-torch"},
+            "phase 16a: a row without the port's label")
+    # An appended second run passes the guards; drifted files refuse.
+    harness.emit_results(results, csv_path, jsonl_path, device=DEVICE)
+    with open(csv_path, newline="") as f:
+        require(len(list(csv.DictReader(f))) == 36,
+                "phase 16a: the appended run did not land in the CSV")
+    head = os.path.join(tmp, "headline.jsonl")
+    best = max(results, key=lambda r: r.solves_per_sec)
+    rec = {"bench": "sweep_best", "problem_class":
+           best.case.problem_class.value, "num_elements":
+           best.case.num_elements, "solves_per_sec": best.solves_per_sec}
+    for _ in range(2):
+        harness.append_headline_record(head, rec, device=DEVICE)
+    drifted = os.path.join(tmp, "drifted.csv")
+    with open(drifted, "w") as f:
+        f.write(",".join(harness.CSV_COLUMNS[:-1]) + "\n")
+    refused = []
+    for what, fn in (
+            ("CSV", lambda: harness.emit_results(results, drifted,
+                                                 device=DEVICE)),
+            ("JSONL", lambda: harness.append_headline_record(
+                head, {"bench": "sweep_best"}, device=DEVICE))):
+        try:
+            fn()
+        except ValueError as e:
+            refused.append(what if "schema guard" in str(e) else None)
+    require(refused == ["CSV", "JSONL"],
+            f"phase 16a: drifted files refused {refused}, want both")
+    log(f"[phase 16a] CSV header == CSV_COLUMNS, device column {want!r} in "
+        f"all 18 rows and the JSONL's, a second run appended (36 rows), two "
+        f"headline records appended, a drifted CSV and a drifted headline "
+        f"record refused by the schema guard")
+
+    # The audit of the random_qp n=100 case, the phase-4 ladder.
+    cls, n = HARNESS_AUDIT_CASE
+    case = next(c for c in cases if c.problem_class.name == cls
+                and c.num_elements == n)
+    qp = pkg.generate_batch(case.problem_class, case.batch, n,
+                            case.num_constraints, seed=1234,
+                            dtype=np.float32, device=DEVICE)
+    base = pkg.Settings(**HARNESS_SETTINGS)
+    for eps in (1e-4, 2e-5, 1e-5):
+        st = dataclasses.replace(base, eps_abs=eps, eps_rel=eps)
+        label = f"phase 16a {cls.lower()} n={n} eps {eps:.0e}"
+        sol = pkg.solve(qp, st)
+        status, iters, solved, line = stats_line(sol)
+        log(f"[{label}] {line}")
+        dev = audit(qp, sol.x.double().cpu().numpy(), status, iters, label,
+                    required=False, prefix="phase 16a")
+        if dev <= AUDIT_TARGET:
+            break
+    require(dev <= AUDIT_TARGET, f"phase 16a: audit {dev:.3e}")
+    return launches
+
+
+def phase_harness_blocked(torch):
+    """16b: spd_inverse_blocked, the Cholesky route (cholesky_inverse) and
+    torch.linalg.inv at off-sweep shapes: ms (best of 3 after a warm call)
+    and the error against numpy f64 inverses of a few lanes."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.ops import linalg
+
+    rows = []
+    for B, n, dt_name in BLOCKED_SHAPES:
+        dtype = getattr(torch, dt_name)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED)
+        W = torch.randn((B, n, n), generator=g, device=DEVICE, dtype=dtype)
+        M = torch.matmul(W, W.transpose(1, 2)) / n
+        del W
+        M += 0.1 * torch.eye(n, device=DEVICE, dtype=dtype)
+        M = linalg.sym(M)
+        idx = [0, B // 2, B - 1][:BLOCKED_LANES]
+        ref = torch.from_numpy(np.linalg.inv(
+            M[idx].double().cpu().numpy())).to(DEVICE)
+        for name, fn in (("spd_inverse_blocked", linalg.spd_inverse_blocked),
+                         ("cholesky_inverse", linalg.cholesky_inverse),
+                         ("torch.linalg.inv", torch.linalg.inv)):
+            with linalg.fp32_products():
+                ms = best_ms(torch, lambda: fn(M))
+                out = fn(M)
+            err = rel_f64(out, ref, idx)
+            del out
+            log(f"[phase 16b] {name} ({B}, {n}, {n}) {dt_name}: {ms:.3f} ms "
+                f"(best of 3), max |inv - inv_f64| / max |inv_f64| over "
+                f"lanes {idx}: {err:.3e}")
+            require(err <= BLOCKED_LIMIT[dt_name],
+                    f"phase 16b {name} {dt_name}: error {err:.3e} > "
+                    f"{BLOCKED_LIMIT[dt_name]:.0e}")
+            rows.append({"fn": name, "B": B, "n": n, "dtype": dt_name,
+                         "ms": ms, "rel_err": err})
+        del M, ref
+        torch.cuda.empty_cache()
+    log("[phase 16b] table: " + json.dumps(rows))
+
+
+def phase_harness_examples(tmp):
+    """16c: the six examples/*_torch.py on the card at their default sizes,
+    each in its own process (all started together; each with its own
+    timeout); every one must exit 0. Their printed times come from runs
+    that share the card and are not measurements."""
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            args = [sys.executable, os.path.join(HERE, "examples", f"{name}.py")]
+            if name == "diagnostics_report_torch":
+                args += ["--out", os.path.join(tmp, "qp_report")]
+            log_f = open(os.path.join(tmp, f"{name}.log"), "w+")
+            procs[name] = (subprocess.Popen(args, cwd=HERE, stdout=log_f,
+                                            stderr=subprocess.STDOUT),
+                           log_f, time.perf_counter())
+        failed = []
+        for name, (proc, log_f, t0) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, EXAMPLE_TIMEOUT - (
+                    time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = "timeout"
+            log_f.seek(0)
+            lines = log_f.read().splitlines()
+            for line in lines[-40:]:
+                log(f"[phase 16c {name}] {line}")
+            log(f"[phase 16c {name}] rc {rc}, "
+                f"{time.perf_counter() - t0:.1f} s")
+            if rc != 0:
+                failed.append((name, rc))
+    finally:
+        for proc, log_f, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+    require(not failed, f"phase 16c: examples failed {failed}")
+
+
+def phase_harness(torch, pkg, cnt, card):
+    """Phase 16; returns 16a's launches of the path kernels."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        launches = phase_harness_sweep(torch, pkg, cnt, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"[phase 16a] {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase_harness_blocked(torch)
+        log(f"[phase 16b] {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase_harness_examples(tmp)
+        log(f"[phase 16c] {time.perf_counter() - t1:.1f} s")
+    log(f"[phase 16] {time.perf_counter() - t0:.1f} s")
+    return {"16a": launches}
 
 
 def main() -> int:
@@ -5661,6 +5962,13 @@ def main() -> int:
         par_paths = phase_parallel(torch, pkg, counters())
         log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
         print(json.dumps({"paths": par_paths}))
+        print(card)
+        return 0
+
+    if "--harness-only" in sys.argv[1:]:
+        harness_paths = phase_harness(torch, pkg, counters(), card)
+        log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"paths": harness_paths}))
         print(card)
         return 0
 
@@ -5771,6 +6079,11 @@ def main() -> int:
     # card, the dry run); their kernel launches join the kernels line.
     par_paths = phase_parallel(torch, pkg, cnt)
     paths.update(par_paths)
+
+    # Phase 16: the benchmark harness, the blocked-Schur inverse and the
+    # port-side examples.
+    harness_paths = phase_harness(torch, pkg, cnt, card)
+    paths.update(harness_paths)
     for e in sparse_entries:
         if e["name"] == "ell_matvec":
             e["launches_by_path"] = {k: v["ell_matvec"]
@@ -5851,7 +6164,7 @@ def main() -> int:
     kernels += sparse_entries
     log(f"chip_smoke: total wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"paths": {**core_paths, **kkt_paths, **prec_paths,
-                                **par_paths}}))
+                                **par_paths, **harness_paths}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

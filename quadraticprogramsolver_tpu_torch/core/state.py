@@ -81,3 +81,8 @@ class Solution:
     z: torch.Tensor
     y: torch.Tensor
     info: SolveInfo
+
+
+def all_done(status: torch.Tensor) -> torch.Tensor:
+    """True (a 0-d bool tensor) when no lane is still running."""
+    return torch.all(status != Status.RUNNING)

@@ -245,6 +245,22 @@ def inf_norm(v: torch.Tensor) -> torch.Tensor:
     return v.abs().amax(-1)
 
 
+def inf_norm_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fused ||a - b||_inf (reference `_NormInfDif`, ProxQP.jl:300-309)."""
+    return inf_norm(a - b)
+
+
+def batch_identity(batch_shape: tuple[int, ...], n: int, dtype: torch.dtype,
+                   device=None) -> torch.Tensor:
+    """The n x n identity broadcast to ``batch_shape`` (a view) on
+    ``device``: callers pass their tensor's; None is the card
+    (:func:`~..core.problem.default_device`)."""
+    from ..core.problem import default_device
+
+    eye = torch.eye(n, dtype=dtype, device=default_device(device))
+    return eye.expand(tuple(batch_shape) + (n, n))
+
+
 def add_scaled_identity(M: torch.Tensor, s) -> torch.Tensor:
     """M + s*I on the last two axes (s a scalar)."""
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
@@ -300,3 +316,52 @@ def cholesky_inverse(M: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand_as(M)
     inv = torch.cholesky_solve(eye, L)
     return 0.5 * (inv + inv.transpose(-1, -2))
+
+
+# Below this size the matmul recursion stops paying; use Cholesky.
+_SPD_BASE_N = 64
+
+
+def _spd_inverse_cholesky(M: torch.Tensor) -> torch.Tensor:
+    L = torch.linalg.cholesky(M)
+    eye = batch_identity(M.shape[:-2], M.shape[-1], M.dtype, M.device)
+    return sym(torch.cholesky_solve(eye, L))
+
+
+def spd_inverse_blocked(M: torch.Tensor, split: bool = False) -> torch.Tensor:
+    """Recursive blocked SPD inverse: with M = [[A, B'], [B, C]],
+
+        S = C - B A^{-1} B'          (SPD Schur complement)
+        M^{-1} = [[A^{-1} + W' S^{-1} W,  -W' S^{-1}],
+                  [-S^{-1} W,              S^{-1}]],   W = B A^{-1}.
+
+    Two half-size recursive inversions and four batched products a level
+    down to n <= 64 or an odd n (Cholesky there); only the result is
+    symmetrized. The products go through :func:`mm` at the enclosing
+    :func:`products` scope's precision ("highest" outside any), as the JAX
+    package's einsums follow ``default_matmul_precision``; torch's own
+    float32 products run without TF32 inside. ``split`` is accepted and
+    unused, as in the JAX package. :func:`spd_inverse` does not dispatch
+    here: off the sweep's shapes it takes Cholesky.
+    """
+    with products():
+        return sym(_spd_inverse_blocked_raw(M))
+
+
+def _spd_inverse_blocked_raw(M: torch.Tensor) -> torch.Tensor:
+    n = M.shape[-1]
+    if n <= _SPD_BASE_N or n % 2:
+        return _spd_inverse_cholesky(M)
+    h = n // 2
+    A = M[..., :h, :h]
+    B = M[..., h:, :h]
+    C = M[..., h:, h:]
+    A_inv = _spd_inverse_blocked_raw(A)
+    W = mm(B, A_inv)
+    S = C - mm(W, B.transpose(-1, -2))
+    S_inv = _spd_inverse_blocked_raw(S)
+    SW = mm(S_inv, W)
+    top_left = A_inv + mm(W.transpose(-1, -2), SW)
+    top = torch.cat([top_left, -SW.transpose(-1, -2)], dim=-1)
+    bot = torch.cat([-SW, S_inv], dim=-1)
+    return torch.cat([top, bot], dim=-2)

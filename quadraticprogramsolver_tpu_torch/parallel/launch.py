@@ -26,6 +26,7 @@ The ranks run on the cards unless the caller asks for the CPU
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue as queue_mod
 import socket
@@ -33,7 +34,7 @@ import time
 import traceback
 
 from ..utils.interop import to_host
-from .mesh import DEFAULT_TIMEOUT
+from .mesh import DEFAULT_TIMEOUT, init_distributed
 
 
 def free_port() -> int:
@@ -41,6 +42,28 @@ def free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_world(device: str = "cuda", timeout: float = DEFAULT_TIMEOUT):
+    """This process as a world of one rank on a free local port (NCCL on the
+    card, gloo on the CPU) for the ``with`` block, so an entry point of the
+    distributed modes runs in a plain script; a world that exists already
+    is used as it is and left open."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield
+        return
+    if device == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device())
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, device=device,
+                     timeout=timeout)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def host_tree(obj):
@@ -130,8 +153,6 @@ def _rank_main(rank, world_size, port, backend, device, timeout, fn, args,
                kwargs, results):
     import torch
     import torch.distributed as dist
-
-    from .mesh import init_distributed
 
     torch.set_num_threads(1)
     try:

@@ -273,12 +273,69 @@ def test_port_never_imports_jax():
     for f in files:
         m = bad.search(f.read_text())
         assert m is None, f"{f}: {m.group(0)!r}"
-    for script in ("chip_smoke.py", "f64_oracle.py", "compare_solves.py"):
+    # And the benchmark harness.
+    assert {PORT_DIR / "bench" / f for f in ("__init__.py", "harness.py")
+            } <= set(files)
+    scripts = ["chip_smoke.py", "f64_oracle.py", "compare_solves.py"]
+    # The port-side examples, each beside the JAX package's original.
+    examples = sorted((PORT_DIR.parent / "examples").glob("*_torch.py"))
+    assert {f.name for f in examples} == {f"{name}_torch.py" for name in (
+        "portfolio_fleet", "prox_fleet", "monotone_smoothing", "mpc_fleet",
+        "anderson_acceleration", "diagnostics_report")}
+    scripts += [f"examples/{f.name}" for f in examples]
+    for script in scripts:
         text = (PORT_DIR.parent / script).read_text()
         assert bad.search(text) is None, script
         # Nor is a module of the JAX package loaded by its path.
         assert re.search(r"[\"']quadraticprogramsolver_tpu[\"']", text) is None, script
         assert "spec_from_file_location" not in text, script
+
+
+#: The JAX package's public names that the port spells otherwise.
+RENAMED = {"pallas_spd_inverse_nb": "spd_inverse_nb",
+           "pallas_spd_inverse_64p": "spd_inverse_64p",
+           "pallas_spd_inverse_unrolled": "spd_inverse_unrolled",
+           "pallas_normal_inverse": "normal_inverse"}
+#: JAX modules with no counterpart: pytree registration (the port's
+#: dataclasses of tensors need none).
+NO_COUNTERPART = {"core/pytree.py"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Static check of the JAX package's sources (read with ast, not
+    imported): every module but NO_COUNTERPART has a port module at the same
+    path, and every public top-level def/class there is a name of that port
+    module, or is mapped by RENAMED to one."""
+    import ast
+    import importlib
+
+    jax_dir = pathlib.Path(qps.__file__).parent
+    modules = sorted(f.relative_to(jax_dir).as_posix()
+                     for f in jax_dir.rglob("*.py"))
+    assert "bench/harness.py" in modules and "ops/linalg.py" in modules
+    assert NO_COUNTERPART <= set(modules)
+    missing, renamed_seen = [], set()
+    for rel in modules:
+        if rel in NO_COUNTERPART:
+            assert not (PORT_DIR / rel).exists(), rel
+            continue
+        assert (PORT_DIR / rel).is_file(), f"no port module {rel}"
+        tree = ast.parse((jax_dir / rel).read_text())
+        names = [n.name for n in tree.body
+                 if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                   ast.ClassDef))
+                 and not n.name.startswith("_")]
+        mod = importlib.import_module(
+            "quadraticprogramsolver_tpu_torch."
+            + rel[:-3].replace("/", ".").removesuffix(".__init__"))
+        for name in names:
+            if name in RENAMED:
+                renamed_seen.add(name)
+                name = RENAMED[name]
+            if not hasattr(mod, name):
+                missing.append(f"{rel}: {name}")
+    assert missing == [], missing
+    assert renamed_seen == set(RENAMED)
 
 
 def test_every_refusal_names_its_queue_item():
