@@ -225,8 +225,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
     3, 6 or 11a). 11d rows 14a, 14b and 15 on P at
     n = 1e5 with the probes' defaults (route levels S = 8, W = 12544, and
     every micro shape of ``routed_spmv_probe.py:181-183``; the row-routed
-    format): packers, kernels against their plain versions, the whole
-    matvecs against scipy in f64 (relative 1e-6), times, bounds, CSR.
+    format) and on the 2-D Laplacian of a 316 x 316 grid (14b and 15):
+    packers, occupied sectors and fill, kernels against their plain
+    versions and their witnesses (the first ports: the route levels bit for
+    bit ``routed_levels_prev`` with and without the occupancy mask; 14a,
+    which runs the first port's kernel, beside the level-split kernel with
+    a full mask at every micro shape, bit for bit; the 128-wide tile census
+    of ``routed_spmv_probe.py:108-138``; the fused row-routed matvec within
+    1e-6 of max|y| of
+    the rows kernel summed by ``index_add_``, and the same bits on two
+    calls), the whole matvecs against scipy in f64 (relative 1e-6) in one
+    counted call each, device times from device memory and warm, bounds
+    (occupied sectors, and the bytes the first ports streamed), CSR.
 
 12. The rest of the ADMM core at the JAX package's user settings, f32:
     12a Ruiz scaling at ``benchmarks/sweep_classes.py``'s settings (eps
@@ -472,7 +482,9 @@ WITNESSES = {"slab_build_prev": "slab_build",
              "pivot_sweep_ref_prev": "pivot_sweep_ref",
              "normal_inverse_prev": "normal_inverse",
              "pivot_sweep_group_prev": "pivot_sweep_r2, pivot_sweep_r4, "
-                                       "pivot_sweep_r8, pivot_sweep_panel"}
+                                       "pivot_sweep_r8, pivot_sweep_panel",
+             "routed_levels_prev": "routed_levels",
+             "row_routed_rows": "row_routed_blocks"}
 #: The counters (see counters()) of the wrappers that launch a kept previous
 #: kernel, or one chunk kernel whatever the dispatch rule says: witnesses
 #: and timing baselines only. Every path run reads them after its reset and
@@ -488,7 +500,8 @@ WITNESS_WRAPPERS = ("slab_build_prev", "slab_level_prev",
                     "fused_proxqp_chunk_minv_cluster",
                     "pivot_sweep_2d_prev", "pivot_sweep_ref_prev",
                     "normal_inverse_prev", "pivot_sweep_group_prev",
-                    "pivot_sweep_v3p_prev")
+                    "pivot_sweep_v3p_prev", "routed_levels_prev",
+                    "row_routed_rows")
 #: Phase 2b: the redesigns and their witnesses at the main path's B.
 B_REDESIGN = B_MAIN
 #: The triangle build's gram part against the previous kernel's: max |new -
@@ -592,7 +605,7 @@ SPARSE_SETTINGS = dict(max_iterations=300, eps_abs=SPARSE_EPS,
                        eps_rel=SPARSE_EPS, rho=0.1, adaptive_rho=True,
                        cg_eps=1e-6, cg_max_iterations=200, cg_rel_eps=1e-4,
                        check_interval=25)
-ROUTE_S, ROUTE_W = 8, 12544
+ROUTE_S = 8
 #: routed_spmv_probe.py:181-183: (S, W, G) of the square micro kernel; the
 #: G=1024 tall one resolves the per-slot cost and stands for row 14a.
 MICRO_SHAPES = ((8, 128, 512), (32, 128, 512), (784, 128, 64),
@@ -602,9 +615,16 @@ MICRO_MAIN = (784, 128, 1024)
 #: The probes' own bar for a routed matvec against scipy in f64
 #: (row_routed_probe.py:317).
 SPMV_SCIPY_BAR = 1e-6
+#: Phase 11d's banded case: the 2-D 5-point Laplacian on a BAND_K x BAND_K
+#: grid (n = 99,856), where routing should pay (row_routed_probe.py:15-19).
+BAND_K = 316
 #: Rows 13-15: each SpMV kernel (a kernels-JSON entry of its own) -> (its
 #: source, the TPU kernel it replaces). Row 13's launches are phase 11a's
-#: solve; 14a, 14b and 15 are entry points, counted in one call each.
+#: solve; 14a, 14b and 15 are entry points, counted in one call each. Row
+#: 14a (one dense level) runs the first port's routed_levels_prev_kernel
+#: through routed_levels_matvec, counted there; the wrappers that launch
+#: the first ports of 14b and 15 as witnesses (routed_levels_prev,
+#: row_routed_rows) launch in no counted run.
 SPMV_KERNELS = {
     "ell_matvec": ("csrc/ell_matvec.cu", "benchmarks/ell_kernel_probe.py:84"),
     "ell_matvec_prev": ("csrc/ell_matvec.cu",
@@ -613,6 +633,10 @@ SPMV_KERNELS = {
                          "benchmarks/routed_spmv_probe.py:189"),
     "routed_levels": ("csrc/routed_spmv.cu",
                       "benchmarks/routed_spmv_probe.py:299"),
+    "routed_levels_prev": ("csrc/routed_spmv.cu",
+                           "benchmarks/routed_spmv_probe.py:299"),
+    "row_routed_blocks": ("csrc/row_routed.cu",
+                          "benchmarks/row_routed_probe.py:204"),
     "row_routed_rows": ("csrc/row_routed.cu",
                         "benchmarks/row_routed_probe.py:204"),
 }
@@ -2171,8 +2195,10 @@ def counters():
             "normal_inverse": spd_kernels.normal_inverse,
             "ell_matvec": spmv.ell_matvec,
             "routed_levels": routed_spmv.routed_levels_matvec,
-            "row_routed_rows": routed_spmv.row_routed_rows,
+            "row_routed_blocks": routed_spmv.row_routed_blocks,
             # The witness wrappers (WITNESS_WRAPPERS): no solver calls them.
+            "routed_levels_prev": routed_spmv.routed_levels_prev,
+            "row_routed_rows": routed_spmv.row_routed_rows,
             "slab_build_prev": fused_factor.build_slab_prev,
             "slab_level_prev": fused_factor.slab_level_prev,
             "pivot_sweep_v3_prev": spd_kernels.pivot_sweep_v3_prev,
@@ -3392,14 +3418,20 @@ def device_ms(fn, calls=20, reps=5):
             if not late:
                 break
             cycles *= 2
+            # A call that waits for the device (a host sync) is never
+            # queued behind the busy-wait, however long it runs.
+            require(cycles <= 10_000_000 * 2 ** 8,
+                    "device_ms: the timed call synchronises with the device")
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times[1:])
 
 
-def l2_copies(*tensors):
+def l2_copies(*tensors, touched=None):
     """Copies of ``tensors`` (dense or sparse CSR), enough that a call on
     each in turn reads its operands from device memory and not from the L2:
-    together at least three times the L2's size, and at least 2."""
+    together at least three times the L2's size, and at least 2. For a
+    kernel that skips empty slots, ``touched`` (the bytes a call reads,
+    far fewer than the tensors hold) counts in place of their size."""
     import torch
 
     def nbytes(t):
@@ -3409,16 +3441,9 @@ def l2_copies(*tensors):
         return t.nbytes
 
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    size = sum(nbytes(t) for t in tensors)
+    size = touched or sum(nbytes(t) for t in tensors)
     return [tuple(t.clone() for t in tensors)
             for _ in range(max(2, -(-3 * l2 // size)))]
-
-
-def spmv_times(kern, plain, lib, slots, nnz, nbytes, flops):
-    """(ms, plain ms, library ms, (bound ms, by)) of one SpMV kernel, each
-    its device time (``device_ms``)."""
-    return (device_ms(kern), device_ms(plain, calls=5),
-            None if lib is None else device_ms(lib), bound(nbytes, flops))
 
 
 def spmv_entry(name, launches, err, times, extra):
@@ -3428,6 +3453,253 @@ def spmv_entry(name, launches, err, times, extra):
             "replaces": rep, "stack": "phase 11", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
             "bound_by": by, "library_ms": lms, **extra}
+
+
+def laplacian_2d(k):
+    """The 2-D 5-point Laplacian on a k x k grid (n = k^2, about 5 nnz a
+    row), scipy CSR float64."""
+    import scipy.sparse as sp
+
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(k, k))
+    eye = sp.identity(k)
+    return (sp.kron(eye, T) + sp.kron(T, eye)).tocsr()
+
+
+def occupied_sectors(mask):
+    """The 32-byte sectors of packed float32/int32 slots that hold a
+    nonzero, from their occupancy mask (a byte of mask bits is 8
+    consecutive slots, one sector when the rows are 8-slot aligned)."""
+    import numpy as np
+
+    return int(np.count_nonzero(mask.cpu().numpy().view(np.uint8)))
+
+
+def routed_case(torch, rs, cnt, label, M, failures):
+    """Rows 14b and 15 on the scipy matrix M (n x n): each kernel against
+    its plain version and its witness, the whole matvecs against scipy in
+    f64 (SPMV_SCIPY_BAR) in one counted call each, and their device times
+    (from device memory, each call on the next of ``l2_copies``, and warm
+    in the L2) beside the witness, the plain version, CSR M @ x (cuSPARSE)
+    and two bounds: the bytes the redesigned kernel must move (masks,
+    occupied sectors, index, x, y) and the bytes the first port streamed.
+    Returns, by kernel name, its numbers."""
+    import numpy as np
+
+    from quadraticprogramsolver_tpu_torch.core.sparse_problem import _to_csr
+
+    tag = f"phase 11d {label}"
+    n, nnz = M.shape[1], M.nnz
+    x_np = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    y_ref = M @ x_np.astype(np.float64)
+    scale = float(np.abs(y_ref).max())
+    x = torch.tensor(x_np, device=DEVICE)
+    Mt = _to_csr(M, np.float32, DEVICE)
+    csrs = l2_copies(Mt)
+    lib = (device_ms([lambda a=a: a[0] @ x for a in csrs]),
+           device_ms(lambda: Mt @ x))
+    del csrs
+    log(f"[{tag}] {M.shape[0]} x {n}, nnz {nnz}; CSR @ x {lib[0]:.4f} ms "
+        f"from device memory, {lib[1]:.4f} ms warm")
+
+    def against_scipy(what, y):
+        rel = float(np.abs(y.double().cpu().numpy() - y_ref).max()) / scale
+        log(f"[{tag}] {what}: max |y - scipy f64| / max|y| = {rel:.2e} "
+            f"(bar {SPMV_SCIPY_BAR:.0e})")
+        if not rel <= SPMV_SCIPY_BAR:
+            failures.append(f"{tag} {what}: {rel:.2e} from scipy")
+        return rel
+
+    out = {}
+    # Row 14b: route levels at S = 8, the probe's W.
+    t0 = time.perf_counter()
+    RL = rs.route_levels(M, ROUTE_S, rs.probe_width(n), DEVICE)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    G, T, S, W = RL.idxJ.shape
+    slots = G * T * S * W
+    sectors = occupied_sectors(RL.mask)
+    t0 = time.perf_counter()
+    n_tiles, _ = rs.chunk_tile_census(M, S)
+    log(f"[{tag}] 14b route levels S={S} W={W}: T={T}, groups={G}, slots "
+        f"{slots} ({slots / 1e6:.2f} M), fill {nnz / slots:.3f}, occupied "
+        f"sectors {sectors} of {slots // 8} ({8 * sectors / slots:.3f}), "
+        f"idxJ + V {(RL.idxJ.nbytes + RL.V.nbytes) / 1e6:.1f} MB, mask "
+        f"{RL.mask.nbytes / 1e6:.2f} MB, packed in {pack_s:.2f} s; the "
+        f"128-wide census: {n_tiles} tiles, {n_tiles / nnz:.2f} a nnz "
+        f"({time.perf_counter() - t0:.2f} s)")
+    X = torch.nn.functional.pad(x, (0, S * W - n)).reshape(W, S).T.contiguous()
+    masked = rs.routed_levels_matvec(X, RL.idxJ, RL.V, RL.mask)
+    dense = rs.routed_levels_matvec(X, RL.idxJ, RL.V)
+    prev = rs.routed_levels_prev(X, RL.idxJ, RL.V)
+    plain = rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V)
+    err = compare(f"{label} routed_levels (masked)", masked, plain, failures,
+                  "phase 11d")
+    err_prev = compare(f"{label} routed_levels_prev", prev, plain, failures,
+                       "phase 11d")
+    bits = {"masked": torch.equal(masked, prev),
+            "unmasked": torch.equal(dense, prev)}
+    log(f"[{tag}] routed_levels bit for bit routed_levels_prev: {bits}")
+    if not all(bits.values()):
+        failures.append(f"{tag} 14b: not bit for bit routed_levels_prev: {bits}")
+    y, n14b = counted_call(torch, cnt, lambda: rs.routed_matvec(RL, x),
+                           "routed_levels", f"{tag} 14b routed_matvec")
+    n_prev = cnt["routed_levels_prev"].launches
+    rel = against_scipy("routed_matvec", y)
+    occ = 2 * 32 * sectors + RL.mask.nbytes + X.nbytes + G * W * 4
+    streamed = RL.idxJ.nbytes + RL.V.nbytes + X.nbytes + G * W * 4
+    b_occ, b_str = bound(occ, 2 * nnz), bound(streamed, 2 * slots)
+    copies = l2_copies(RL.idxJ, RL.V, RL.mask, touched=occ)
+    prev_ms, new_ms = in_turns(
+        [lambda a=a: rs.routed_levels_prev(X, a[0], a[1]) for a in copies],
+        [lambda a=a: rs.routed_levels_matvec(X, *a) for a in copies],
+        device_ms)
+    dense_ms = device_ms([lambda a=a: rs.routed_levels_matvec(X, a[0], a[1])
+                          for a in copies])
+    del copies
+    warm = {"kernel": device_ms(
+                lambda: rs.routed_levels_matvec(X, RL.idxJ, RL.V, RL.mask)),
+            "unmasked": device_ms(
+                lambda: rs.routed_levels_matvec(X, RL.idxJ, RL.V)),
+            "prev": device_ms(lambda: rs.routed_levels_prev(X, RL.idxJ, RL.V)),
+            "matvec": device_ms(lambda: rs.routed_matvec(RL, x))}
+    plain_ms = device_ms(
+        lambda: rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V), calls=5)
+    log(f"[{tag}] 14b from device memory: kernel {new_ms:.4f} ms "
+        f"({new_ms * 1e6 / nnz:.4f} ns/nnz), unmasked {dense_ms:.4f} ms, "
+        f"routed_levels_prev {prev_ms:.4f} ms ({prev_ms / new_ms:.2f}x, in "
+        f"turns); warm in the L2: kernel {warm['kernel']:.4f} ms, unmasked "
+        f"{warm['unmasked']:.4f}, prev {warm['prev']:.4f}, whole matvec "
+        f"{warm['matvec']:.4f}; plain {plain_ms:.4f} ms; CSR @ x "
+        f"{lib[0]:.4f} ms ({lib[1]:.4f} warm); bound {b_occ[0]:.4f} ms "
+        f"(occupied sectors + mask, {b_occ[0] / new_ms:.2f} of it reached), "
+        f"{b_str[0]:.4f} ms (streamed bytes)")
+    common = {"T": T, "slots": slots, "fill": nnz / slots,
+              "occupied_sectors": sectors,
+              "occupied_share": 8 * sectors / slots, "pack_s": pack_s,
+              "census_tiles_per_nnz": n_tiles / nnz, "rel_err_scipy": rel,
+              "plain_ms": plain_ms, "library_ms": lib[0],
+              "library_warm_ms": lib[1]}
+    out["routed_levels"] = {
+        "launches": n14b, "err": err,
+        "times": (new_ms, plain_ms, lib[0], b_occ), "ms": new_ms,
+        "warm_ms": warm["kernel"], "unmasked_ms": dense_ms,
+        "unmasked_warm_ms": warm["unmasked"], "prev_ms": prev_ms,
+        "matvec_ms": warm["matvec"], "bound_ms": b_occ[0],
+        "bound_streamed_ms": b_str[0], "bits_prev": bits,
+        "ns_per_slot": new_ms * 1e6 / slots, "ns_per_nnz": new_ms * 1e6 / nnz,
+        **common}
+    out["routed_levels_prev"] = {
+        "launches": n_prev, "err": err_prev,
+        "times": (prev_ms, plain_ms, lib[0], b_str), "ms": prev_ms,
+        "warm_ms": warm["prev"], "bound_ms": b_str[0],
+        "ns_per_slot": prev_ms * 1e6 / slots,
+        "ns_per_nnz": prev_ms * 1e6 / nnz,
+        "witness_of": WITNESSES["routed_levels_prev"], **common}
+    del RL, X, y, masked, dense, prev, plain
+    torch.cuda.empty_cache()
+
+    # Row 15: row routed, fused (row_routed_blocks); its witness the first
+    # port's rows kernel, then the block sum by index_add_.
+    t0 = time.perf_counter()
+    RR = rs.row_routed(M, DEVICE)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    R, Wd = RR.idx.shape
+    slots = R * Wd
+    n_used, n_blk = RR.order.numel(), RR.blk_ptr.numel() - 1
+    sectors = occupied_sectors(RR.mask)
+    log(f"[{tag}] 15 row routed: R={R} rows (L_max={RR.L}, {RR.n_win} "
+        f"windows, {n_used} used), {n_blk} output blocks, slots {slots} "
+        f"({slots / nnz:.1f}x nnz, fill {nnz / slots:.4f}), occupied sectors "
+        f"{sectors} of {slots // 8} ({8 * sectors / slots:.4f}), idx + V "
+        f"{(RR.idx.nbytes + RR.V.nbytes) / 1e6:.0f} MB, mask "
+        f"{RR.mask.nbytes / 1e6:.2f} MB, packed in {pack_s:.2f} s")
+    Xw = torch.nn.functional.pad(x, (0, RR.n_win * Wd - n)).reshape(RR.n_win, Wd)
+
+    def fused(a=(RR.idx, RR.V, RR.mask, RR.order, RR.blk_ptr)):
+        return rs.row_routed_blocks(Xw, *a, RR.L)
+
+    def witness(a=(RR.idx, RR.V)):
+        return rs.block_sum(rs.row_routed_rows(Xw, *a, RR.L), RR.order,
+                            RR.blk_ptr)
+
+    rows = rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L)
+    same_rows = torch.equal(rows, rs.row_routed_rows_plain(Xw, RR.idx, RR.V,
+                                                           RR.L))
+    err_rows = compare(f"{label} row_routed_rows", rows,
+                       rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L),
+                       failures, "phase 11d")
+    del rows
+    y1, y2, wit = fused(), fused(), witness()
+    plain = rs.row_routed_blocks_plain(Xw, RR.idx, RR.V, RR.mask, RR.order,
+                                       RR.blk_ptr, RR.L)
+    err = compare(f"{label} row_routed_blocks", y1, plain, failures,
+                  "phase 11d")
+    det = torch.equal(y1, y2)
+    wrel = float((y1 - wit).abs().max()) / max(float(wit.abs().max()), 1e-30)
+    log(f"[{tag}] row_routed_rows bit for bit its plain version: {same_rows}; "
+        f"row_routed_blocks two calls bit for bit: {det}; against the witness "
+        f"(rows + index_add_): max |d| / max|y| = {wrel:.2e} (bar 1e-06)")
+    if not (same_rows and det and wrel <= 1e-6):
+        failures.append(f"{tag} 15: rows bit for bit {same_rows}, fused "
+                        f"deterministic {det}, witness {wrel:.2e}")
+    del y1, y2, wit, plain
+    y, n15 = counted_call(torch, cnt, lambda: rs.row_routed_matvec(RR, x),
+                          "row_routed_blocks", f"{tag} 15 row_routed_matvec")
+    n_rows = cnt["row_routed_rows"].launches
+    rel = against_scipy("row_routed_matvec", y)
+    occ = (2 * 32 * sectors + n_used * 16 + RR.order.nbytes
+           + RR.blk_ptr.nbytes + Xw.nbytes + n_blk * Wd * 4)
+    streamed = RR.idx.nbytes + RR.V.nbytes + Xw.nbytes + slots * 4
+    b_occ, b_str = bound(occ, 2 * nnz), bound(streamed, slots)
+    copies = l2_copies(RR.idx, RR.V, RR.mask, RR.order, RR.blk_ptr,
+                        touched=occ)
+    new_ms = device_ms([lambda a=a: fused(a) for a in copies])
+    del copies
+    copies = l2_copies(RR.idx, RR.V)
+    rows_ms = device_ms([lambda a=a: rs.row_routed_rows(Xw, *a, RR.L)
+                         for a in copies])
+    wit_ms = device_ms([lambda a=a: witness(a) for a in copies], calls=5)
+    del copies
+    warm = {"kernel": device_ms(fused),
+            "matvec": device_ms(lambda: rs.row_routed_matvec(RR, x))}
+    plain_ms = device_ms(lambda: rs.row_routed_blocks_plain(
+        Xw, RR.idx, RR.V, RR.mask, RR.order, RR.blk_ptr, RR.L), calls=5)
+    rows_plain_ms = device_ms(
+        lambda: rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L), calls=5)
+    log(f"[{tag}] 15 from device memory: kernel {new_ms:.4f} ms "
+        f"({new_ms * 1e6 / nnz:.4f} ns/nnz); warm in the L2 {warm['kernel']:.4f}"
+        f" ms, whole matvec {warm['matvec']:.4f} ms; the witness: rows "
+        f"kernel {rows_ms:.4f} ms, rows + index_add_ {wit_ms:.4f} ms "
+        f"({wit_ms / new_ms:.1f}x the kernel); plain {plain_ms:.4f} ms (rows "
+        f"plain {rows_plain_ms:.4f}); CSR @ x {lib[0]:.4f} ms ({lib[1]:.4f} "
+        f"warm); bound {b_occ[0]:.4f} ms (masks + occupied sectors + index, "
+        f"{b_occ[0] / new_ms:.2f} of it reached), {b_str[0]:.4f} ms (streamed "
+        f"bytes)")
+    common = {"R": R, "L_max": RR.L, "used_rows": n_used, "slots": slots,
+              "fill": nnz / slots, "occupied_sectors": sectors,
+              "occupied_share": 8 * sectors / slots, "pack_s": pack_s,
+              "rel_err_scipy": rel, "library_ms": lib[0],
+              "library_warm_ms": lib[1]}
+    out["row_routed_blocks"] = {
+        "launches": n15, "err": err,
+        "times": (new_ms, plain_ms, lib[0], b_occ), "ms": new_ms,
+        "warm_ms": warm["kernel"], "matvec_ms": warm["matvec"],
+        "witness_matvec_ms": wit_ms, "witness_rel_err": wrel,
+        "deterministic": det, "bound_ms": b_occ[0],
+        "bound_streamed_ms": b_str[0], "plain_ms": plain_ms,
+        "ns_per_slot": new_ms * 1e6 / slots, "ns_per_nnz": new_ms * 1e6 / nnz,
+        **common}
+    out["row_routed_rows"] = {
+        "launches": n_rows, "err": err_rows,
+        "times": (rows_ms, rows_plain_ms, lib[0], b_str), "ms": rows_ms,
+        "witness_matvec_ms": wit_ms, "bound_ms": b_str[0],
+        "plain_ms": rows_plain_ms, "ns_per_slot": rows_ms * 1e6 / slots,
+        "ns_per_nnz": rows_ms * 1e6 / nnz,
+        "witness_of": WITNESSES["row_routed_rows"], **common}
+    del RR, Xw, y
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_sparse(torch, pkg, cnt, profile, config4=None):
@@ -3559,39 +3831,33 @@ def phase_sparse(torch, pkg, cnt, profile, config4=None):
                            "warm_ms": mats["P"]["warm_ms"]["ell_matvec_prev"],
                            "stack": "phase 11a"})]
 
-    # 11d: the probes' routed matvecs on P (unscaled, as the probes pack it).
+    # 11d: the probes' routed matvecs on P (unscaled, as the probes pack it),
+    # then rows 14b and 15 on a banded matrix, where routing should pay.
     Pc = data.P.tocsr()
-    nnz = Pc.nnz
-    x_np = np.random.default_rng(0).standard_normal(SPARSE_N).astype(np.float32)
-    y_ref = Pc @ x_np.astype(np.float64)
-    scale = float(np.abs(y_ref).max())
-    x = torch.tensor(x_np, device=DEVICE)
-    Pt = _to_csr(Pc, np.float32, DEVICE)
-    lib_ms = device_ms(lambda: Pt @ x)
-    log(f"[phase 11d] P: {SPARSE_N} x {SPARSE_N}, nnz {nnz}; CSR P @ x "
-        f"{lib_ms:.4f} ms")
 
-    def against_scipy(label, y):
-        rel = float(np.abs(y.double().cpu().numpy() - y_ref).max()) / scale
-        log(f"[phase 11d] {label}: max |y - scipy f64| / max|y| = {rel:.2e} "
-            f"(bar {SPMV_SCIPY_BAR:.0e})")
-        if not rel <= SPMV_SCIPY_BAR:
-            failures.append(f"phase 11d {label}: {rel:.2e} from scipy")
-        return rel
-
-    # Row 14a: the square micro kernel (one level) on every probe shape.
+    # Row 14a: the square micro kernel (one level) on every probe shape. At
+    # T = 1 without a mask routed_levels_matvec launches the first port's
+    # kernel (routed_levels_prev_kernel); beside it, bit for bit, the
+    # level-split kernel that the dispatch passes over there, run by a
+    # full occupancy mask.
     micro = {}
     for S, W, G in MICRO_SHAPES:
         X = torch.randn((S, W), generator=g, device=DEVICE)
         idx = torch.randint(0, W, (G, S, W), generator=g, device=DEVICE,
                             dtype=torch.int32)
         V = torch.randn((G, S, W), generator=g, device=DEVICE)
+        full = torch.full((G, S, W // 32), -1, dtype=torch.int32,
+                          device=DEVICE).view(torch.uint32)
         slots = G * S * W
         tag = f"S={S} W={W} G={G}"
-        err = compare(f"routed_levels_t1 {tag}",
-                      rs.routed_levels_matvec(X, idx, V),
+        k = rs.routed_levels_matvec(X, idx, V)
+        err = compare(f"routed_levels_t1 {tag}", k,
                       rs.routed_levels_matvec_plain(X, idx, V), failures,
                       "phase 11d")
+        same = torch.equal(k, rs.routed_levels_matvec(X, idx, V, full))
+        if not same:
+            failures.append(f"phase 11d 14a {tag}: the level-split kernel "
+                            "not bit for bit routed_levels_prev_kernel")
         # The same function as one CSR product: row g*W + l holds V[g, s, l]
         # at column s*W + idx[g, s, l] of X's rows laid end to end.
         col = (torch.arange(S, device=DEVICE)[None, :, None] * W + idx)
@@ -3600,106 +3866,45 @@ def phase_sparse(torch, pkg, cnt, profile, config4=None):
                  V.permute(0, 2, 1).reshape(-1), (G * W, S * W))
         del col
         Xf = X.reshape(-1)
-        t = spmv_times(lambda: rs.routed_levels_matvec(X, idx, V),
-                       lambda: rs.routed_levels_matvec_plain(X, idx, V),
-                       lambda: M @ Xf, slots, slots,
-                       idx.nbytes + V.nbytes + X.nbytes + G * W * 4,
-                       2 * slots)
-        micro[tag] = {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+        split_ms, new_ms = in_turns(
+            lambda: rs.routed_levels_matvec(X, idx, V, full),
+            lambda: rs.routed_levels_matvec(X, idx, V), device_ms)
+        t = (new_ms, device_ms(lambda: rs.routed_levels_matvec_plain(X, idx, V),
+                               calls=5),
+             device_ms(lambda: M @ Xf),
+             bound(idx.nbytes + V.nbytes + X.nbytes + G * W * 4, 2 * slots))
+        micro[tag] = {"ms": t[0], "level_split_ms": split_ms,
+                      "plain_ms": t[1], "library_ms": t[2],
                       "bound_ms": t[3][0], "ns_per_slot": t[0] * 1e6 / slots,
-                      "max_abs_err": err}
-        log(f"[phase 11d] 14a {tag}: kernel {t[0]:.4f} ms "
-            f"({t[0] * 1e6 / slots:.4f} ns/slot), plain {t[1]:.4f} ms, CSR "
-            f"@ {t[2]:.4f} ms, bound {t[3][0]:.4f} ms")
+                      "max_abs_err": err, "bits_level_split": same}
+        log(f"[phase 11d] 14a {tag}: kernel (routed_levels_prev_kernel) "
+            f"{t[0]:.4f} ms ({t[0] * 1e6 / slots:.4f} ns/slot), the "
+            f"level-split kernel (full mask) {split_ms:.4f} ms "
+            f"({split_ms / t[0]:.3f}x, in turns; bit for bit: {same}), plain "
+            f"{t[1]:.4f} ms, CSR @ {t[2]:.4f} ms, bound {t[3][0]:.4f} ms")
         if (S, W, G) == MICRO_MAIN:
             _, n14a = counted_call(
                 torch, cnt, lambda: rs.routed_levels_matvec(X, idx, V),
                 "routed_levels", "phase 11d 14a")
             entries.append(spmv_entry("routed_levels_t1", n14a, err, t, {
-                "shape": {"S": S, "W": W, "G": G}, "micro": micro}))
-        del X, idx, V, M, Xf
+                "kernel": "routed_levels_prev_kernel",
+                "shape": {"S": S, "W": W, "G": G},
+                "level_split_ms": split_ms, "micro": micro}))
+        del X, idx, V, M, Xf, full
     torch.cuda.empty_cache()
 
-    # Row 14b: route levels at S = 8, W = 12544.
-    t0 = time.perf_counter()
-    RL = rs.route_levels(Pc, ROUTE_S, ROUTE_W, DEVICE)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    G, T, S, W = RL.idxJ.shape
-    slots = G * T * S * W
-    t0 = time.perf_counter()
-    n_tiles, _ = rs.chunk_tile_census(Pc, ROUTE_S)
-    log(f"[phase 11d] 14b route levels S={S} W={W}: T={T}, groups={G}, "
-        f"slots {slots} ({slots / 1e6:.2f} M), fill {nnz / slots:.3f}, "
-        f"idxJ + V {(RL.idxJ.nbytes + RL.V.nbytes) / 1e6:.1f} MB, packed in "
-        f"{pack_s:.2f} s; the 128-wide census: {n_tiles} tiles, "
-        f"{n_tiles / nnz:.2f} a nnz ({time.perf_counter() - t0:.2f} s)")
-    X = torch.nn.functional.pad(x, (0, S * W - SPARSE_N)).reshape(W, S).T
-    X = X.contiguous()
-    err = compare("routed_levels", rs.routed_levels_matvec(X, RL.idxJ, RL.V),
-                  rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V), failures,
-                  "phase 11d")
-    y, n14b = counted_call(torch, cnt, lambda: rs.routed_matvec(RL, x),
-                           "routed_levels", "phase 11d 14b routed_matvec")
-    rel = against_scipy("routed_matvec", y)
-    t = spmv_times(lambda: rs.routed_levels_matvec(X, RL.idxJ, RL.V),
-                   lambda: rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V),
-                   lambda: Pt @ x, slots, nnz,
-                   RL.idxJ.nbytes + RL.V.nbytes + X.nbytes + G * W * 4,
-                   2 * slots)
-    mv_ms = device_ms(lambda: rs.routed_matvec(RL, x))
-    log(f"[phase 11d] 14b: kernel {t[0]:.4f} ms ({t[0] * 1e6 / slots:.4f} "
-        f"ns/slot, {t[0] * 1e6 / nnz:.4f} ns/nnz), whole matvec "
-        f"{mv_ms:.4f} ms, plain {t[1]:.4f} ms, CSR P @ x {t[2]:.4f} ms, "
-        f"bound {t[3][0]:.4f} ms (streamed bytes)")
-    entries.append(spmv_entry("routed_levels", n14b, err, t, {
-        "library_call": "CSR P @ x", "matvec_ms": mv_ms,
-        "rel_err_scipy": rel, "T": T, "slots": slots, "fill": nnz / slots,
-        "pack_s": pack_s, "ns_per_slot": t[0] * 1e6 / slots,
-        "ns_per_nnz": t[0] * 1e6 / nnz,
-        "census_tiles_per_nnz": n_tiles / nnz}))
-    del RL, X, y
-    torch.cuda.empty_cache()
-
-    # Row 15: row routed, then the one-hot block sum (one FP32 product).
-    t0 = time.perf_counter()
-    RR = rs.row_routed(Pc, DEVICE)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    R, Wd = RR.idx.shape
-    slots = R * Wd
-    log(f"[phase 11d] 15 row routed: R={R} rows (L_max={RR.L}, "
-        f"{RR.n_win} windows), slots {slots} ({slots / nnz:.1f}x nnz), "
-        f"idx + V {(RR.idx.nbytes + RR.V.nbytes) / 1e6:.0f} MB, Ssum "
-        f"{tuple(RR.Ssum.shape)} {RR.Ssum.nbytes / 1e9:.2f} GB, packed in "
-        f"{pack_s:.2f} s")
-    Xw = torch.nn.functional.pad(x, (0, RR.n_win * Wd - SPARSE_N))
-    Xw = Xw.reshape(RR.n_win, Wd)
-    k = rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L)
-    pl = rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L)
-    err = compare("row_routed_rows", k, pl, failures, "phase 11d")
-    log(f"[phase 11d] row_routed_rows bit for bit its plain version: "
-        f"{torch.equal(k, pl)}")
-    del k, pl
-    y, n15 = counted_call(torch, cnt, lambda: rs.row_routed_matvec(RR, x),
-                          "row_routed_rows", "phase 11d 15 row_routed_matvec")
-    rel = against_scipy("row_routed_matvec", y)
-    t = spmv_times(lambda: rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L),
-                   lambda: rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L),
-                   lambda: Pt @ x, slots, nnz,
-                   RR.idx.nbytes + RR.V.nbytes + Xw.nbytes + slots * 4, slots)
-    mv_ms = device_ms(lambda: rs.row_routed_matvec(RR, x), calls=5)
-    log(f"[phase 11d] 15: kernel {t[0]:.4f} ms ({t[0] * 1e6 / slots:.4f} "
-        f"ns/slot, {t[0] * 1e6 / nnz:.4f} ns/nnz), whole matvec with the "
-        f"block sum {mv_ms:.4f} ms, plain {t[1]:.4f} ms, CSR P @ x "
-        f"{t[2]:.4f} ms, bound {t[3][0]:.4f} ms (streamed bytes)")
-    entries.append(spmv_entry("row_routed_rows", n15, err, t, {
-        "library_call": "CSR P @ x", "matvec_ms": mv_ms,
-        "rel_err_scipy": rel, "R": R, "L_max": RR.L, "slots": slots,
-        "fill": nnz / slots, "pack_s": pack_s,
-        "ns_per_slot": t[0] * 1e6 / slots, "ns_per_nnz": t[0] * 1e6 / nnz}))
-    del RR, Xw, y
-    torch.cuda.empty_cache()
+    res = {"P": routed_case(torch, rs, cnt, "P", Pc, failures)}
+    res["banded"] = routed_case(torch, rs, cnt, "banded", laplacian_2d(BAND_K),
+                                failures)
+    for name in ("routed_levels", "routed_levels_prev", "row_routed_blocks",
+                 "row_routed_rows"):
+        e = res["P"][name]
+        entries.append(spmv_entry(name, e.pop("launches"), e.pop("err"),
+                                  e.pop("times"), {
+                                      **e, "library_call": "CSR P @ x",
+                                      "banded": {k: v for k, v in
+                                                 res["banded"][name].items()
+                                                 if k != "times"}}))
     require(not failures, "; ".join(failures))
     return entries
 

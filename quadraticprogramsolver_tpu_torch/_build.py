@@ -61,8 +61,10 @@ _SIGNATURES = {
     "qps_prox_chunk_minv_cluster_occupancy": (_I, _I, _I, _P),
     "qps_ell_matvec": (_P,) * 4 + (_I, _I, _P),
     "qps_ell_matvec_prev": (_P,) * 4 + (_I, _I, _P),
-    "qps_routed_levels": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "qps_routed_levels": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "qps_routed_levels_prev": (_P,) * 4 + (_I,) * 5 + (_P,),
     "qps_row_routed": (_P,) * 4 + (_L, _I, _I, _P),
+    "qps_row_routed_blocks": (_P,) * 7 + (_I, _I, _P),
 }
 
 

@@ -821,7 +821,11 @@ def _config(dev, n):
 def test_spmv_kernels_match_plain_on_card(dev, n):
     """Rows 13, 14 and 15 against their plain versions (TOL) at a small
     size and at config 4 (n = 1e5), one launch counted per call; the routed
-    matvecs against scipy in f64 (the probes' 1e-6)."""
+    matvecs against scipy in f64 (the probes' 1e-6). The redesigns against
+    their witnesses: the masked and unmasked route levels bit for bit
+    routed_levels_prev (at S = 8, the unrolled path, and at S = 4 and 16,
+    the looped one); the fused row-routed matvec within 1e-6 of max|y|
+    of the witness rows summed by index_add_, the same bits on two calls."""
     import numpy as np
 
     from quadraticprogramsolver_tpu_torch.ops import routed_spmv as rs
@@ -849,15 +853,48 @@ def test_spmv_kernels_match_plain_on_card(dev, n):
     X = torch.nn.functional.pad(x, (0, RL.S * RL.W - n)).reshape(RL.W, RL.S)
     X = X.T.contiguous()
     before = rs.routed_levels_matvec.launches
-    assert _close(rs.routed_levels_matvec(X, RL.idxJ, RL.V),
-                  rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V))
+    dense = rs.routed_levels_matvec(X, RL.idxJ, RL.V)
+    assert _close(dense, rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V))
     assert scipy_close(rs.routed_matvec(RL, x))
     assert rs.routed_levels_matvec.launches == before + 2
+    masked = rs.routed_levels_matvec(X, RL.idxJ, RL.V, RL.mask)
+    assert rs.routed_levels_matvec.launches == before + 3
+    before = rs.routed_levels_prev.launches
+    prev = rs.routed_levels_prev(X, RL.idxJ, RL.V)
+    assert rs.routed_levels_prev.launches == before + 1
+    assert torch.equal(dense, prev) and torch.equal(masked, prev)
+    # The level-split kernel's looped path (S other than 8), over several
+    # levels: at S = 4 more than one round of level groups (T > 16 at n =
+    # 1e5), at S = 16 one part-filled round.
+    for S in (4, 16):
+        RL = rs.route_levels(Pc, S, -(-n // (S * 128)) * 128, dev)
+        assert RL.idxJ.shape[1] > 1
+        X = torch.nn.functional.pad(x, (0, RL.S * RL.W - n)).reshape(RL.W, S)
+        X = X.T.contiguous()
+        prev = rs.routed_levels_prev(X, RL.idxJ, RL.V)
+        assert torch.equal(rs.routed_levels_matvec(X, RL.idxJ, RL.V), prev)
+        assert torch.equal(rs.routed_levels_matvec(X, RL.idxJ, RL.V, RL.mask),
+                           prev)
+        assert _close(prev, rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V))
+    del RL, X, prev
     RR = rs.row_routed(Pc, dev)
     Xw = torch.nn.functional.pad(x, (0, RR.n_win * 128 - n)).reshape(RR.n_win, 128)
-    assert torch.equal(rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L),
-                       rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L))
+    rows = rs.row_routed_rows(Xw, RR.idx, RR.V, RR.L)
+    assert torch.equal(rows, rs.row_routed_rows_plain(Xw, RR.idx, RR.V, RR.L))
+    wit = rs.block_sum(rows, RR.order, RR.blk_ptr)
+    before = rs.row_routed_blocks.launches
+    y_blk = rs.row_routed_blocks(Xw, RR.idx, RR.V, RR.mask, RR.order,
+                                 RR.blk_ptr, RR.L)
+    assert rs.row_routed_blocks.launches == before + 1
+    assert torch.equal(y_blk, rs.row_routed_blocks(
+        Xw, RR.idx, RR.V, RR.mask, RR.order, RR.blk_ptr, RR.L))
+    assert float((y_blk - wit).abs().max()) <= 1e-6 * float(wit.abs().max())
+    assert _close(y_blk, rs.row_routed_blocks_plain(
+        Xw, RR.idx, RR.V, RR.mask, RR.order, RR.blk_ptr, RR.L))
+    before = (rs.row_routed_blocks.launches, rs.row_routed_rows.launches)
     assert scipy_close(rs.row_routed_matvec(RR, x))
+    assert (rs.row_routed_blocks.launches, rs.row_routed_rows.launches) == (
+        before[0] + 1, before[1])
     # The square micro kernel (one level), at two of the probe's shapes.
     for S, W, G in ((8, 256, 96), (784, 128, 64)):
         X = torch.randn((S, W), generator=g, device=dev)
@@ -869,6 +906,8 @@ def test_spmv_kernels_match_plain_on_card(dev, n):
 
 
 def test_spmv_kernels_refuse_what_they_do_not_take(dev):
+    import numpy as np
+
     from quadraticprogramsolver_tpu_torch.ops import routed_spmv as rs
     from quadraticprogramsolver_tpu_torch.ops import spmv
 
@@ -894,6 +933,43 @@ def test_spmv_kernels_refuse_what_they_do_not_take(dev):
                 (Xw, r_idx, r_V, 1)):
         with pytest.raises(ValueError):
             rs.row_routed_rows(*bad)
+    # The masked route levels: a mask of another dtype or shape.
+    mask = _u32(np.full((4, 1, 8, 4), 2 ** 32 - 1), dev)
+    assert torch.equal(rs.routed_levels_matvec(X, idx, V, mask),
+                       rs.routed_levels_matvec(X, idx, V))
+    for bad in (mask.view(torch.int32), mask[..., :3], mask[:, :, :4]):
+        with pytest.raises(ValueError):
+            rs.routed_levels_matvec(X, idx, V, bad)
+    with pytest.raises(ValueError):
+        rs.routed_levels_prev(X, idx.long(), V)
+    # The fused row-routed matvec: wrong dtypes or shapes of the mask and
+    # the index, a width other than 128, a misaligned operand.
+    r_mask = _u32(np.zeros((8, 4)), dev)
+    order = torch.arange(8, device=dev, dtype=torch.int32)
+    ptr = torch.tensor([0, 4, 8], device=dev, dtype=torch.int32)
+    ok = (Xw, r_idx, r_V, r_mask, order, ptr, 2)
+    assert not rs.row_routed_blocks(*ok).any()
+    for pos, bad in ((3, r_mask.view(torch.int32)), (3, r_mask[:, :3]),
+                     (3, r_mask[:4]), (4, order.long()), (4, order[None]),
+                     (5, ptr.long()), (5, ptr[None]), (0, Xw.double()),
+                     (1, r_idx.long()), (0, Xw[:, :64]), (1, r_idx[:, :64]),
+                     (6, 1)):
+        args = list(ok)
+        args[pos] = bad
+        with pytest.raises(ValueError):
+            rs.row_routed_blocks(*args)
+    shifted = torch.empty(129, device=dev)[1:].reshape(1, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        rs.row_routed_blocks(shifted, r_idx[:2], r_V[:2], r_mask[:2],
+                             order[:2], ptr[:2] // 2, 2)
+
+
+def _u32(a, dev):
+    """A uint32 tensor on the card from numpy values (a host copy: the
+    card's uint32 support is copies and views)."""
+    import numpy as np
+
+    return torch.from_numpy(np.asarray(a).astype(np.uint32)).to(dev)
 
 
 def test_sparse_solve_on_card(dev):

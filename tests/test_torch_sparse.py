@@ -11,6 +11,9 @@ the plain versions of the SpMV kernels of rows 13-15: row 13 against JAX's
 plain version here), the plain matvecs against scipy (f64,
 1e-12) and against the probe kernels' bodies, restated in jnp and run
 eagerly (the probes' Pallas kernels are closures inside their ``main()``).
+The routing kernels' device index (the occupancy masks, the row-routed
+block-major order) against the packs, and the plain versions of the fused
+row-routed matvec and the masked route levels.
 """
 
 import dataclasses
@@ -441,3 +444,126 @@ def test_row_routed_plain_matches_the_probe_kernel(data):
     np.add.at(y, b_of_row, want)
     assert np.abs(y.reshape(-1)[:N] - Pc @ x).max() <= 1e-12
 
+
+
+# -- the routing kernels' device index and masked plain versions --
+
+def _with_explicit_zeros(M):
+    """M with a few stored entries set to explicit zeros (kept in CSR)."""
+    M = M.tocsr().copy()
+    M.data[::7] = 0.0
+    return M
+
+
+def _used_rows(idx_V_b):
+    """The packer's used rows: slot r % L of window r // L is below that
+    window's row count (the rows it numbered), from pack_row_routed's
+    layout; the rest are padding."""
+    V, b_of_row, R, L, n_win = idx_V_b
+    rows = np.arange(R)
+    counts = np.zeros(n_win, np.int64)
+    filled = np.flatnonzero(np.any(V != 0, axis=1))
+    np.maximum.at(counts, filled // L, filled % L + 1)
+    return rows[(rows % L) < counts[rows // L]]
+
+
+@pytest.mark.parametrize("which", ["P", "A"])
+def test_row_routed_index_covers_every_used_row_once(data, which):
+    """The block-major order and blk_ptr list every used row once, block by
+    block, ascending r within each block, padding rows left out."""
+    M = getattr(data, which).tocsr()
+    idx, V, b_of_row, R, L, n_win, n_blk = rs.pack_row_routed(M, np.float64)
+    mask, order, blk_ptr = rs.row_routed_index(V, b_of_row, n_blk)
+    used = _used_rows((V, b_of_row, R, L, n_win))
+    assert order.dtype == np.int32 and blk_ptr.dtype == np.int32
+    assert blk_ptr.shape == (n_blk + 1,) and blk_ptr[0] == 0
+    assert blk_ptr[-1] == len(order) == len(used) < R
+    np.testing.assert_array_equal(np.sort(order), used)
+    for b in range(n_blk):
+        rows = order[blk_ptr[b]:blk_ptr[b + 1]]
+        assert np.all(np.diff(rows) > 0)
+        assert np.all(b_of_row[rows] == b)
+    padding = np.setdiff1d(np.arange(R), used)
+    assert not V[padding].any() and not b_of_row[padding].any()
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+def test_occupancy_masks_match_the_packs(data, zeros):
+    """Each mask bit is set exactly where the pack put a nonzero (an
+    explicit zero of P leaves its bit clear), for the row-routed pack (R, 4),
+    the route levels (G, T, S, W / 32) and a width that is not a multiple
+    of 32."""
+    M = _with_explicit_zeros(data.P) if zeros else data.P.tocsr()
+    _, V, b_of_row, R, _, _, n_blk = rs.pack_row_routed(M, np.float64)
+    mask, _, _ = rs.row_routed_index(V, b_of_row, n_blk)
+    assert mask.dtype == np.uint32 and mask.shape == (R, 4)
+    bits = (mask[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    np.testing.assert_array_equal(bits.reshape(R, 128).astype(bool), V != 0)
+    for S, W in ((8, rs.probe_width(N)), (4, 100)):
+        if S * W < N:
+            continue
+        _, Vl, T, ng = rs.pack_route_levels(M, S, W, np.float64)
+        m = rs.occupancy_mask(Vl)
+        assert m.shape == (ng, T, S, -(-W // 32))
+        got = rs.mask_bits(torch.from_numpy(m), W).numpy()
+        np.testing.assert_array_equal(got, Vl != 0)
+    if zeros:
+        assert (M.data == 0).any() and (V != 0).sum() == M.count_nonzero()
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+def test_row_routed_blocks_plain_matches_the_probe_rows_and_scipy(data, zeros):
+    """The plain fused matvec in f64 equals row_routed_probe.py:204-209's
+    rows (restated in jnp) summed with np.add.at, and scipy, within 1e-12;
+    row_routed_matvec runs it here and launches nothing."""
+    M = _with_explicit_zeros(data.P) if zeros else data.P.tocsr()
+    idx, V, b_of_row, R, L, n_win, n_blk = rs.pack_row_routed(M, np.float64)
+    mask, order, blk_ptr = rs.row_routed_index(V, b_of_row, n_blk)
+    x = np.random.default_rng(6).standard_normal(N)
+    Xw = np.pad(x, (0, n_win * 128 - N)).reshape(n_win, 128)
+    src = jnp.repeat(jnp.asarray(Xw), L, axis=0)
+    rows = np.asarray(jnp.asarray(V) * jnp.take_along_axis(
+        src, jnp.asarray(idx), axis=1))
+    want = np.zeros((n_blk, 128))
+    np.add.at(want, b_of_row, rows)
+    got = rs.row_routed_blocks(*(torch.from_numpy(a) for a in
+                                 (Xw, idx, V, mask, order, blk_ptr)), L)
+    assert got.dtype == torch.float64 and got.shape == (n_blk, 128)
+    assert np.abs(got.numpy() - want).max() <= 1e-12
+    assert np.abs(got.numpy().reshape(-1)[:N] - M @ x).max() <= 1e-12
+    rs.row_routed_blocks.launches = rs.row_routed_rows.launches = 0
+    y = rs.row_routed_matvec(M, torch.tensor(x))
+    assert np.abs(y.numpy() - M @ x).max() <= 1e-12
+    assert rs.row_routed_blocks.launches == rs.row_routed_rows.launches == 0
+
+
+@pytest.mark.parametrize("zeros", [False, True])
+def test_masked_route_levels_plain_is_the_unmasked_one(data, zeros):
+    """The masked route-level plain version equals the unmasked one bit for
+    bit in f64 (clear slots hold zeros; x is finite), on config 4's P packed
+    at the probe's S, W and at a small W, and on the probe's micro shapes'
+    full occupancy; routed_levels_prev runs the unmasked plain version here
+    and launches nothing."""
+    M = _with_explicit_zeros(data.P) if zeros else data.P.tocsr()
+    x = torch.tensor(np.random.default_rng(7).standard_normal(N))
+    for S, W in ((8, rs.probe_width(N)), (4, 128)):
+        RL = rs.route_levels(M, S, W, "cpu", torch.float64)
+        X = torch.nn.functional.pad(x, (0, S * W - N)).reshape(W, S).T
+        X = X.contiguous()
+        plain = rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V)
+        assert torch.equal(
+            rs.routed_levels_matvec_plain(X, RL.idxJ, RL.V, RL.mask), plain)
+        assert torch.equal(rs.routed_levels_matvec(X, RL.idxJ, RL.V, RL.mask),
+                           plain)
+        rs.routed_levels_prev.launches = 0
+        assert torch.equal(rs.routed_levels_prev(X, RL.idxJ, RL.V), plain)
+        assert rs.routed_levels_prev.launches == 0
+        assert np.abs(rs.routed_matvec(RL, x).numpy() - M @ x.numpy()).max() <= 1e-12
+    rng = np.random.default_rng(8)
+    V = torch.tensor(rng.standard_normal((3, 8, 128)))
+    idx = torch.tensor(rng.integers(0, 128, (3, 8, 128)).astype(np.int32))
+    X = torch.tensor(rng.standard_normal((8, 128)))
+    m = torch.from_numpy(rs.occupancy_mask(V.numpy()))
+    assert int(m.to(torch.int64).min()) == 2 ** 32 - 1
+    assert torch.equal(rs.routed_levels_matvec_plain(X, idx, V, m),
+                       rs.routed_levels_matvec_plain(X, idx, V))
