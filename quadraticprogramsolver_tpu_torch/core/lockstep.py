@@ -12,7 +12,8 @@ int32 and all-reduced with MAX over the solve's process group before they
 are read, so every rank takes the same branch and none can wait alone in a
 collective. For a fleet this is JAX's global predicate: every rank runs as
 many checks as its slowest shard, with the same refactor decisions. Outside
-:func:`lockstep` the read is the plain ``tolist()``.
+:func:`lockstep` the read is the plain ``tolist()``. Every read is a
+``qps.sync`` span (utils/profiling.py) in a trace.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import contextlib
 import contextvars
 
 import torch
+
+from ..utils.profiling import span
 
 _GROUP = contextvars.ContextVar("quadraticprogramsolver_lockstep_group",
                                 default=None)
@@ -40,11 +43,12 @@ def lockstep(group):
 def read_flags(flags: torch.Tensor) -> list[bool]:
     """The loop's one host read of a 1-D bool tensor: each flag OR-ed over
     the ranks of the enclosing :func:`lockstep` group."""
-    group = _GROUP.get()
-    if group is None:
-        return flags.tolist()
-    import torch.distributed as dist
+    with span("qps.sync"):
+        group = _GROUP.get()
+        if group is None:
+            return flags.tolist()
+        import torch.distributed as dist
 
-    agreed = flags.to(torch.int32)
-    dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=group)
-    return [bool(v) for v in agreed.tolist()]
+        agreed = flags.to(torch.int32)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=group)
+        return [bool(v) for v in agreed.tolist()]

@@ -19,9 +19,13 @@ on the fused path), one convergence check on the device, and ONE
 device-to-host sync that reads "any lane still running" together with "any
 lane's rho tripped" (``_solve_core.syncs`` counts them; in a distributed
 solve the ranks agree on it, core/lockstep.py). Lanes that finished are
-frozen by masking. The KKT backend (models/kkt.py) is CHOLESKY for dense
-problems or CG, the matrix-free path of a :class:`~..core.sparse_problem.
-SparseQP`; CG's inner loop reads its own flag once per step (``kkt._pcg``).
+frozen by masking. In a torch.profiler trace each layer is a span
+(utils/profiling.py): ``qps.solve`` around :func:`solve`, and ``qps.pad``,
+``qps.factor``, ``qps.chunk``, ``qps.anderson``, ``qps.check``,
+``qps.sync`` and ``qps.polish`` inside it. The KKT backend (models/kkt.py)
+is CHOLESKY for dense problems or CG, the matrix-free path of a
+:class:`~..core.sparse_problem.SparseQP`; CG's inner loop reads its own
+flag once per step (``kkt._pcg``).
 
 ``solve(..., scaling=)`` takes a problem pre-scaled by Ruiz equilibration
 (models/scaling.py: ``equilibrate_sparse_host``); ``Settings.scaling_iters``
@@ -50,6 +54,7 @@ from ..core.lockstep import read_flags
 from ..core.state import SolveInfo, Solution, SolverState, Status
 from ..ops.linalg import (inf_norm, kernel_dtype_ok, mm, mv, products,
                           spd_inverse)
+from ..utils.profiling import span
 from . import anderson as anderson_mod
 from . import kkt as kkt_mod
 from .plan import check_require_fused, plan as plan_fn
@@ -67,15 +72,17 @@ def _init_state(qp: QP, settings: Settings, backend, x0=None, z0=None,
     x = torch.zeros(batch + (qp.n,), **kw) if x0 is None else _as_tensor(x0, qp)
     z = torch.zeros(batch + (qp.m,), **kw) if z0 is None else _as_tensor(z0, qp)
     y = torch.zeros(batch + (qp.m,), **kw) if y0 is None else _as_tensor(y0, qp)
-    if prepared is not None:
-        # The factor is valid only at its own rho; the q-dependent part of
-        # the cache is refreshed here (one batched product).
-        rho = _as_tensor(prepared.rho, qp).expand(batch).clone()
-        cache = prepared.materialize(qp)
-    else:
-        rho = (torch.full(batch, settings.rho, **kw) if rho0 is None
-               else _as_tensor(rho0, qp).expand(batch).clone())
-        cache = backend.init(qp, rho, settings.sigma_for(qp.dtype), settings)
+    with span("qps.factor"):
+        if prepared is not None:
+            # The factor is valid only at its own rho; the q-dependent part
+            # of the cache is refreshed here (one batched product).
+            rho = _as_tensor(prepared.rho, qp).expand(batch).clone()
+            cache = prepared.materialize(qp)
+        else:
+            rho = (torch.full(batch, settings.rho, **kw) if rho0 is None
+                   else _as_tensor(rho0, qp).expand(batch).clone())
+            cache = backend.init(qp, rho, settings.sigma_for(qp.dtype),
+                                 settings)
     history = None
     if settings.record_history:
         history = {k: torch.full((settings.num_checks,) + batch, float("inf"),
@@ -344,9 +351,10 @@ def _maybe_refactor(qp: QP, settings: Settings, backend, state: SolverState,
     """
     if not (any_tripped or backend.cheap_refactor):
         return state
-    rho = torch.where(tripped, state.rho_cand, state.rho)
-    cache = backend.refactor(state.kkt_cache, qp, rho,
-                             settings.sigma_for(qp.dtype), settings)
+    with span("qps.factor"):
+        rho = torch.where(tripped, state.rho_cand, state.rho)
+        cache = backend.refactor(state.kkt_cache, qp, rho,
+                                 settings.sigma_for(qp.dtype), settings)
     # A re-adopted rho changes the Anderson encoding w = z + y/rho and the
     # map itself: the lane's history restarts.
     aa = anderson_mod.reset_aa(state.aa, tripped)
@@ -377,23 +385,27 @@ def _solve_core(qp: QP, settings: Settings, x0, z0, y0, rho0,
         if tripped is not None:
             state = _maybe_refactor(qp, settings, backend, state, tripped,
                                     flags[1])
-        x, z, y, xp, zp, cache, prods = _run_chunk(qp, settings, backend,
-                                                   state)
+        with span("qps.chunk"):
+            x, z, y, xp, zp, cache, prods = _run_chunk(qp, settings, backend,
+                                                       state)
         aa_accept = None
         if settings.anderson_memory > 0:
-            x, z, y, prods, aa, aa_accept = anderson_mod.aa_step(
-                qp, settings, state, x, z, y, prods, term_scale)
+            with span("qps.anderson"):
+                x, z, y, prods, aa, aa_accept = anderson_mod.aa_step(
+                    qp, settings, state, x, z, y, prods, term_scale)
             state = dataclasses.replace(state, aa=aa)
         state = dataclasses.replace(state, kkt_cache=cache)
-        state = _check_convergence(qp, settings, state, x, z, y, xp, zp,
-                                   term_scale, prods, aa_accept)
+        with span("qps.check"):
+            state = _check_convergence(qp, settings, state, x, z, y, xp, zp,
+                                       term_scale, prods, aa_accept)
 
     exhausted = state.status == Status.RUNNING
     status = state.status.masked_fill(exhausted, int(Status.MAX_ITERATIONS))
     iterations = state.iterations.masked_fill(exhausted, state.iteration)
     x, y = state.x, state.y
     if settings.polish_iterations > 0:
-        x, y = polish_fn(qp, settings, x, state.z, y, state.rho)
+        with span("qps.polish"):
+            x, y = polish_fn(qp, settings, x, state.z, y, state.rho)
         objective = qp.objective(x)
     elif state.products is not None:
         # Px was computed at the final check for this exact x.
@@ -473,13 +485,14 @@ def _at_matmul_precision(fn):
 def _with_lanes(qp: QP) -> QP:
     """qp with every tensor carrying the fleet's batch axes, for the kernels
     that read one matrix a lane (a P or A shared by the fleet is stored
-    once; this costs B copies of it)."""
+    once; this costs B copies of it, a ``qps.pad`` span)."""
     batch = qp.batch_shape
     if all(t.shape[: len(batch)] == batch and t.dim() == len(batch) + k
            for t, k in zip(qp.tensors(), (2, 1, 2, 1, 1))):
         return qp
-    return QP(*(t.expand(batch + tuple(t.shape[-k:])).contiguous()
-                for t, k in zip(qp.tensors(), (2, 1, 2, 1, 1))))
+    with span("qps.pad"):
+        return QP(*(t.expand(batch + tuple(t.shape[-k:])).contiguous()
+                    for t, k in zip(qp.tensors(), (2, 1, 2, 1, 1))))
 
 
 @_at_matmul_precision
@@ -508,31 +521,37 @@ def solve(qp, settings: Settings = Settings(), x0=None, z0=None, y0=None,
     ``settings.matmul_precision`` inside (:func:`~..ops.linalg.products`),
     the factor's at ``factor_precision``; TF32 stays off.
     """
-    if prepared is not None and (scaling is not None or settings.scaling_iters):
-        raise ValueError("prepared factors cannot be combined with scaling "
-                         "(equilibration rescales P/A, invalidating them)")
-    if qp.is_dense:
-        qp = QP(*(t.contiguous() for t in qp.tensors()))  # what the kernels take
-    p = plan_fn(qp, settings, prepared=prepared is not None)
-    if settings.require_fused:
-        check_require_fused(p, "ADMM")
-    if qp.is_dense and (p.chunk == "fused_kernel" or p.factor == "fused_slab"):
-        qp = _with_lanes(qp)
-    if p.padded is not None and scaling is None and prepared is None:
-        n_pad, m_pad = p.padded
+    with span("qps.solve"):
+        if prepared is not None and (scaling is not None
+                                     or settings.scaling_iters):
+            raise ValueError("prepared factors cannot be combined with "
+                             "scaling (equilibration rescales P/A, "
+                             "invalidating them)")
+        if qp.is_dense:  # contiguous: what the kernels take
+            qp = QP(*(t.contiguous() for t in qp.tensors()))
+        p = plan_fn(qp, settings, prepared=prepared is not None)
+        if settings.require_fused:
+            check_require_fused(p, "ADMM")
+        if qp.is_dense and (p.chunk == "fused_kernel"
+                            or p.factor == "fused_slab"):
+            qp = _with_lanes(qp)
+        if p.padded is not None and scaling is None and prepared is None:
+            n_pad, m_pad = p.padded
 
-        def vpad(v, w):
-            if v is None:
-                return None
-            v = _as_tensor(v, qp)
-            return torch.nn.functional.pad(v, (0, w - v.shape[-1]))
+            def vpad(v, w):
+                if v is None:
+                    return None
+                v = _as_tensor(v, qp)
+                return torch.nn.functional.pad(v, (0, w - v.shape[-1]))
 
-        sol = _solve_impl(pad_qp(qp, n_pad, m_pad), settings, vpad(x0, n_pad),
-                          vpad(z0, m_pad), vpad(y0, m_pad), rho0)
-        return Solution(x=sol.x[..., : qp.n], z=sol.z[..., : qp.m],
-                        y=sol.y[..., : qp.m], info=sol.info)
-    return _solve_impl(qp, settings, x0, z0, y0, rho0, scaling,
-                       prepared=prepared)
+            with span("qps.pad"):
+                padded = pad_qp(qp, n_pad, m_pad)
+                x0, z0, y0 = vpad(x0, n_pad), vpad(z0, m_pad), vpad(y0, m_pad)
+            sol = _solve_impl(padded, settings, x0, z0, y0, rho0)
+            return Solution(x=sol.x[..., : qp.n], z=sol.z[..., : qp.m],
+                            y=sol.y[..., : qp.m], info=sol.info)
+        return _solve_impl(qp, settings, x0, z0, y0, rho0, scaling,
+                           prepared=prepared)
 
 
 #: PyTorch runs eagerly; the alias keeps the JAX package's call sites.

@@ -29,7 +29,9 @@ know something (whether any lane still runs under ``early_exit``, whether any
 lane's rho tripped), it reads both in ONE device-to-host sync at the top of
 the next pass (agreed across the ranks of a distributed solve,
 core/lockstep.py); ``lax.cond(any(trip))`` becomes a host ``if`` on that
-flag.
+flag. ``_solve_impl.syncs`` counts those reads and ``_solve_impl.solves`` the
+solves; in a torch.profiler trace each layer is a span (utils/profiling.py),
+as in models/admm.py.
 
 The matrix-free path takes a :class:`~..core.sparse_problem.SparseProxQP`
 (operator protocol; every product the ELL kernel, or CSR): the x-update is
@@ -54,6 +56,7 @@ from ..ops.fused_proxqp import (fused_proxqp_chunk, fused_proxqp_chunk_minv,
                                 fused_proxqp_chunk_plain)
 from ..ops.linalg import (add_scaled_identity, fp32_products, inf_norm,
                           kernel_dtype_ok, matvec, spd_inverse, spd_solve)
+from ..utils.profiling import span
 from . import anderson as anderson_mod
 from .kkt import _pcg
 from .plan import check_require_fused, plan_proxqp
@@ -272,12 +275,13 @@ def solve(prob, settings: ProxQPSettings = ProxQPSettings(),
     (:func:`~..ops.linalg.fp32_products`), here and in :func:`prepare`.
     """
     _require_problem(prob)
-    if prob.is_dense:
-        prob = ProxQPProblem(*(t.contiguous() for t in prob.tensors()))
-    p = plan_proxqp(prob, settings, prepared=prepared is not None)
-    if settings.require_fused:
-        check_require_fused(p, "prox-ALM")
-    return _solve_impl(prob, settings, init, rho0, prepared, p)
+    with span("qps.solve"):
+        if prob.is_dense:
+            prob = ProxQPProblem(*(t.contiguous() for t in prob.tensors()))
+        p = plan_proxqp(prob, settings, prepared=prepared is not None)
+        if settings.require_fused:
+            check_require_fused(p, "prox-ALM")
+        return _solve_impl(prob, settings, init, rho0, prepared, p)
 
 
 #: PyTorch runs eagerly; the alias keeps the JAX package's call sites.
@@ -286,6 +290,7 @@ solve_jit = solve
 
 def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
                 prepared, p) -> ProxQPSolution:
+    _solve_impl.solves += 1
     sigma_free = settings.sigma_free_rhs
     if sigma_free and not prob.is_dense:
         raise ValueError("sigma_free_rhs needs a dense ProxQP problem")
@@ -315,11 +320,12 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
     orig_dims = None
     if p.padded is not None:
         orig_dims = (prob.n, prob.n_eq, prob.n_ineq)
-        prob = pad_proxqp(prob, *p.padded)
-        F = torch.nn.functional
-        x, y, s, z = (F.pad(v, (0, w - v.shape[-1])) for v, w in
-                      zip((x, y, s, z), (p.padded[0], p.padded[1],
-                                         p.padded[2], p.padded[2])))
+        with span("qps.pad"):
+            prob = pad_proxqp(prob, *p.padded)
+            F = torch.nn.functional
+            x, y, s, z = (F.pad(v, (0, w - v.shape[-1])) for v, w in
+                          zip((x, y, s, z), (p.padded[0], p.padded[1],
+                                             p.padded[2], p.padded[2])))
 
     if prepared is not None:
         # The factor is valid only at its own rho.
@@ -329,14 +335,18 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
                else torch.as_tensor(rho0, **kw).expand(batch).clone())
 
     def refresh_factor(rho):
-        if sigma_free:
-            return _build_sigma_free_cache(prob, rho, settings)
-        if prob.is_dense:
-            return _build_M_inv(prob, rho, sigma)
-        return _jacobi_inv(prob, rho, sigma)
+        with span("qps.factor"):
+            if sigma_free:
+                return _build_sigma_free_cache(prob, rho, settings)
+            if prob.is_dense:
+                return _build_M_inv(prob, rho, sigma)
+            return _jacobi_inv(prob, rho, sigma)
 
-    factor = (prepared.materialize(prob) if prepared is not None
-              else refresh_factor(rho))
+    if prepared is not None:
+        with span("qps.factor"):
+            factor = prepared.materialize(prob)
+    else:
+        factor = refresh_factor(rho)
 
     fused = p.chunk == "fused_kernel"
     refine = settings.kkt_refinement_steps
@@ -429,80 +439,91 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
             if trip is not None:
                 flags.append(trip.any())
             flags = read_flags(torch.stack(flags))  # the pass's one host sync
+            _solve_impl.syncs += 1
             if settings.early_exit and not flags[0]:
                 break
             if trip is not None and flags[1]:
                 factor = None  # free the old cache before building the new
                 factor = refresh_factor(rho)
 
-        running = status == Status.RUNNING
-        # early_exit freezes every finished lane; without it converged lanes
-        # keep iterating (the reference's full budget) and only infeasible
-        # ones freeze, since their iterates diverge by design.
-        active = (running if settings.early_exit
-                  else status < Status.PRIMAL_INFEASIBLE)
-        x_in, s_in, y_in, z_in = x, s, y, z
-        x, s, y, z = run_chunk(x, s, y, z, rho, factor, active, it)
+        with span("qps.chunk"):
+            running = status == Status.RUNNING
+            # early_exit freezes every finished lane; without it converged
+            # lanes keep iterating (the reference's full budget) and only
+            # infeasible ones freeze, since their iterates diverge by design.
+            active = (running if settings.early_exit
+                      else status < Status.PRIMAL_INFEASIBLE)
+            x_in, s_in, y_in, z_in = x, s, y, z
+            x, s, y, z = run_chunk(x, s, y, z, rho, factor, active, it)
         it += ci
 
-        # PIQP criteria 13a-c.
         if aa is not None:
-            x, s, y, z, pr, aa, _ = anderson_mod.aa_step_proxqp(
-                prob, settings, aa, rho, active, x_in, s_in, y_in, z_in,
-                x, s, y, z)
+            with span("qps.anderson"):
+                x, s, y, z, pr, aa, _ = anderson_mod.aa_step_proxqp(
+                    prob, settings, aa, rho, active, x_in, s_in, y_in, z_in,
+                    x, s, y, z)
             Px, Aty, Ctz, Ax, Cx = (pr[k] for k in ("Px", "Aty", "Ctz",
                                                       "Ax", "Cx"))
-        else:
-            Px, Aty = prob.matvec_P(x), prob.matvec_At(y)
-            Ctz, Ax, Cx = prob.matvec_Ct(z), prob.matvec_A(x), prob.matvec_C(x)
-        res_prim = torch.maximum(inf_norm(Ax - prob.b),
-                                 inf_norm(Cx - prob.d + s))
-        res_dual = inf_norm(Px + Aty + Ctz + prob.q)
-        max_prim = torch.stack([inf_norm(Ax), norm_b, inf_norm(Cx), norm_d,
-                                inf_norm(s)]).amax(0)
-        max_dual = torch.stack([inf_norm(Px), inf_norm(Aty), inf_norm(Ctz),
-                                norm_q]).amax(0)
-        eps_prim_t = settings.eps_abs + settings.eps_rel * max_prim
-        eps_dual_t = settings.eps_abs + settings.eps_rel * max_dual
-        now_conv = (res_prim < eps_prim_t) & (res_dual < eps_dual_t)
-        status = status.masked_fill(running & now_conv, int(Status.SOLVED))
-        if settings.check_infeasibility:
-            status = _certificates(prob, settings, status, running, x, y, z,
-                                   x_in, y_in, z_in, Px, Aty, Ctz, Ax, Cx,
-                                   prods_prev, res_prim, res_dual, eps_prim_t,
-                                   eps_dual_t)
-            prods_prev = {"Px": Px, "Aty": Aty, "Ctz": Ctz, "Ax": Ax, "Cx": Cx}
-        newly = running & (status != Status.RUNNING)
-        iters_done = iters_done.masked_fill(newly, it)
-        res_p = torch.where(active, res_prim, res_p)
-        res_d = torch.where(active, res_dual, res_d)
-        if history is not None:
-            # The rho the chunk ran with (before this check adapts it).
-            idx = it // ci - 1
-            history["res_prim"][idx] = res_prim
-            history["res_dual"][idx] = res_dual
-            history["rho"][idx] = rho
+        with span("qps.check"):
+            # PIQP criteria 13a-c.
+            if aa is None:
+                Px, Aty = prob.matvec_P(x), prob.matvec_At(y)
+                Ctz, Ax = prob.matvec_Ct(z), prob.matvec_A(x)
+                Cx = prob.matvec_C(x)
+            res_prim = torch.maximum(inf_norm(Ax - prob.b),
+                                     inf_norm(Cx - prob.d + s))
+            res_dual = inf_norm(Px + Aty + Ctz + prob.q)
+            max_prim = torch.stack([inf_norm(Ax), norm_b, inf_norm(Cx),
+                                    norm_d, inf_norm(s)]).amax(0)
+            max_dual = torch.stack([inf_norm(Px), inf_norm(Aty),
+                                    inf_norm(Ctz), norm_q]).amax(0)
+            eps_prim_t = settings.eps_abs + settings.eps_rel * max_prim
+            eps_dual_t = settings.eps_abs + settings.eps_rel * max_dual
+            now_conv = (res_prim < eps_prim_t) & (res_dual < eps_dual_t)
+            status = status.masked_fill(running & now_conv,
+                                        int(Status.SOLVED))
+            if settings.check_infeasibility:
+                status = _certificates(
+                    prob, settings, status, running, x, y, z, x_in, y_in,
+                    z_in, Px, Aty, Ctz, Ax, Cx, prods_prev, res_prim,
+                    res_dual, eps_prim_t, eps_dual_t)
+                prods_prev = {"Px": Px, "Aty": Aty, "Ctz": Ctz, "Ax": Ax,
+                              "Cx": Cx}
+            newly = running & (status != Status.RUNNING)
+            iters_done = iters_done.masked_fill(newly, it)
+            res_p = torch.where(active, res_prim, res_p)
+            res_d = torch.where(active, res_dual, res_d)
+            if history is not None:
+                # The rho the chunk ran with (before this check adapts it).
+                idx = it // ci - 1
+                history["res_prim"][idx] = res_prim
+                history["res_dual"][idx] = res_dual
+                history["rho"][idx] = rho
 
-        if settings.adaptive_rho:
-            num = res_prim * max_dual
-            den = res_dual * max_prim
-            ratio = num / torch.where(den == 0, torch.ones_like(den), den)
-            inv = 1.0 / torch.where(ratio == 0, torch.ones_like(ratio), ratio)
-            trip = (active & ratio.isfinite() & (den != 0)
-                    & ((ratio > settings.tau) | (inv > settings.tau)))
-            # Double square root for smoother updates.
-            rho_new = torch.clamp(
-                rho * torch.sqrt(torch.sqrt(
-                    torch.where(trip, ratio, torch.ones_like(ratio)))),
-                settings.rho_min, settings.rho_max)
-            rho = torch.where(trip, rho_new, rho)
-            # rho changes the Anderson encoding u = s - z/rho and the map.
-            aa = anderson_mod.reset_aa(aa, trip)
-            if not prob.is_dense:
-                # The O(n) diagonal is refreshed every check, with no sync
-                # (a lane whose rho did not trip keeps its diagonal).
-                factor = refresh_factor(rho)
-                trip = None
+            if settings.adaptive_rho:
+                num = res_prim * max_dual
+                den = res_dual * max_prim
+                ratio = num / torch.where(den == 0, torch.ones_like(den),
+                                          den)
+                inv = 1.0 / torch.where(ratio == 0, torch.ones_like(ratio),
+                                        ratio)
+                trip = (active & ratio.isfinite() & (den != 0)
+                        & ((ratio > settings.tau) | (inv > settings.tau)))
+                # Double square root for smoother updates.
+                rho_new = torch.clamp(
+                    rho * torch.sqrt(torch.sqrt(
+                        torch.where(trip, ratio, torch.ones_like(ratio)))),
+                    settings.rho_min, settings.rho_max)
+                rho = torch.where(trip, rho_new, rho)
+                # rho changes the Anderson encoding u = s - z/rho and the
+                # map.
+                aa = anderson_mod.reset_aa(aa, trip)
+                if not prob.is_dense:
+                    # The O(n) diagonal is refreshed every check, with no
+                    # sync (a lane whose rho did not trip keeps its
+                    # diagonal).
+                    factor = refresh_factor(rho)
+                    trip = None
 
     status = status.masked_fill(status == Status.RUNNING,
                                 int(Status.MAX_ITERATIONS))
@@ -513,6 +534,10 @@ def _solve_impl(prob: ProxQPProblem, settings: ProxQPSettings, init, rho0,
                       res_prim=res_p, res_dual=res_d, rho=rho, status=status,
                       history=history)
     return ProxQPSolution(x=x, s=s, y=y, z=z, info=info)
+
+
+_solve_impl.syncs = 0
+_solve_impl.solves = 0
 
 
 def _certificates(prob, settings, status, running, x, y, z, x_in, y_in, z_in,

@@ -1,11 +1,15 @@
-"""Tracing and timing helpers (counterpart of the JAX package's
-utils/profiling.py, whose package imports jax).
+"""Tracing helpers (counterpart of the JAX package's utils/profiling.py,
+whose package imports jax).
 
-:func:`trace` records a ``torch.profiler`` trace (host and, where a card is
-present, device activity) and writes it as a Chrome trace, viewable in
-Perfetto or chrome://tracing; :class:`Timer` accumulates wall-clock time
-around blocks that end in :func:`hard_sync`, since the card runs a launch
-after the host has moved on.
+:func:`span` marks a layer of the solve loops (``qps.solve``, ``qps.pad``,
+``qps.factor``, ``qps.chunk``, ``qps.check``, ``qps.sync``,
+``qps.anderson``, ``qps.polish``) as a host event on the profiler's clock,
+and costs one flag read when no profiler runs. :func:`trace` records a
+``torch.profiler`` trace (host and, where a card is present, device
+activity, the spans among them) and writes it as a Chrome trace, viewable
+in Perfetto or chrome://tracing; :func:`hard_sync` waits for the device
+work a result depends on, since the card runs a launch after the host has
+moved on.
 """
 
 from __future__ import annotations
@@ -16,6 +20,26 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+#: What :func:`span` returns while no profiler runs.
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a host event while a
+    torch.profiler runs, and does nothing otherwise.
+
+    The event is a plain host event (``_RecordFunctionFast``), on the clock
+    of the trace's device events, so a device idle gap can be put down to
+    the span the host was in. It is not a user annotation
+    (``record_function``), which the profiler would also copy onto the
+    device timeline. With no profiler running, the only work is one read of
+    the profiler's flag.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
@@ -37,34 +61,6 @@ def trace(log_dir: str):
         yield
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-class Timer:
-    """Accumulating wall-clock timer.
-
-    Call :func:`hard_sync` on the result *inside* the block, else the
-    measurement ends before the (asynchronously launched) device work does:
-
-    >>> t = Timer()
-    >>> with t.measure():
-    ...     sol = pt.solve(qp, settings)
-    ...     hard_sync(sol)
-    """
-
-    def __init__(self):
-        self.total = 0.0
-        self.count = 0
-
-    @contextlib.contextmanager
-    def measure(self):
-        t0 = time.perf_counter()
-        yield
-        self.total += time.perf_counter() - t0
-        self.count += 1
-
-    @property
-    def mean(self) -> float:
-        return self.total / max(self.count, 1)
 
 
 def _tensors(tree):

@@ -1966,3 +1966,51 @@ def test_default_factor_on_card(dev):
     cpu = kkt.cholesky_init(qp.to("cpu"), rho.cpu(), 1e-4, st)["M_inv"]
     Ec = torch.eye(N, dtype=torch.float64) - cpu.double() @ M64.cpu()
     assert float(torch.linalg.matrix_norm(Ec, ord=2).max()) < 0.5
+
+
+def test_spans_add_no_device_event(dev, monkeypatch):
+    """A traced fused ADMM solve (the benchmark's stack at B=8, n=256): the
+    ``qps.*`` spans are host events only. No device event carries a
+    ``qps.`` name, and the device events are the same set of names as in
+    the same trace with every span switched off."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from quadraticprogramsolver_tpu_torch.core import lockstep
+    from quadraticprogramsolver_tpu_torch.models import admm
+    from quadraticprogramsolver_tpu_torch.utils import profiling
+
+    qp, _ = _fleet(dev)
+    st = pt.Settings(rho=0.4, adaptive_rho=False, check_interval=11,
+                     kkt_refinement_steps=0, sigma_free_rhs=True,
+                     fused_factor=True, fused_chunk=True, require_fused=True)
+
+    def traced():
+        """(device event names, span names) of one solve, traced after a
+        warm-up step, 50 ms of host time kept from each edge."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            pt.solve(qp, st)
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.05)
+            pt.solve(qp, st)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        ev = prof.events()
+        return ({e.key for e in ev if e.device_type == DeviceType.CUDA
+                 and not e.key.startswith("ProfilerStep")},
+                {e.key for e in ev if e.key.startswith("qps.")})
+
+    pt.solve(qp, st)
+    on_device, spans = traced()
+    assert {"qps.solve", "qps.factor", "qps.chunk", "qps.check",
+            "qps.sync"} <= spans
+    assert not [k for k in on_device if "qps." in k]
+    for mod in (admm, lockstep):
+        monkeypatch.setattr(mod, "span", lambda *a, **k: profiling._OFF)
+    off_device, off_spans = traced()
+    assert not off_spans
+    assert on_device == off_device

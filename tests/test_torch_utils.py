@@ -299,16 +299,21 @@ def test_solve_qp_reference_matches_jax(linsys):
 # --------------------------------------------------------------- profiling
 
 def test_profiling_trace_timer_and_sync(tmp_path):
-    """trace() writes one Chrome trace file of the block on the CPU; Timer
-    accumulates; hard_sync walks a Solution (nothing to wait for here)."""
+    """trace() writes one Chrome trace file of the block on the CPU, which
+    holds the solve's ``qps.solve`` span as a host event that times the
+    solve; hard_sync walks a Solution (nothing to wait for here)."""
+    import json
+
     log_dir = tmp_path / "trace"
     qp = pt.make_qp(*_arrays(8), device="cpu")
-    timer = profiling.Timer()
     with profiling.trace(str(log_dir)):
-        with timer.measure():
-            sol = pt.solve(qp, pt.Settings(max_iterations=50))
-            profiling.hard_sync(sol)
+        sol = pt.solve(qp, pt.Settings(max_iterations=50))
+        profiling.hard_sync(sol)
     files = os.listdir(log_dir)
     assert len(files) == 1 and files[0].endswith(".json")
-    assert os.path.getsize(log_dir / files[0]) > 0
-    assert timer.count == 1 and timer.mean > 0
+    with open(log_dir / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    (solve,) = [e for e in events if e.get("name") == "qps.solve"]
+    assert solve["ph"] == "X" and solve["cat"] == "cpu_op" and solve["dur"] > 0
+    assert {"qps.factor", "qps.chunk", "qps.check", "qps.sync"} <= {
+        e.get("name") for e in events}
