@@ -31,8 +31,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (``slab_build``, one launch over the gram's upper triangle) bit for bit
    the previous kernels on [A' | q | 0] and M's upper triangle, its gram part
    exactly symmetric and within MIRROR_TOL of theirs, one and two row blocks;
-   the strip level (``slab_level``, one launch a level) bit for bit the
-   previous two-launch level on the whole slab; each timed in turns beside
+   the strip level (``slab_level``, one launch a level, bf16x6 on the
+   tensor cores) within X6_GATE of the previous two-launch FP32 level's
+   error against a float64 run of the level, and no slower at B=512 than
+   the SIMT strip kernel it replaced (SIMT_STRIP_MS); each timed in turns beside
    its bound and one ``torch.baddbmm`` (TF32 off) on its dominant product
    shapes, the card's FP32 rate as a yardstick; the v3 pivot sweep bit
    for bit its previous kernel on the slab's pivot blocks and on
@@ -428,6 +430,15 @@ DEFAULT_SHARE, DEFAULT_GAP = 0.1, 1e-4
 #: than HIGH_GAP of their max. A CPU emulation at phase 2's shapes (the plain
 #: versions): "high" 1.2e-5 from "highest" there, FP32 7.5e-7 from f64.
 HIGH_GAP = 4e-6
+#: Row 3's strip level (bf16x6 on the tensor cores) against a float64 run of
+#: the level, over the two-launch FP32 witness's error (sequential fmaf
+#: sums): at most X6_GATE times, max relative and relative Frobenius alike
+#: (tests/test_torch_cuda.py: GATE), on the first GATE_LANES lanes.
+X6_GATE, GATE_LANES = 1.5, 512
+#: Row 3's SIMT FP32 strip kernel at phase 2's B=512, j=3, the kernel the
+#: bf16x6 one replaced (PERF.md kernel table row 3, its best run, H100 80GB
+#: HBM3 at 700 W): the bf16x6 kernel must not take longer.
+SIMT_STRIP_MS = 1.3158
 
 #: The kernels each main path must launch.
 ADMM_PATH = ("slab_build", "pivot_sweep_v3", "slab_level", "admm_chunk")
@@ -1194,13 +1205,11 @@ def slab_build_bound(B, n, ms):
 def level_bound(B, n, w_out, dot_precision="highest"):
     """The live region and the pivot columns read once, Dinv read, the live
     region written; Dinv . (pivot rows) for the 128 pivot rows, S - C .
-    DinvT for the other n - 128: 2 * 128 * w_out FLOPs a row, FP32 at
-    "highest", three bf16 passes at "high"."""
+    DinvT for the other n - 128: 2 * 128 * w_out FLOPs a row, six bf16
+    passes at "highest" (bf16x6), three at "high"."""
     nbytes = 4 * B * (n * (w_out + 128) + 128 * 128 + n * w_out)
     flops = 2 * B * 128 * w_out * n
-    if dot_precision == "high":
-        return bound(nbytes, 0, 3 * flops)
-    return bound(nbytes, flops)
+    return bound(nbytes, 0, (3 if dot_precision == "high" else 6) * flops)
 
 
 def yardstick_ms(torch, B, n, m, w_out, g):
@@ -1250,23 +1259,49 @@ def build_pair(torch, args, label, failures):
     return ms_new, ms_prev
 
 
+def level_errors(x, ref):
+    """(max |x - ref| / max |ref|, ||x - ref||_F / ||ref||_F), ref float64."""
+    d = x.double() - ref
+    return float(d.abs().max() / ref.abs().max()), float(d.norm() / ref.norm())
+
+
 def level_pair(torch, Sp, Dinv, j, w_out, label, failures, prec="highest"):
     """The strip level (``slab_level``) against the previous two-launch
     level (``slab_level_prev``) of precision ``prec`` at level ``j`` on a
-    copy of ``Sp``, bit for bit on the whole slab. Returns (new ms, previous
-    ms), timed in turns, each call on a fresh copy."""
+    copy of ``Sp``: at "high" bit for bit on the whole slab; at "highest"
+    (bf16x6 on the tensor cores) by the accuracy gate, both against a
+    float64 run of the level on the first GATE_LANES lanes, the strip
+    kernel's errors within X6_GATE of the witness's. Returns (new ms,
+    previous ms), timed in turns, each call on a fresh copy."""
     from quadraticprogramsolver_tpu_torch.ops import fused_factor as ff
 
     S1, S2 = Sp.clone(), Sp.clone()
     ff.slab_level(S1, Dinv, j, w_out, prec)
     ff.slab_level_prev(S2, Dinv, j, w_out, dot_precision=prec)
-    same = torch.equal(S1, S2)
-    del S1, S2
     name = "slab_level" + ("_high" if prec == "high" else "")
-    log(f"[{label}] B={Sp.shape[0]} {name} (j={j}, w_out={w_out}): the whole "
-        f"slab bit for bit slab_level_prev at {prec!r}: {same}")
-    if not same:
-        failures.append(f"{label}: {name} is not the previous kernel's bits")
+    if prec == "high":
+        same = torch.equal(S1, S2)
+        log(f"[{label}] B={Sp.shape[0]} {name} (j={j}, w_out={w_out}): the "
+            f"whole slab bit for bit slab_level_prev at {prec!r}: {same}")
+        if not same:
+            failures.append(f"{label}: {name} is not the previous kernel's bits")
+    else:
+        b = min(GATE_LANES, Sp.shape[0])
+        ref = Sp[:b].double()
+        ff.slab_level_plain(ref, Dinv[:b].double(), j, w_out)
+        (e1, f1), (e2, f2) = (level_errors(S[:b, :, :w_out], ref[..., :w_out])
+                              for S in (S1, S2))
+        ok = e1 <= X6_GATE * e2 and f1 <= X6_GATE * f2
+        log(f"[{label}] B={Sp.shape[0]} {name} (j={j}, w_out={w_out}) against "
+            f"float64 on {b} lanes: max relative {e1:.3e}, relative Frobenius "
+            f"{f1:.3e}; the FP32 witness {e2:.3e}, {f2:.3e} ({e1 / e2:.2f}x, "
+            f"{f1 / f2:.2f}x; gate {X6_GATE}x): {ok}")
+        if not ok:
+            failures.append(f"{label}: {name}'s error against float64 "
+                            f"({e1:.3e}, {f1:.3e}) over {X6_GATE}x the FP32 "
+                            f"witness's ({e2:.3e}, {f2:.3e})")
+        del ref
+    del S1, S2
     scratch = torch.empty((Sp.shape[0], 128, w_out), device=DEVICE)
     fresh = lambda fn: cuda_ms(fn, setup=lambda: (Sp.clone(),))  # noqa: E731
     return tuple(reversed(in_turns(
@@ -1401,6 +1436,10 @@ def phase_kernels(torch, extra):
                        failures)
     del S1, S2
     ms_new, ms_prev = level_pair(torch, Sp, Dp, j, w_out, "phase 2", failures)
+    if ms_new > SIMT_STRIP_MS:
+        failures.append(f"slab_level {ms_new:.4f} ms at B={B_KERNEL}: slower "
+                        f"than the SIMT strip kernel it replaced "
+                        f"({SIMT_STRIP_MS} ms)")
     bnd = level_bound(B_KERNEL, N, w_out)
     level_plain_ms = cuda_ms(lambda S: fused_factor.slab_level_plain(S, Dp, j, w_out),
                              setup=lambda: (Sp.clone(),))

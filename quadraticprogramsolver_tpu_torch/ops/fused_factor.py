@@ -15,8 +15,9 @@ G = S[:, :, :m] and g = S[:, :, m].
 Kernels (CUDA, float32): :func:`build_slab` (csrc/slab_build.cu, one or two
 blocks; at n % 128 == 0 one launch over the gram's upper triangle) and
 :func:`slab_level` (csrc/slab_level.cu: one launch a level over column
-strips, FP32 at "highest", bf16x3 on the tensor cores at "high"), each
-picking its kernel by a pure rule (:func:`build_kernel`,
+strips on the tensor cores, bf16x6 at "highest", held to FP32's accuracy,
+and bf16x3 at "high"), each picking its kernel by a pure rule
+(:func:`build_kernel`,
 :func:`level_kernel`); the pivot blocks go through
 :func:`~.spd_kernels.spd_inverse_unrolled` (csrc/pivot_sweep.cu, any pivot
 formulation). The previous kernels stay as the witnesses
@@ -156,6 +157,18 @@ build_slab_prev.launches = 0
 LEVEL_PRECISIONS = ("highest", "high")
 
 
+def bf16_split3(t):
+    """The three bfloat16 pieces of t: hi = bf16(t), mid = bf16(t - hi), lo
+    = bf16(t - hi - mid), each rounded to nearest even (csrc/slab_level.cu:
+    split3). Both subtractions are exact in float32, and hi + mid + lo == t
+    for a float32 t that is 0 or has 2^-110 <= |t| < 2^128 - 2^120 (lo not
+    below bfloat16's least subnormal, hi finite)."""
+    hi = t.to(torch.bfloat16)
+    r = t - hi.to(t.dtype)
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.to(t.dtype)).to(torch.bfloat16)
+
+
 def _dot3(a, b):
     """a @ b in bf16x3 as the JAX level kernel writes it: (ah bh + ah bl) +
     al bh, each a product of bf16 halves summed in a's dtype (lo lo
@@ -163,6 +176,29 @@ def _dot3(a, b):
     ah, al = (h.to(a.dtype) for h in bf16_split(a))
     bh, bl = (h.to(b.dtype) for h in bf16_split(b))
     return torch.matmul(ah, bh) + torch.matmul(ah, bl) + torch.matmul(al, bh)
+
+
+def _dot6(a, b):
+    """a @ b in bf16x6 as the "highest" strip kernel computes it: each
+    operand as its three bf16 pieces (:func:`bf16_split3`); for each 16-deep
+    chunk of k the products lo hi, mid mid, hi lo, mid hi, hi mid and hi hi
+    of its pieces summed in that order in a's dtype, and the chunks' sums
+    added in k order (mid lo, lo mid and lo lo, below 2^-23 of the product,
+    dropped). The kernel sums each chunk's products on the tensor cores,
+    which round toward zero, and adds the chunks' sums with von Neumann
+    rounding to undo that drift; here every sum rounds to nearest. So the
+    two agree to FP32 rounding, not bit for bit. k % 16 == 0."""
+    ah, am, al = (p.to(a.dtype) for p in bf16_split3(a))
+    bh, bm, bl = (p.to(b.dtype) for p in bf16_split3(b))
+    out = None
+    for k in range(0, a.shape[-1], 16):
+        ks = slice(k, k + 16)
+        chunk = None
+        for x, y in ((al, bh), (am, bm), (ah, bl), (am, bh), (ah, bm), (ah, bh)):
+            term = torch.matmul(x[..., ks], y[..., ks, :])
+            chunk = term if chunk is None else chunk + term
+        out = chunk if out is None else out + chunk
+    return out
 
 
 def slab_level_plain(S, Dinv, j: int, w_out: int,
@@ -175,15 +211,16 @@ def slab_level_plain(S, Dinv, j: int, w_out: int,
 
 
 def level_kernel(dot_precision: str) -> str:
-    """The kernel :func:`slab_level` launches at ``dot_precision``: "strip"
-    at both precisions (csrc/slab_level.cu: level_strip_kernel at "highest",
-    level_strip_kernel_high at "high"; one launch a level over column
-    strips, no scratch). The two-launch "tiles" level, DinvT through a
-    scratch buffer, is :func:`slab_level_prev`'s alone."""
+    """The kernel :func:`slab_level` launches at ``dot_precision``, one
+    launch a level over column strips on the tensor cores, no scratch:
+    "strip_x6" at "highest" (csrc/slab_level.cu: level_strip_kernel_x6,
+    bf16x6 wgmma), "strip" at "high" (level_strip_kernel_high, bf16x3
+    mma.sync). The two-launch "tiles" level, DinvT through a scratch
+    buffer, is :func:`slab_level_prev`'s alone."""
     if dot_precision not in LEVEL_PRECISIONS:
         raise ValueError(f"slab level precision must be one of "
                          f"{LEVEL_PRECISIONS}; got {dot_precision!r}")
-    return "strip"
+    return "strip_x6" if dot_precision == "highest" else "strip"
 
 
 def _check_level(S, Dinv, j: int, w_out: int):
@@ -204,11 +241,13 @@ def slab_level(S, Dinv, j: int, w_out: int,
     The pivot columns are S[:, :, w_out:w_out + 128] (M's block column j),
     Dinv (B, 128, 128) the inverse of their pivot block. Pivot rows become
     Dinv . T[j rows]; the other rows get T - C . (Dinv . T[j rows]).
-    ``dot_precision``: "highest" (FP32 products) or "high" (bf16x3: Dinv,
-    the pivot rows, C and Dinv . T split into bf16 halves, lo . lo
-    dropped; the level's other operand, T, enters elementwise); float64
-    runs "highest". On a CUDA tensor it launches the strip kernel of that
-    precision (:func:`level_kernel`), counted in
+    ``dot_precision``: "highest" (FP32 products: the plain version's
+    torch.matmul; on the card bf16x6, the products' operands split into
+    three bf16 pieces, held to the FP32 level's error, see :func:`_dot6`)
+    or "high" (bf16x3: Dinv, the pivot rows, C and Dinv . T split into bf16
+    halves, lo . lo dropped; the level's other operand, T, enters
+    elementwise); float64 runs "highest". On a CUDA tensor it launches the
+    strip kernel of that precision (:func:`level_kernel`), counted in
     ``slab_level.variants[dot_precision]``; it needs no scratch.
     """
     level_kernel(dot_precision)  # checks the precision
@@ -232,10 +271,11 @@ def slab_level_prev(S, Dinv, j: int, w_out: int, scratch=None,
     """:func:`slab_level` through the previous kernel of ``dot_precision``
     (the two launches, DinvT through ``scratch``, a (B, 128, >= w_out)
     float32 buffer allocated when None): the witness and timing baseline of
-    the strip kernels on the card (no solver calls it). On a CUDA tensor
-    (float32) it launches it and counts in ``slab_level_prev.launches``; on
-    a CPU tensor (float32 or float64) it runs :func:`slab_level_plain`.
-    Other dtypes raise."""
+    the strip kernels on the card (no solver calls it); at "highest" its
+    sequential FP32 sums are the error the bf16x6 strip kernel is held to.
+    On a CUDA tensor (float32) it launches it and counts in
+    ``slab_level_prev.launches``; on a CPU tensor (float32 or float64) it
+    runs :func:`slab_level_plain`. Other dtypes raise."""
     level_kernel(dot_precision)  # checks the precision
     if not _build.launches_witness("slab_level_prev", S, Dinv):
         return slab_level_plain(S, Dinv, j, w_out, dot_precision)

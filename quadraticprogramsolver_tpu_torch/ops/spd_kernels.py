@@ -235,8 +235,8 @@ def spd_inverse_unrolled(D: torch.Tensor, *, variant: str = "v3") -> torch.Tenso
     pivot_rank(variant, nb)
     B = math.prod(batch_shape)
     D3 = D.reshape((B, nb, nb))
-    if B < 4:
-        return cholesky_inverse(D3).reshape(D.shape)
+    if B < 4:  # contiguous, as the kernels return and the level kernels take
+        return cholesky_inverse(D3).contiguous().reshape(D.shape)
     if not _build.launches_kernel("spd_inverse_unrolled", D):
         return pivot_sweep_plain(D3, variant).reshape(D.shape)
     return _pivot_sweep_cuda(D3, variant).reshape(D.shape)

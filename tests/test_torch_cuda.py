@@ -1276,32 +1276,95 @@ def _factor_operands(dev, seed, b, n, ms):
     return qp.P, blocks, qp.q, rho
 
 
-@pytest.mark.parametrize("b", [5, 300])
-@pytest.mark.parametrize("m", [64, 128])
+#: Row 3's bf16x6 level against float64, over the FP32 witness's error
+#: (``slab_level_prev`` at "highest", sequential fmaf sums): at most GATE
+#: times, max relative and relative Frobenius alike.
+GATE = 1.5
+
+
+def _errors(x, ref):
+    """(max |x - ref| / max |ref|, ||x - ref||_F / ||ref||_F)."""
+    d = x.double() - ref
+    return float(d.abs().max() / ref.abs().max()), float(d.norm() / ref.norm())
+
+
+def _within_gate(new, prev, ref):
+    """The gate on ``new`` and ``prev`` against ``ref``: (passes, errors)."""
+    e_new, e_prev = _errors(new, ref), _errors(prev, ref)
+    return all(a <= GATE * b for a, b in zip(e_new, e_prev)), (e_new, e_prev)
+
+
+@pytest.mark.parametrize("b", [1, 300])
+@pytest.mark.parametrize("m", [64, 128, 256])
 @pytest.mark.parametrize("n", [128, 256, 512])
 def test_strip_level_matches_previous_kernel(dev, n, m, b):
-    """Row 3's strip kernel (one launch a level) bit for bit the previous
-    two-launch FP32 level (``slab_level_prev``) on the whole slab, at every
-    level j: m = 64 gives w_out % 128 == 0 (kp = 128), m = 128 gives 64 (kp
-    = 192, a 64-wide last strip); B = 300 is more than one wave (two CTAs
+    """Row 3's strip kernel (bf16x6 on the tensor cores, one launch a
+    level) held to the previous two-launch FP32 level (``slab_level_prev``)
+    at every level j: its error against a float64 run of the level within
+    GATE of the witness's, max relative and relative Frobenius; within TOL
+    of the plain bf16x6 level (``_dot6``, the kernel's arithmetic); the
+    pivot columns untouched. m = 64 gives w_out % 128 == 0 (kp = 128), m =
+    128 and 256 give 64 (kp = 192, 320: a 64-wide last strip); n = 128 has
+    no row block but the pivots'; B = 300 is more than two waves (one CTA
     an SM on 132 SMs)."""
     P, A, q, rho = _factor_operands(dev, 40, b, n, (m,))
     S = fused_factor.build_slab(P, A, q, rho, 1e-6)
     kp = fused_factor.slab_k(m)
-    assert kp % 128 == {64: 0, 128: 64}[m]
+    assert kp % 128 == {64: 0, 128: 64, 256: 64}[m]
     for j in range(n // 128 - 1, -1, -1):
         w_out = kp + j * 128
         Dinv = spd_kernels.spd_inverse_unrolled(
             S[:, j * 128:(j + 1) * 128, w_out:w_out + 128])
-        new = S.clone()
+        new, mirror = S.clone(), S.clone()
+        ref = S.double()
         fused_factor.slab_level.variants.clear()
         fused_factor.slab_level_prev.launches = 0
         fused_factor.slab_level(new, Dinv, j, w_out)
         fused_factor.slab_level_prev(S, Dinv, j, w_out)
         assert dict(fused_factor.slab_level.variants) == {"highest": 1}
         assert fused_factor.slab_level_prev.launches == 1
-        assert torch.isfinite(S).all()
-        assert torch.equal(new, S), j
+        fused_factor.slab_level_plain(ref, Dinv.double(), j, w_out)
+        rows = slice(j * 128, (j + 1) * 128)
+        DinvT = fused_factor._dot6(Dinv, mirror[:, rows, :w_out])
+        mirror[..., :w_out] -= fused_factor._dot6(
+            mirror[..., w_out:w_out + 128], DinvT)
+        mirror[:, rows, :w_out] = DinvT
+        assert torch.isfinite(new).all()
+        assert torch.equal(new[..., w_out:], S[..., w_out:]), j
+        ok, errs = _within_gate(new[..., :w_out], S[..., :w_out], ref[..., :w_out])
+        assert ok, (j, errs)
+        assert _close(new, mirror), j
+
+
+@pytest.mark.parametrize("shape", [(256, 128, 300, None), (512, 256, 64, 0.4),
+                                   (512, 128, 1, None)],
+                         ids=["n256_b300", "cells_draw", "n512_b1"])
+def test_strip_factor_holds_fp32_error(dev, shape):
+    """The whole factor (``fused_factor_solve``: one build, the pivot
+    sweeps, the x6 strip levels) against a float64 run of the same slab
+    (float64 levels, torch.linalg.inv pivots): X = S[..., :kp] within GATE
+    of the FP32 witness factor's error (the same build and pivot kernels,
+    every level through ``slab_level_prev``), max relative and relative
+    Frobenius. "cells_draw" is the benchmark cells' generator at n = 512,
+    m = 256, rho 0.4."""
+    n, m, b, rho0 = shape
+    P, A, q, rho = _factor_operands(dev, 44, b, n, (m,))
+    if rho0 is not None:
+        rho = torch.full_like(rho, rho0)
+    kp = fused_factor.slab_k(m)
+    fused_factor.slab_level.variants.clear()
+    X = fused_factor.fused_factor_solve(P, A, q, rho, sigma=1e-6)[..., :kp]
+    assert dict(fused_factor.slab_level.variants) == {"highest": n // 128}
+    W = fused_factor.build_slab(P, A, q, rho, 1e-6)
+    S64 = W.double()
+    for j in range(n // 128 - 1, -1, -1):
+        w_out, rows = kp + j * 128, slice(j * 128, (j + 1) * 128)
+        fused_factor.slab_level_prev(W, spd_kernels.spd_inverse_unrolled(
+            W[:, rows, w_out:w_out + 128]), j, w_out)
+        fused_factor.slab_level_plain(
+            S64, torch.linalg.inv(S64[:, rows, w_out:w_out + 128]), j, w_out)
+    ok, errs = _within_gate(X, W[..., :kp], S64[..., :kp])
+    assert ok, errs
 
 
 @pytest.mark.parametrize("ms", [(256,), (128, 128), (48, 80)])
@@ -1713,9 +1776,11 @@ def test_wide_groups_keep_the_first_kernel(dev, variant):
 
 
 def _witness_factor(P, A, q, rho, pivot_variant, dot_precision):
-    """The fused factor through the witnesses: the previous build, each
-    pivot block through pivot_sweep_group_prev (or v3's kernel), each level
-    through the two-launch slab_level_prev."""
+    """The fused factor through the pivot witnesses: each pivot block
+    through pivot_sweep_group_prev (or v3's kernel); each "high" level
+    through the two-launch slab_level_prev, each "highest" one through the
+    strip kernel (bf16x6, which its own test holds to the two-launch FP32
+    level's error: no witness gives its bits)."""
     n, m = q.shape[-1], rho.shape[-1]
     kp = fused_factor.slab_k(m)
     S = fused_factor.build_slab(P, A, q, rho, 1e-6)
@@ -1724,7 +1789,10 @@ def _witness_factor(P, A, q, rho, pivot_variant, dot_precision):
         D = S[:, j * 128:(j + 1) * 128, w_out:w_out + 128]
         Dinv = (spd_kernels.pivot_sweep_v3_prev(D) if pivot_variant == "v3"
                 else spd_kernels.pivot_sweep_group_prev(D, pivot_variant))
-        fused_factor.slab_level_prev(S, Dinv, j, w_out, dot_precision=dot_precision)
+        if dot_precision == "high":
+            fused_factor.slab_level_prev(S, Dinv, j, w_out, dot_precision="high")
+        else:
+            fused_factor.slab_level(S, Dinv, j, w_out)
     return S
 
 
@@ -1732,8 +1800,9 @@ def _witness_factor(P, A, q, rho, pivot_variant, dot_precision):
 @pytest.mark.parametrize("knob", ["r2", "r4", "r8", "panel", "high"])
 def test_knob_factor_matches_witness_factor(dev, knob, ms):
     """Phases 9c-9g's fused factors at n = 512, both families' shapes, bit
-    for bit the same factor through the witnesses (their parent's
-    kernels): four launches of the knob's kernel and none of a witness."""
+    for bit the same factor through the pivot and "high" level witnesses
+    (their parent's kernels): four launches of the knob's kernel and none
+    of a witness."""
     b, n = 16, 512
     P, A, q, rho = _factor_operands(dev, 47, b, n, ms)
     pivot, prec = ("v3", "high") if knob == "high" else (knob, "highest")

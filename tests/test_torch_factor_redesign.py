@@ -1,8 +1,11 @@
 """Rows 1 and 3's redesigned kernels as the CPU can check them.
 
 The fused factor's dispatch rules (``ops/fused_factor.py: build_kernel``, a
-pure function of n; ``level_kernel``, of the level's precision: the strip
-kernel at both since the bf16x3 level's redesign), the witness wrappers that
+pure function of n; ``level_kernel``, of the level's precision: a strip
+kernel at both, bf16x6 at "highest" and bf16x3 at "high"), the "highest"
+strip kernel's bf16x6 arithmetic in plain PyTorch (``bf16_split3``,
+``_dot6``: the split exact, the whole factor within 1.5x FP32's error
+against float64), the witness wrappers that
 launch the previous kernels on the card (``build_slab_prev``,
 ``slab_level_prev``: their plain versions here) against their plain versions
 and, through a whole factor, against the JAX package's fused factor in
@@ -46,7 +49,7 @@ def test_build_kernel_rule(n):
     assert fused_factor.build_kernel(n) == BUILD_RULE[n]
 
 
-@pytest.mark.parametrize("prec,kernel", [("highest", "strip"), ("high", "strip")])
+@pytest.mark.parametrize("prec,kernel", [("highest", "strip_x6"), ("high", "strip")])
 def test_level_kernel_rule(prec, kernel):
     assert fused_factor.level_kernel(prec) == kernel
 
@@ -164,3 +167,71 @@ def test_witness_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         fused_factor.slab_level_prev(S, torch.zeros((B, 128, 128), device="meta"),
                                      0, 128)
+
+
+# ---------------------------- row 3's bf16x6 arithmetic, in plain PyTorch
+
+#: Exponent ranges of the float32 values the three-way split is held to:
+#: down to 2^-110 (lo at bfloat16's least subnormal) and below 2^127.
+SPLIT_EXPONENTS = {"unit": (-4, 4), "tiny": (-110, -60), "huge": (60, 126)}
+#: The bf16x6 factor's error against float64 over FP32 matmul's.
+GATE = 1.5
+
+
+@pytest.mark.parametrize("family", list(SPLIT_EXPONENTS))
+def test_bf16_split3_is_exact(family):
+    """hi + mid + lo == x for float32 x with every significand bit drawn,
+    both signs and exponents over the family's range, and for 0: each piece
+    a bfloat16, hi = bf16(x). The three pieces hold the 24-bit significand,
+    so bf16x6's products see the FP32 operands whole."""
+    lo_e, hi_e = SPLIT_EXPONENTS[family]
+    rng = np.random.default_rng(11)
+    sig = rng.integers(2 ** 23, 2 ** 24, 20000).astype(np.float64)
+    exp = rng.integers(lo_e, hi_e + 1, sig.size)
+    x = np.ldexp(sig, exp - 23) * rng.choice([-1.0, 1.0], sig.size)
+    x = torch.from_numpy(np.append(x, 0.0).astype(np.float32))
+    pieces = fused_factor.bf16_split3(x)
+    assert all(p.dtype == torch.bfloat16 for p in pieces)
+    assert torch.equal(pieces[0], x.to(torch.bfloat16))
+    assert torch.equal(sum(p.double() for p in pieces), x.double())
+
+
+def _gauss_jordan(S, mm, inv):
+    """The factor's levels on slab S in place, every product by ``mm`` and
+    every pivot inverse by ``inv``; returns X = S[..., :kp]."""
+    n = S.shape[1]
+    kp = S.shape[2] - n
+    for j in range(n // 128 - 1, -1, -1):
+        w_out, rows = kp + j * 128, slice(j * 128, (j + 1) * 128)
+        DinvT = mm(inv(S[:, rows, w_out:w_out + 128]), S[:, rows, :w_out])
+        S[:, :, :w_out] -= mm(S[:, :, w_out:w_out + 128], DinvT)
+        S[:, rows, :w_out] = DinvT
+    return S[..., :kp]
+
+
+def _errors(x, ref):
+    """(max |x - ref| / max |ref|, ||x - ref||_F / ||ref||_F)."""
+    d = x.double() - ref
+    return float(d.abs().max() / ref.abs().max()), float(d.norm() / ref.norm())
+
+
+def test_dot6_gauss_jordan_holds_fp32_error():
+    """The whole four-level factor at the cells' shape (n = 512, m = 256,
+    P and A at density 0.15, rho 0.4, sigma 1e-6) with every level product
+    in bf16x6 (``_dot6``) against a float64 run of the same slab: max
+    relative and relative Frobenius error within GATE of the FP32
+    (torch.matmul) run's. Both FP32 runs invert the pivots with the v3
+    sweep's plain version."""
+    b, n, m = 2, 512, 256
+    rng = np.random.default_rng(12)
+    Mm = rng.standard_normal((b, n, n)) * (rng.random((b, n, n)) < 0.15)
+    P = np.swapaxes(Mm, 1, 2) @ Mm + 1e-2 * np.eye(n)
+    A = rng.standard_normal((b, m, n)) * (rng.random((b, m, n)) < 0.15)
+    q = rng.standard_normal((b, n))
+    P, A, q = _torch(*(a.astype(np.float32) for a in (P, A, q)))
+    S = fused_factor.build_slab_plain(P, A, q, torch.full((b, m), 0.4), SIGMA)
+    ref = _gauss_jordan(S.double(), torch.matmul, torch.linalg.inv)
+    inv = spd_kernels.pivot_sweep_v3_plain
+    fp32 = _errors(_gauss_jordan(S.clone(), torch.matmul, inv), ref)
+    x6 = _errors(_gauss_jordan(S.clone(), fused_factor._dot6, inv), ref)
+    assert all(e <= GATE * f for e, f in zip(x6, fp32)), (x6, fp32)
